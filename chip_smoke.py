@@ -1,0 +1,681 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (tamp_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero):
+
+1. the card's name and power limit; build the kernels from ``csrc/``;
+2. each kernel against its plain PyTorch version on the same inputs, at a
+   reduced size (2 shards x 64 KiB), exactly: B1 at windows 8/10/12/15, B3
+   at windows 10 and 14 plus an excess-bits row, B4 on an extended stream,
+   a window-15 stream, a double-FLUSH ``more`` stream and a corrupt stream;
+3. the main path at full size: 8 x 1 MiB shards of a seeded text-like
+   corpus with a run-heavy stretch, window 10 / literal 8, through
+   ``compress_sharded(engine="device-commit")`` and
+   ``decompress_sharded_device``; the kernel launch counts of that one
+   round trip; encode and decode rates (CUDA events, median of 3 after a
+   warm-up); the card's streams equal to the plain versions' on a small
+   input; the time of each stage of the encode and the decode, and the
+   device's busy and idle share in each (torch.profiler);
+4. each kernel at the main path's shapes: its time, its plain version's
+   time and result, and its bound (the least time the card could take).
+
+The last lines are the ``kernels`` JSON object, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 lanes (H100 whitepaper)
+SMALL = 1 << 16            # shard size of phase 2
+
+
+def fail(msg: str):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def smi() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
+        f"nvidia-smi failed: {r.stderr.strip()}"
+
+
+def int_ops_per_s() -> float:
+    """The card's peak rate of 32-bit integer instructions: SMs x INT32
+    lanes per SM x the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi could not read the SM clock: {r.stderr.strip()}")
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def corpus(size: int, seed: int = 0x7A3B) -> bytes:
+    """Seeded text-like bytes (a random-word text, repeated) with a
+    run-heavy stretch in its middle so forced RLE regions occur."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 10)))
+             for _ in range(512)]
+    base = b" ".join(words[int(i) % 512]
+                     for i in rng.integers(0, 512, 200_000))
+    text = (base * (-(-size // len(base))))[:size]
+    runs = b"".join(bytes([int(b)]) * int(c) for b, c in zip(
+        rng.integers(0, 256, 4096), rng.integers(1, 400, 4096)))
+    mid = size // 2
+    stretch = runs[: size // 16]
+    return text[:mid] + stretch + text[mid + len(stretch):]
+
+
+def cuda_ms(fn, reps: int = 3):
+    """Median ms of ``fn()`` over ``reps`` runs after one warm-up, timed
+    with CUDA events on the current stream; returns (ms, last result)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), out
+
+
+def sync(dev) -> None:
+    """Wait for the card, so that a fault shows where it happened."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def max_abs_err(pairs) -> int:
+    import torch
+
+    err = 0
+    for x, y in pairs:
+        x = torch.as_tensor(x).to("cpu", torch.int64)
+        y = torch.as_tensor(y).to("cpu", torch.int64)
+        if x.shape != y.shape:
+            fail(f"shape mismatch {tuple(x.shape)} vs {tuple(y.shape)}")
+        if x.numel():
+            err = max(err, int((x - y).abs().max()))
+    return err
+
+
+class BitWriter:
+    """MSB-first bit writer for a hand-built Tamp stream."""
+
+    def __init__(self):
+        self.bits: list[int] = []
+
+    def put(self, v: int, n: int):
+        self.bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    def align(self):
+        self.bits.extend([0] * (-len(self.bits) % 8))
+
+    def bytes(self) -> bytes:
+        self.align()
+        return bytes(int("".join(map(str, self.bits[i : i + 8])), 2)
+                     for i in range(0, len(self.bits), 8))
+
+
+def more_stream():
+    """A window-10 extended ``more`` stream with a double FLUSH: literals,
+    a match, an RLE token, FLUSH, FLUSH, then a match into the reset
+    (default) dictionary.  Returns (stream, expected output)."""
+    from tamp_tpu_torch.constants import HUFFMAN_CODES as HC
+    from tamp_tpu_torch.constants import HUFFMAN_LENGTHS as HL
+    from tamp_tpu_torch.dictionary import dictionary_array
+
+    bw = BitWriter()
+    bw.put(((10 - 8) << 5) | ((8 - 5) << 3) | (1 << 1) | 1, 8)
+    bw.put(0, 8)  # reserved header byte
+    for ch in b"abcabcabc":
+        bw.put(0x100 | ch, 9)
+    bw.put(HC[1], HL[1])  # match of size minp + 1 = 3 at slot 0
+    bw.put(0, 10)
+    bw.put(HC[12], HL[12])  # RLE of 20: secondary symbol 1, trail 2
+    bw.put(HC[1], HL[1] - 1)
+    bw.put(2, 4)
+    for _ in range(2):  # FLUSH, FLUSH: the window resets
+        bw.put(HC[14], HL[14])
+        bw.align()
+    for ch in b"xyz":
+        bw.put(0x100 | ch, 9)
+    bw.put(HC[2], HL[2])  # match of size 4 at slot 100 of the default dict
+    bw.put(100, 10)
+    d = dictionary_array(1024, literal=8)
+    want = b"abcabcabc" + b"abc" + b"c" * 20 + b"xyz" + d[100:104].tobytes()
+    return bw.bytes(), want
+
+
+def v1_stream():
+    """A window-10 v1 (non-extended) stream: literals, a match into the
+    written bytes, and a match of symbol 13 (a basic match of minp + 13
+    bytes in v1, not an extended one) into the default dictionary.
+    Returns (stream, expected output)."""
+    from tamp_tpu_torch.constants import HUFFMAN_CODES as HC
+    from tamp_tpu_torch.constants import HUFFMAN_LENGTHS as HL
+    from tamp_tpu_torch.dictionary import dictionary_array
+
+    bw = BitWriter()
+    bw.put(((10 - 8) << 5) | ((8 - 5) << 3), 8)
+    for ch in b"abcabc":
+        bw.put(0x100 | ch, 9)
+    bw.put(HC[1], HL[1])  # size 3 at slot 0
+    bw.put(0, 10)
+    bw.put(HC[13], HL[13])  # size 15 at slot 500
+    bw.put(500, 10)
+    d = dictionary_array(1024, literal=8)
+    return bw.bytes(), b"abcabc" + b"abc" + d[500:515].tobytes()
+
+
+def oob_stream():
+    """A window-10 extended stream whose second token is a basic match
+    reading past the window end (ERR_OOB)."""
+    from tamp_tpu_torch.constants import HUFFMAN_CODES as HC
+    from tamp_tpu_torch.constants import HUFFMAN_LENGTHS as HL
+
+    bw = BitWriter()
+    bw.put(((10 - 8) << 5) | ((8 - 5) << 3) | (1 << 1), 8)
+    bw.put(0x100 | 0x41, 9)
+    bw.put(HC[11], HL[11])  # size minp + 11 = 13 at slot 1020: 1033 > W
+    bw.put(1020, 10)
+    return bw.bytes()
+
+
+def phase_kernels_small(dev, report):
+    """Phase 2: each kernel against its plain version, reduced size."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.encode_commit import (
+        commit_fields, commit_fields_plain,
+    )
+    from tamp_tpu_torch.ops.match_ext import ext_tables_plain
+    from tamp_tpu_torch.parallel.shard import (
+        _parse_frame, compress_sharded, decompress_sharded_device,
+    )
+
+    small = corpus(2 * SMALL, seed=5)
+    shards = [np.frombuffer(small[i : i + SMALL], np.uint8)
+              for i in range(0, len(small), SMALL)]
+
+    def fields(datas, window, literal):
+        _prep, dh, rc, npos = prepare_batch(datas, window=window)
+        d = torch.from_numpy(dictionary_array(1 << window, literal)).to(dev)
+        dh = torch.from_numpy(dh).to(dev)
+        npos = torch.from_numpy(npos).to(dev)
+        tabs, A, B = ext_fields(dh, torch.from_numpy(rc).to(dev), npos, d,
+                                window=window, literal=literal)
+        lext = compute_min_pattern_size(window, literal) + 131
+        return dh, npos, d, lext, tabs, A, B
+
+    for window in (8, 10, 12, 15):
+        dh, npos, d, lext, tabs, _A, _B = fields(shards, window, 8)
+        plain = ext_tables_plain(dh, npos, d, window_bits=window, LEXT=lext)
+        sync(dev)
+        err = max_abs_err(zip(tabs, plain))
+        report(f"B1 w{window} 2x64KiB: kernel vs plain max_abs_err={err}")
+        if err:
+            fail(f"B1 differs from its plain version at window {window}")
+
+    excess = shards[0] & 0x7F
+    excess[SMALL // 2] = 0xC3
+    for window, literal, datas in ((10, 8, shards), (14, 8, shards),
+                                   (10, 7, [shards[1] & 0x7F, excess])):
+        _dh, npos, _d, _l, _t, A, B = fields(datas, window, literal)
+        NP = A.shape[1]
+        kw = dict(max_out=NP + NP // 8 + 64,
+                  idx_bits=window if window >= 14 else 0)
+        out, st = commit_fields(A, B, npos, **kw)
+        pout, pst = commit_fields_plain(A, B, npos, **kw)
+        sync(dev)
+        err = max_abs_err([(out, pout), (st, pst)])
+        errs = st[:, 6].tolist()
+        report(f"B3 w{window} l{literal}: kernel vs plain max_abs_err={err} "
+               f"err_slots={errs}")
+        if err:
+            fail(f"B3 differs from its plain version at window {window}")
+        if literal == 7 and errs != [0, 1]:
+            fail("B3 missed the excess-bits row")
+
+    def decode_case(name, streams, window, literal, more, dict_init,
+                    max_out, extended=True):
+        skip = 2 if more else 1
+        nxt, packed = dw.payload_parse(
+            [s[skip:] for s in streams], window=window, literal=literal,
+            extended=extended, device=dev)
+        W = 1 << window
+        di = torch.from_numpy(np.array(dict_init, np.uint8)).to(dev)
+        dr = torch.from_numpy(
+            dictionary_array(W, literal if extended else 8)).to(dev)
+        got = dc.commit_decode(nxt, packed, di, dr, W=W, more=more,
+                               max_out=max_out)
+        plain = dc.commit_decode_plain(dc.fuse_parse(nxt, packed), di, dr,
+                                       W=W, more=more, max_out=max_out)
+        sync(dev)
+        err = max_abs_err(zip(got, plain))
+        report(f"B4 {name}: kernel vs plain max_abs_err={err} "
+               f"lens={got[1].tolist()} errs={got[2].tolist()}")
+        if err:
+            fail(f"B4 differs from its plain version on {name}")
+        return got
+
+    for window in (10, 15):
+        blob = compress_sharded(small, window=window, shard_size=SMALL,
+                                device=dev)
+        _raw, _ss, pieces = _parse_frame(blob)
+        out, lens, errs = decode_case(
+            f"extended w{window}", pieces, window, 8, False,
+            dictionary_array(1 << window, 8), SMALL)
+        for i, s in enumerate(shards):
+            if errs[i] != 0 or out[i, : int(lens[i])].cpu().numpy() \
+                    .tobytes() != s.tobytes():
+                fail(f"B4 did not round-trip shard {i} at window {window}")
+        if window == 10:
+            bad = bytearray(pieces[0])
+            bad[len(bad) // 2] ^= 0x5A
+            decode_case("corrupt stream", [bytes(bad)], 10, 8, False,
+                        dictionary_array(1024, 8), SMALL)
+            _o, _l, errs = decode_case("out-of-bounds stream", [oob_stream()],
+                                       10, 8, False,
+                                       dictionary_array(1024, 8), 1024)
+            if errs.tolist() != [dc.ERR_OOB]:
+                fail("B4 missed the out-of-bounds match")
+            _o, _l, errs = decode_case("output overflow", pieces, 10, 8,
+                                       False, dictionary_array(1024, 8),
+                                       SMALL // 2)
+            if errs.tolist() != [dc.ERR_OVERFLOW] * len(pieces):
+                fail("B4 missed the output overflow")
+    stream, want = more_stream()
+    out, lens, errs = decode_case("more/double-FLUSH", [stream], 10, 8, True,
+                                  dictionary_array(1024, 8), 1024)
+    if out[0, : int(lens[0])].cpu().numpy().tobytes() != want:
+        fail("B4 double-FLUSH stream decoded wrongly")
+    stream, want = v1_stream()
+    out, lens, errs = decode_case("v1 stream", [stream], 10, 8, False,
+                                  dictionary_array(1024, 8), 1024,
+                                  extended=False)
+    if out[0, : int(lens[0])].cpu().numpy().tobytes() != want:
+        fail("B4 v1 stream decoded wrongly")
+
+    # empty and tiny shards through the entry points, card against plain
+    tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
+    for data, size in ((b"", SMALL), (tiny, 7), (tiny, 16), (tiny, 17)):
+        blob = compress_sharded(data, shard_size=size, device=dev)
+        if blob != compress_sharded(data, shard_size=size, device="cpu"):
+            fail(f"tiny shards of {size} bytes encode differently")
+        if bytes(decompress_sharded_device(blob, device=dev)) != data:
+            fail(f"tiny shards of {size} bytes did not round-trip")
+    report("entry points: empty and tiny shards equal to the plain versions")
+
+
+def phase_main_path(dev, report, n_shards: int, shard_size: int, card: str):
+    """Phase 3: the round trip at full size; returns (data, blob,
+    launches) with the launch counts of that one round trip."""
+    import torch
+
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops.encode_commit import commit_fields
+    from tamp_tpu_torch.ops.match_ext import ext_tables
+    from tamp_tpu_torch.parallel.shard import (
+        compress_sharded, decompress_sharded_device,
+    )
+
+    data = corpus(n_shards * shard_size)
+    counters = (ext_tables, commit_fields, dc.commit_decode)
+    for fn in counters:
+        fn.launches = 0
+    blob = compress_sharded(data, shard_size=shard_size, device=dev)
+    back = decompress_sharded_device(blob, device=dev)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if bytes(back) != data:
+        fail("main path did not round-trip")
+    report(f"phase 3: round trip of {len(data)} bytes in {n_shards} shards "
+           f"equal; ratio {len(blob) / len(data):.6f}; launches {launches}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    enc_ms, blob2 = cuda_ms(lambda: compress_sharded(
+        data, shard_size=shard_size, device=dev))
+    dec_ms, _ = cuda_ms(lambda: decompress_sharded_device(blob, device=dev))
+    if blob2 != blob:
+        fail("encode is not deterministic")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else 0.0)
+    report(f"  encode {len(data) / enc_ms / 1e3:.2f} MB/s ({enc_ms:.1f} ms), "
+           f"decode {len(data) / dec_ms / 1e3:.2f} MB/s ({dec_ms:.1f} ms), "
+           f"peak device memory {peak:.2f} GiB [{card}]")
+    piece = data[:40000] + data[len(data) // 2 : len(data) // 2 + 20000]
+    on_card = compress_sharded(piece, shard_size=1 << 15, device=dev)
+    if on_card != compress_sharded(piece, shard_size=1 << 15, device="cpu"):
+        fail("card and plain-version containers differ on a small input")
+    if bytes(decompress_sharded_device(on_card, device="cpu")) != piece:
+        fail("plain-version decode of the card's container differs")
+    report(f"  the card's container equals the plain versions' on "
+           f"{len(piece)} bytes")
+    return data, blob, launches
+
+
+def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
+    """Where the main path's time goes: each stage of one encode and one
+    decode, host clock around work that ends in a synchronize, median of 3
+    after a warm-up."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        encode_ext_device_commit, ext_fields, prepare_batch,
+    )
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.encode_commit import commit_fields
+    from tamp_tpu_torch.ops.match_ext import ext_tables
+    from tamp_tpu_torch.parallel.shard import _parse_frame
+
+    window, literal = 10, 8
+    W = 1 << window
+    lext = compute_min_pattern_size(window, literal) + 131
+    shards = [np.frombuffer(data[i : i + shard_size], np.uint8)
+              for i in range(0, len(data), shard_size)]
+    stages: dict[str, list[float]] = {}
+
+    def timed(name, fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        stages.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for _ in range(4):
+        _p, dh, rc, npos = timed("enc host prep (plan, model, chunk counts)",
+                                 lambda: prepare_batch(shards, window=window))
+        dh_d, rc_d, npos_d, dict_d = timed("enc host->device", lambda: (
+            torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev),
+            torch.from_numpy(npos).to(dev),
+            torch.from_numpy(dictionary_array(W, literal)).to(dev)))
+        timed("enc B1 ext_tables alone", lambda: ext_tables(
+            dh_d, npos_d, dict_d, window_bits=window, LEXT=lext))
+        tabs, A, B = timed(
+            "enc planned fields (B1 + region planes + field planner)",
+            lambda: ext_fields(dh_d, rc_d, npos_d, dict_d, window=window,
+                               literal=literal))
+        NP = dh.shape[1]
+        timed("enc B3 commit_fields", lambda: commit_fields(
+            A, B, npos_d, max_out=NP + NP // 8 + 64, idx_bits=0))
+        del A, B, tabs
+        timed("enc whole call (prep .. tail, for the rest)",
+              lambda: encode_ext_device_commit(shards, window=window,
+                                               literal=literal, device=dev))
+
+        _raw, _ss, pieces = _parse_frame(blob)
+        payloads = timed("dec host frame", lambda: [p[1:] for p in pieces])
+        nxt, packed = timed(
+            "dec payload planes + host->device + per-bit parse",
+            lambda: dw.payload_parse(payloads, window=window,
+                                     literal=literal, extended=True,
+                                     device=dev))
+        pk = timed("dec fuse parse words",
+                   lambda: dc.fuse_parse(nxt, packed))
+        del nxt, packed
+        di = torch.from_numpy(dictionary_array(W, literal)).to(dev)
+        out, lens, _e = timed("dec B4 commit_decode", lambda: dc._launch(
+            pk, di, di, W=W, more=False,
+            max_out=dw._pow2_bucket(shard_size, 1024)))
+        timed("dec device->host", lambda: out[:, : int(lens.max())].cpu())
+        del pk, out
+    for name, ts in stages.items():
+        report(f"  {name}: {statistics.median(ts[1:]):.2f} ms [{card}]")
+
+
+def phase_profile(report, data, blob, shard_size: int, card: str):
+    """Device busy and idle share of one encode and one decode, from a
+    torch.profiler trace: the device activity (kernels and copies) summed
+    over the wall time of the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamp_tpu_torch.parallel.shard import (
+        compress_sharded, decompress_sharded_device,
+    )
+
+    for name, fn in (
+            ("encode", lambda: compress_sharded(data, shard_size=shard_size)),
+            ("decode", lambda: decompress_sharded_device(blob))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(r[0] for r in rows)
+        if busy <= 0:
+            fail(f"the profiler saw no device activity in the {name}")
+        report(f"  profile {name}: wall {wall:.1f} ms, device busy "
+               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f} [{card}]")
+        for ms, key, count in sorted(rows, reverse=True)[:5]:
+            report(f"    {ms:8.3f} ms x{count} {key[:80]}")
+
+
+def walk_count(rows, stops, step):
+    """Total steps of serial walks over rows: from 0, jump by
+    ``step(row[t])`` while t < stop (a jump <= 0 ends the walk)."""
+    total = 0
+    for r, n in zip(rows, stops):
+        t, r = 0, r.tolist()
+        while t < n:
+            d = step(r[t])
+            if d <= 0:
+                break
+            t += d
+            total += 1
+    return total
+
+
+def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
+                       card: str):
+    """Phase 4: each kernel at the main path's shapes against its plain
+    version: times, results, bounds.  Returns the ``kernels`` records."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.encode_commit import (
+        S_NBYTES, commit_fields, commit_fields_plain,
+    )
+    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
+    from tamp_tpu_torch.parallel.shard import _parse_frame
+
+    window, literal = 10, 8
+    W = 1 << window
+    lext = compute_min_pattern_size(window, literal) + 131
+    shards = [np.frombuffer(data[i : i + shard_size], np.uint8)
+              for i in range(0, len(data), shard_size)]
+    _prep, dh, rc, npos = prepare_batch(shards, window=window)
+    S, NP = dh.shape
+    dh_d = torch.from_numpy(dh).to(dev)
+    npos_d = torch.from_numpy(npos).to(dev)
+    dict_d = torch.from_numpy(dictionary_array(W, literal)).to(dev)
+    kernels = []
+
+    # B1: the model bytes in, four int32 planes out; every position
+    # compares its W candidates at least once
+    ms, tabs = cuda_ms(lambda: ext_tables(dh_d, npos_d, dict_d,
+                                          window_bits=window, LEXT=lext))
+    pms, ptabs = cuda_ms(lambda: ext_tables_plain(
+        dh_d, npos_d, dict_d, window_bits=window, LEXT=lext), reps=1)
+    kernels.append(dict(
+        name="ext_tables (B1)", route="cuda",
+        source="tamp_tpu_torch/csrc/match_ext.cu",
+        replaces="tamp_tpu/ops/match_ext_pallas.py:343",
+        launches=launches["ext_tables"],
+        max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
+        bytes=S * NP + W + 4 * S + 4 * 4 * S * NP,
+        ops=int(npos.astype(np.int64).sum()) * W))
+
+    # B3: the planned fields of this batch (the main path's commit input)
+    _tabs, A, B = ext_fields(dh_d, torch.from_numpy(rc).to(dev), npos_d,
+                             dict_d, window=window, literal=literal)
+    del _tabs
+    kw = dict(max_out=NP + NP // 8 + 64, idx_bits=0)
+    ms, (out, st) = cuda_ms(lambda: commit_fields(A, B, npos_d, **kw))
+    h0 = time.perf_counter()
+    pout, pst = commit_fields_plain(A, B, npos_d, **kw)
+    pms = (time.perf_counter() - h0) * 1e3
+    # the walk reads A and B at its visited positions only
+    steps = walk_count(B.cpu().numpy(), np.maximum(npos - 15, 0),
+                       lambda m: (m >> 6) & 255)
+    kernels.append(dict(
+        name="commit_fields (B3)", route="cuda",
+        source="tamp_tpu_torch/csrc/encode_commit.cu",
+        replaces="tamp_tpu/ops/encode_commit_pallas.py:260",
+        launches=launches["commit_fields"],
+        max_abs_err=max_abs_err([(out, pout), (st, pst)]), ms=ms,
+        plain_ms=pms,
+        bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
+        ops=3 * steps))
+
+    # B4: the parse of the main path's container
+    _raw, _ss, pieces = _parse_frame(blob)
+    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
+                                   literal=literal, extended=True,
+                                   device=dev)
+    pk = dc.fuse_parse(nxt, packed)
+    NBP = pk.shape[1]
+    del nxt, packed
+    max_out = dw._pow2_bucket(shard_size, 1024)
+    ms, got = cuda_ms(lambda: dc._launch(pk, dict_d, dict_d, W=W, more=False,
+                                         max_out=max_out))
+    h0 = time.perf_counter()
+    plain = dc.commit_decode_plain(pk, dict_d, dict_d, W=W, more=False,
+                                   max_out=max_out)
+    pms = (time.perf_counter() - h0) * 1e3
+    # the walk reads one parse word per token and writes the output once
+    tokens = walk_count(pk.cpu().numpy(), [NBP] * S,
+                        lambda p: (p >> 11) & 63)
+    out_bytes = int(got[1].sum())
+    kernels.append(dict(
+        name="commit_decode (B4)", route="cuda",
+        source="tamp_tpu_torch/csrc/decode_commit.cu",
+        replaces="tamp_tpu/ops/decode_commit_pallas.py:87",
+        launches=launches["commit_decode"],
+        max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
+        bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes))
+
+    ops_per_s = int_ops_per_s()  # every kernel's work is integer work
+    report(f"  integer peak {ops_per_s / 1e12:.2f} T/s [{card}]")
+    for k in kernels:
+        t_bytes = k.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = k.pop("ops") / ops_per_s * 1e3
+        k["bound_ms"] = max(t_bytes, t_ops)
+        k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        k["library_ms"] = None  # no single PyTorch call computes these
+        k["equal_plain"] = k["max_abs_err"] == 0
+        report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
+               f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
+               f"launches {k['launches']}, max_abs_err {k['max_abs_err']} "
+               f"[{card}]")
+        if not k["equal_plain"]:
+            fail(f"{k['name']} differs from its plain version at the main "
+                 "path's shapes")
+    return kernels
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.parallel.shard import DEFAULT_SHARD_SIZE
+
+    def report(line: str):
+        print(line, flush=True)
+
+    dev = torch.device("cuda")
+    card = smi()
+    report(f"card: {card}")
+    report(f"torch {torch.__version__} cuda {torch.version.cuda} "
+           f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    report(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                report(f"  {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    phase_kernels_small(dev, report)
+    report(f"phase 2: kernels equal to their plain versions "
+           f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    data, blob, launches = phase_main_path(dev, report, 8,
+                                           DEFAULT_SHARD_SIZE, card)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    phase_breakdown(dev, report, data, blob, DEFAULT_SHARD_SIZE, card)
+    phase_profile(report, data, blob, DEFAULT_SHARD_SIZE, card)
+    report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    kernels = phase_kernel_times(dev, report, data, blob, launches,
+                                 DEFAULT_SHARD_SIZE, card)
+    report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

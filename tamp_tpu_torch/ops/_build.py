@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process into a shared library
+with a plain C interface (all processes start together), under
+``build/tamp_tpu_torch/`` at the repository root, at first use.  The file
+name carries a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one is loaded as is.  The libraries are bound
+with ``ctypes``: every pointer and the stream are passed as ``c_void_p``
+(a Python int from ``tensor.data_ptr()`` or ``stream.cuda_stream``), every
+C entry returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises on a non-zero code.
+
+Nothing here runs at import: the CPU tests import every module, and a
+build is only started by a wrapper handed a CUDA tensor (or by
+``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["load", "build_all", "check", "SOURCES"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
+SOURCES = ("match_ext", "encode_commit", "decode_commit")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+build_log: dict[str, str] = {}  # ptxas report of each built source
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        home = CUDA_HOME
+    cand = os.path.join(home, "bin", "nvcc") if home else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, in parallel."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log = proc.communicate()[0].decode(errors="replace")
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc rc={proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {name: _target(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_all((name,))[name]
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero CUDA error code returned by a C entry."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

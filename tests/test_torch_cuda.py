@@ -1,0 +1,100 @@
+"""Kernels of the port on an NVIDIA card against their plain versions.
+
+Needs a CUDA device; skips without one.  Imports nothing of JAX, so it runs
+on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tamp_tpu_torch.constants import compute_min_pattern_size
+from tamp_tpu_torch.dictionary import dictionary_array
+from tamp_tpu_torch.ops import decode_commit as dc
+from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_fields_plain
+from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
+from tamp_tpu_torch.parallel.shard import (
+    compress_sharded, decompress_sharded_device,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _text(n: int, seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 110, rng.integers(2, 8)))
+             for _ in range(64)]
+    s = b" ".join(words[int(i)] for i in rng.integers(0, 64, n))[:n]
+    return s[: n // 2] + b"=" * 300 + s[n // 2 :]
+
+
+@pytest.mark.parametrize("window", [8, 11, 15])
+def test_b1_kernel_equals_plain(cuda, window):
+    lext = compute_min_pattern_size(window, 8) + 131
+    rng = np.random.default_rng(window)
+    dh = torch.from_numpy(rng.integers(97, 101, (2, 4096)).astype(np.uint8))
+    npos = torch.tensor([4096, 1500], dtype=torch.int32)
+    d = torch.from_numpy(dictionary_array(1 << window))
+    want = ext_tables_plain(dh, npos, d, window_bits=window, LEXT=lext)
+    got = ext_tables(dh.to(cuda), npos.to(cuda), d.to(cuda),
+                     window_bits=window, LEXT=lext)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_b3_kernel_equals_plain(cuda):
+    rng = np.random.default_rng(1)
+    S, NP = 3, 4096
+    nb = rng.integers(1, 19, (S, NP))
+    adv = rng.integers(1, 20, (S, NP))
+    A = rng.integers(0, 1 << 18, (S, NP)) & ((1 << nb) - 1)
+    B = nb | (adv << 6)
+    B[2, 3000:] |= 1 << 14  # an error field ends the third walk
+    A = torch.from_numpy(A.astype(np.int32))
+    B = torch.from_numpy(B.astype(np.int32))
+    npos = torch.tensor([4096, 2000, 4000], dtype=torch.int32)
+    kw = dict(max_out=NP + NP // 8 + 64, idx_bits=0)
+    want = commit_fields_plain(A, B, npos, **kw)
+    got = commit_fields(A.to(cuda), B.to(cuda), npos.to(cuda), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_entry_points_round_trip_and_match_plain(cuda):
+    data = _text(40000, 2)
+    blob = compress_sharded(data, shard_size=16384)
+    assert blob == compress_sharded(data, shard_size=16384, device="cpu")
+    before = dc.commit_decode.launches
+    assert bytes(decompress_sharded_device(blob)) == data
+    assert dc.commit_decode.launches == before + 1
+    assert bytes(decompress_sharded_device(blob, device="cpu")) == data
+    tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
+    for raw, size in ((b"", 1024), (tiny, 7), (tiny, 17)):
+        blob = compress_sharded(raw, shard_size=size)
+        assert blob == compress_sharded(raw, shard_size=size, device="cpu")
+        assert bytes(decompress_sharded_device(blob)) == raw
+
+
+@pytest.mark.parametrize("window,literal", [(8, 5), (14, 8)])
+def test_custom_dictionary_round_trip(cuda, window, literal):
+    rng = np.random.default_rng(window)
+    dictionary = bytes(rng.integers(0, 1 << literal, 1 << window)
+                       .astype(np.uint8))
+    data = bytes(b & ((1 << literal) - 1) for b in _text(20000, 3))
+    data += dictionary[:3000]
+    blob = compress_sharded(data, window=window, literal=literal,
+                            dictionary=dictionary, shard_size=8192)
+    assert blob == compress_sharded(data, window=window, literal=literal,
+                                    dictionary=dictionary, shard_size=8192,
+                                    device="cpu")
+    assert bytes(decompress_sharded_device(blob, dictionary=dictionary)) \
+        == data

@@ -1,0 +1,111 @@
+"""Kernel B1's plain version (tamp_tpu_torch.ops.match_ext) against the JAX
+package: the quarter-lane Pallas kernel in interpret mode and the NumPy
+oracles of engine/search_np.  Integer tables: equality is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from tamp_tpu.dictionary import dictionary_array
+from tamp_tpu.engine.search_np import match_tables, match_tables_ext
+from tamp_tpu.ops.match_ext_pallas import ext_tables_pallas_host
+from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
+
+
+def _text(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(97, 105, rng.integers(2, 7)))
+             for _ in range(48)]
+    s = b" ".join(words[int(i)] for i in rng.integers(0, 48, n))
+    return np.frombuffer(s[:n], np.uint8).copy()
+
+
+def _port(rows, dictionary, window, maxpat, NP=None):
+    """Batch the rows into (S, NP) uint8 and run the plain version."""
+    S = len(rows)
+    NP = NP or max(r.shape[0] for r in rows)
+    dh = np.zeros((S, NP), np.uint8)
+    for i, r in enumerate(rows):
+        dh[i, : r.shape[0]] = r
+    npos = torch.tensor([r.shape[0] for r in rows], dtype=torch.int32)
+    outs = ext_tables(torch.from_numpy(dh), npos,
+                      torch.from_numpy(np.ascontiguousarray(dictionary)),
+                      window_bits=window, LEXT=maxpat)
+    return [[o[i, : r.shape[0]].numpy() for o in outs]
+            for i, r in enumerate(rows)]
+
+
+@pytest.mark.parametrize("window,n", [(8, 700), (9, 1300), (10, 2500),
+                                      (12, 4500)])
+def test_b1_plain_matches_pallas_and_oracle(window, n):
+    maxpat = 133  # minp + 131: minp is 2 at literal 8 for every window
+    d = dictionary_array(1 << window, literal=8)
+    arr = _text(n, window)
+    arr[n // 3 : n // 3 + 40] = 7  # a run: long matches and glue zones
+    l16, i16, lx, ix = _port([arr], d, window, maxpat)[0]
+    t16 = match_tables(arr, d, window)
+    lxo, ixo = match_tables_ext(arr, d, window, maxpat)
+    np.testing.assert_array_equal(l16, t16.len16.astype(np.int32))
+    np.testing.assert_array_equal(i16, t16.idx16)
+    np.testing.assert_array_equal(lx, lxo)
+    np.testing.assert_array_equal(ix, ixo)
+    pal = ext_tables_pallas_host(arr, d, window, maxpat, T=512,
+                                 interpret=True, swar=True)
+    for got, want in zip((l16, i16, lx, ix), pal):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_b1_plain_w15_matches_oracle():
+    window, maxpat = 15, 133
+    d = dictionary_array(1 << window, literal=8)
+    arr = _text(1000, 15)
+    arr[100:400] = arr[600:900]  # a long repeat inside the window
+    l16, i16, lx, ix = _port([arr], d, window, maxpat)[0]
+    t16 = match_tables(arr, d, window)
+    lxo, ixo = match_tables_ext(arr, d, window, maxpat)
+    np.testing.assert_array_equal(l16, t16.len16.astype(np.int32))
+    np.testing.assert_array_equal(i16, t16.idx16)
+    np.testing.assert_array_equal(lx, lxo)
+    np.testing.assert_array_equal(ix, ixo)
+
+
+def test_b1_plain_wrap_zone_all_equal():
+    # all-equal bytes make every candidate's run maximal and reach the
+    # glue diagonals at every ring position (tests/test_search_kernels.py
+    # test_ext_pallas_wrap_zone_bound)
+    window, maxpat = 8, 133
+    d = dictionary_array(1 << window, literal=8)
+    arr = np.full(420, 7, np.uint8)
+    l16, i16, lx, ix = _port([arr], d, window, maxpat)[0]
+    t16 = match_tables(arr, d, window)
+    lxo, ixo = match_tables_ext(arr, d, window, maxpat)
+    np.testing.assert_array_equal(l16, t16.len16.astype(np.int32))
+    np.testing.assert_array_equal(i16, t16.idx16)
+    np.testing.assert_array_equal(lx, lxo)
+    np.testing.assert_array_equal(ix, ixo)
+
+
+def test_b1_plain_batch_with_different_npos():
+    window, maxpat = 10, 133
+    d = dictionary_array(1 << window, literal=8)
+    rows = [_text(1800, 1), _text(1100, 2)[:1100], np.full(300, 9, np.uint8)]
+    got = _port(rows, d, window, maxpat, NP=2048)
+    for arr, (l16, i16, lx, ix) in zip(rows, got):
+        t16 = match_tables(arr, d, window)
+        lxo, ixo = match_tables_ext(arr, d, window, maxpat)
+        np.testing.assert_array_equal(l16, t16.len16.astype(np.int32))
+        np.testing.assert_array_equal(i16, t16.idx16)
+        np.testing.assert_array_equal(lx, lxo)
+        np.testing.assert_array_equal(ix, ixo)
+
+
+def test_b1_padding_positions():
+    # positions >= npos hold len 0 / index 0 (the kernel writes the same)
+    window, maxpat = 9, 133
+    d = torch.from_numpy(dictionary_array(1 << window, literal=8))
+    dh = torch.from_numpy(np.stack([_text(1024, 5), _text(1024, 6)]))
+    npos = torch.tensor([1000, 37], dtype=torch.int32)
+    a = ext_tables_plain(dh, npos, d, window_bits=window, LEXT=maxpat)
+    for x in a:
+        assert int(x[0, 1000:].abs().sum()) == 0
+        assert int(x[1, 37:].abs().sum()) == 0
