@@ -7,19 +7,26 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit; build the kernels from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, at a
-   reduced size (2 shards x 64 KiB), exactly: B1 at windows 8/10/12/15, B3
-   at windows 10 and 14 plus an excess-bits row, B4 on an extended stream,
-   a window-15 stream, a double-FLUSH ``more`` stream and a corrupt stream;
-3. the main path at full size: 8 x 1 MiB shards of a seeded text-like
+   reduced size (2 shards x 64 KiB), exactly: B1 and B2 at windows
+   8/10/12/15, B3 at windows 10 and 14 plus an excess-bits row, B4 on an
+   extended stream, a window-15 stream, a double-FLUSH ``more`` stream and
+   a corrupt stream, B5 at cap 15 (w10 l8) and cap 16 (w11 l5) with and
+   without the probe and at w15, B6 at w10 l8, w11 l5 and an excess-bits
+   row at l7; the entry points on empty and tiny shards for the extended
+   and v1 formats, lazy and not;
+3. four round trips at full size: 8 x 1 MiB shards of a seeded text-like
    corpus with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded(engine="device-commit")`` and
-   ``decompress_sharded_device``; the kernel launch counts of that one
-   round trip; encode and decode rates (CUDA events, median of 3 after a
-   warm-up); the card's streams equal to the plain versions' on a small
-   input; the time of each stage of the encode and the decode, and the
+   ``decompress_sharded_device``: the main path (extended, no lazy
+   matching), then extended with lazy matching, v1, and v1 with lazy
+   matching.  For each: the kernel launch counts of that one round trip
+   (every count set to 0 just before it), encode and decode rates (CUDA
+   events, median of 3 after a warm-up), the ratio, and the card's
+   container equal to the plain versions' on a small input.  For the main
+   path also the time of each stage of the encode and the decode, and the
    device's busy and idle share in each (torch.profiler);
-4. each kernel at the main path's shapes: its time, its plain version's
-   time and result, and its bound (the least time the card could take).
+4. each kernel at its path's shapes: its time, its plain version's time
+   and result, and its bound (the least time the card could take).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +44,17 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 lanes (H100 whitepaper)
 SMALL = 1 << 16            # shard size of phase 2
+# the round trips of phase 3, the main path first: name, compress_sharded
+# options, and the kernels (wrapper names, B1..B6) each must launch
+PATHS = (
+    ("extended", {}, ("ext_tables", "commit_fields", "commit_decode")),
+    ("extended lazy", {"lazy_matching": True},
+     ("ext_tables_probe", "commit_fields", "commit_decode")),
+    ("v1", {"extended": False},
+     ("v1_tables", "commit_fields", "commit_decode")),
+    ("v1 lazy", {"extended": False, "lazy_matching": True},
+     ("v1_tables", "commit_v1_lazy", "commit_decode")),
+)
 
 
 def fail(msg: str):
@@ -218,9 +236,14 @@ def phase_kernels_small(dev, report):
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import (
-        commit_fields, commit_fields_plain,
+        commit_fields, commit_fields_plain, commit_v1_lazy,
+        commit_v1_lazy_plain,
     )
-    from tamp_tpu_torch.ops.match_ext import ext_tables_plain
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_ext import (
+        ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
+    )
+    from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
     from tamp_tpu_torch.parallel.shard import (
         _parse_frame, compress_sharded, decompress_sharded_device,
     )
@@ -248,8 +271,65 @@ def phase_kernels_small(dev, report):
         if err:
             fail(f"B1 differs from its plain version at window {window}")
 
+    for window in (8, 10, 12, 15):
+        dh, npos, d, lext, _t, _A, _B = fields(shards, window, 8)
+        got = ext_tables_probe(dh, npos, d, window_bits=window, LEXT=lext)
+        plain = ext_tables_probe_plain(dh, npos, d, window_bits=window,
+                                       LEXT=lext)
+        sync(dev)
+        err = max_abs_err(zip(got, plain))
+        report(f"B2 w{window} 2x64KiB: kernel vs plain max_abs_err={err}")
+        if err:
+            fail(f"B2 differs from its plain version at window {window}")
+
+    def v1_batch(datas, window):
+        data = torch.from_numpy(np.stack(datas)).to(dev)
+        npos = torch.tensor([x.shape[0] for x in datas], dtype=torch.int32,
+                            device=dev)
+        d = torch.from_numpy(dictionary_array(1 << window, 8)).to(dev)
+        return data, npos, d
+
+    masked = [x & 31 for x in shards]
+    for window, literal, probe in ((10, 8, False), (10, 8, True),
+                                   (11, 5, False), (11, 5, True),
+                                   (15, 8, True)):
+        cap = v1_cap(window, literal)
+        data, npos, d = v1_batch(masked if literal == 5 else shards, window)
+        kw = dict(window_bits=window, cap=cap, probe=probe)
+        got = v1_tables(data, npos, d, **kw)
+        plain = v1_tables_plain(data, npos, d, **kw)
+        sync(dev)
+        err = max_abs_err(zip(got, plain))
+        report(f"B5 w{window} l{literal} cap {cap} probe={probe}: kernel vs "
+               f"plain max_abs_err={err}")
+        if err:
+            fail(f"B5 differs from its plain version at window {window}, "
+                 f"cap {cap}, probe={probe}")
+
     excess = shards[0] & 0x7F
     excess[SMALL // 2] = 0xC3
+    for window, literal, datas in ((10, 8, shards), (11, 5, masked),
+                                   (10, 7, [shards[1] & 0x7F, excess])):
+        data, npos, d = v1_batch(datas, window)
+        flen, fidx, plen, pidx = v1_tables(
+            data, npos, d, window_bits=window, cap=v1_cap(window, literal),
+            probe=True)
+        packed = (flen << 23) | (fidx << 8) | data.to(torch.int32)
+        probe = (plen << 15) | pidx
+        kw = dict(window=window, literal=literal,
+                  max_out=SMALL + SMALL // 8 + 64)
+        out, st = commit_v1_lazy(packed, probe, npos, **kw)
+        pout, pst = commit_v1_lazy_plain(packed, probe, npos, **kw)
+        sync(dev)
+        err = max_abs_err([(out, pout), (st, pst)])
+        errs = st[:, 6].tolist()
+        report(f"B6 w{window} l{literal}: kernel vs plain max_abs_err={err} "
+               f"err_slots={errs} cache={st[:, 4].tolist()}")
+        if err:
+            fail(f"B6 differs from its plain version at window {window}")
+        if literal == 7 and errs != [0, 1]:
+            fail("B6 missed the excess-bits row")
+
     for window, literal, datas in ((10, 8, shards), (14, 8, shards),
                                    (10, 7, [shards[1] & 0x7F, excess])):
         _dh, npos, _d, _l, _t, A, B = fields(datas, window, literal)
@@ -330,59 +410,83 @@ def phase_kernels_small(dev, report):
 
     # empty and tiny shards through the entry points, card against plain
     tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
-    for data, size in ((b"", SMALL), (tiny, 7), (tiny, 16), (tiny, 17)):
-        blob = compress_sharded(data, shard_size=size, device=dev)
-        if blob != compress_sharded(data, shard_size=size, device="cpu"):
-            fail(f"tiny shards of {size} bytes encode differently")
-        if bytes(decompress_sharded_device(blob, device=dev)) != data:
-            fail(f"tiny shards of {size} bytes did not round-trip")
-    report("entry points: empty and tiny shards equal to the plain versions")
+    for name, kw, _kernels in PATHS:
+        for data, size in ((b"", SMALL), (tiny, 7), (tiny, 16), (tiny, 17)):
+            blob = compress_sharded(data, shard_size=size, device=dev, **kw)
+            if blob != compress_sharded(data, shard_size=size, device="cpu",
+                                        **kw):
+                fail(f"{name}: tiny shards of {size} bytes encode "
+                     "differently")
+            if bytes(decompress_sharded_device(blob, device=dev)) != data:
+                fail(f"{name}: tiny shards of {size} bytes did not "
+                     "round-trip")
+        report(f"entry points, {name}: empty and tiny shards equal to the "
+               "plain versions")
 
 
-def phase_main_path(dev, report, n_shards: int, shard_size: int, card: str):
-    """Phase 3: the round trip at full size; returns (data, blob,
-    launches) with the launch counts of that one round trip."""
+def counters():
+    """Every kernel wrapper of the port, by name: each counts its launches."""
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_v1_lazy
+    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
+    from tamp_tpu_torch.ops.match_v1 import v1_tables
+
+    fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
+           v1_tables, commit_v1_lazy)
+    return {fn.__name__: fn for fn in fns}
+
+
+
+def phase_main_path(dev, report, data, shard_size: int, card: str,
+                    name: str, kw: dict, kernels):
+    """Phase 3: one round trip at full size, which must launch each of
+    ``kernels``; returns (blob, launches, ratio) with the launch counts of
+    that one round trip."""
     import torch
 
-    from tamp_tpu_torch.ops import decode_commit as dc
-    from tamp_tpu_torch.ops.encode_commit import commit_fields
-    from tamp_tpu_torch.ops.match_ext import ext_tables
     from tamp_tpu_torch.parallel.shard import (
         compress_sharded, decompress_sharded_device,
     )
 
-    data = corpus(n_shards * shard_size)
-    counters = (ext_tables, commit_fields, dc.commit_decode)
-    for fn in counters:
+    fns = counters()
+    for fn in fns.values():
         fn.launches = 0
-    blob = compress_sharded(data, shard_size=shard_size, device=dev)
+    blob = compress_sharded(data, shard_size=shard_size, device=dev, **kw)
     back = decompress_sharded_device(blob, device=dev)
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {k: fn.launches for k, fn in fns.items()}
     if bytes(back) != data:
-        fail("main path did not round-trip")
-    report(f"phase 3: round trip of {len(data)} bytes in {n_shards} shards "
-           f"equal; ratio {len(blob) / len(data):.6f}; launches {launches}")
+        fail(f"{name}: the round trip differs")
+    ratio = len(blob) / len(data)
+    report(f"phase 3, {name}: round trip of {len(data)} bytes in "
+           f"{-(-len(data) // shard_size)} shards equal; ratio {ratio:.6f}; "
+           f"launches {launches}")
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was not launched")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     enc_ms, blob2 = cuda_ms(lambda: compress_sharded(
-        data, shard_size=shard_size, device=dev))
+        data, shard_size=shard_size, device=dev, **kw))
     dec_ms, _ = cuda_ms(lambda: decompress_sharded_device(blob, device=dev))
     if blob2 != blob:
-        fail("encode is not deterministic")
+        fail(f"{name}: the encode is not deterministic")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if dev.type == "cuda" else 0.0)
-    report(f"  encode {len(data) / enc_ms / 1e3:.2f} MB/s ({enc_ms:.1f} ms), "
-           f"decode {len(data) / dec_ms / 1e3:.2f} MB/s ({dec_ms:.1f} ms), "
-           f"peak device memory {peak:.2f} GiB [{card}]")
+    report(f"  {name}: encode {len(data) / enc_ms / 1e3:.2f} MB/s "
+           f"({enc_ms:.1f} ms), decode {len(data) / dec_ms / 1e3:.2f} MB/s "
+           f"({dec_ms:.1f} ms), ratio {ratio:.6f}, peak device memory "
+           f"{peak:.2f} GiB [{card}]")
     piece = data[:40000] + data[len(data) // 2 : len(data) // 2 + 20000]
-    on_card = compress_sharded(piece, shard_size=1 << 15, device=dev)
-    if on_card != compress_sharded(piece, shard_size=1 << 15, device="cpu"):
-        fail("card and plain-version containers differ on a small input")
+    on_card = compress_sharded(piece, shard_size=1 << 15, device=dev, **kw)
+    if on_card != compress_sharded(piece, shard_size=1 << 15, device="cpu",
+                                   **kw):
+        fail(f"{name}: card and plain-version containers differ on a small "
+             "input")
     if bytes(decompress_sharded_device(on_card, device="cpu")) != piece:
-        fail("plain-version decode of the card's container differs")
-    report(f"  the card's container equals the plain versions' on "
+        fail(f"{name}: plain-version decode of the card's container differs")
+    report(f"  {name}: the card's container equals the plain versions' on "
            f"{len(piece)} bytes")
-    return data, blob, launches
+    return blob, launches, ratio
 
 
 def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
@@ -508,10 +612,30 @@ def walk_count(rows, stops, step):
     return total
 
 
-def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
+def stream_tokens(dev, blob, window: int, literal: int, extended: bool):
+    """The fused parse words of a container's streams on the card and the
+    number of tokens in them: (words (S, NBP), tokens)."""
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.parallel.shard import _parse_frame
+
+    _raw, _ss, pieces = _parse_frame(blob)
+    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
+                                   literal=literal, extended=extended,
+                                   device=dev)
+    pk = dc.fuse_parse(nxt, packed)
+    # a decode walk reads one parse word per token, jumping by its bits
+    tokens = walk_count(pk.cpu().numpy(), [pk.shape[1]] * len(pieces),
+                        lambda p: (p >> 11) & 63)
+    return pk, tokens
+
+
+def phase_kernel_times(dev, report, data, blobs, launches, shard_size: int,
                        card: str):
-    """Phase 4: each kernel at the main path's shapes against its plain
-    version: times, results, bounds.  Returns the ``kernels`` records."""
+    """Phase 4: each kernel at its path's shapes against its plain
+    version: times, results, bounds.  ``blobs`` and ``launches``: the
+    containers and launch counts of phase 3, by path.  Returns the
+    ``kernels`` records."""
     import numpy as np
     import torch
 
@@ -521,10 +645,14 @@ def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import (
-        S_NBYTES, commit_fields, commit_fields_plain,
+        S_NBYTES, commit_fields, commit_fields_plain, commit_v1_lazy,
+        commit_v1_lazy_plain,
     )
-    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
-    from tamp_tpu_torch.parallel.shard import _parse_frame
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_ext import (
+        ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
+    )
+    from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
 
     window, literal = 10, 8
     W = 1 << window
@@ -548,10 +676,26 @@ def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
         name="ext_tables (B1)", route="cuda",
         source="tamp_tpu_torch/csrc/match_ext.cu",
         replaces="tamp_tpu/ops/match_ext_pallas.py:343",
-        launches=launches["ext_tables"],
+        launches=launches["extended"]["ext_tables"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * NP + W + 4 * S + 4 * 4 * S * NP,
         ops=int(npos.astype(np.int64).sum()) * W))
+    del tabs, ptabs
+
+    # B2: B1's work plus the probe family's W candidates per position
+    ms, tabs = cuda_ms(lambda: ext_tables_probe(
+        dh_d, npos_d, dict_d, window_bits=window, LEXT=lext))
+    pms, ptabs = cuda_ms(lambda: ext_tables_probe_plain(
+        dh_d, npos_d, dict_d, window_bits=window, LEXT=lext), reps=1)
+    kernels.append(dict(
+        name="ext_tables_probe (B2)", route="cuda",
+        source="tamp_tpu_torch/csrc/match_ext.cu",
+        replaces="tamp_tpu/ops/match_ext_pallas.py:133",
+        launches=launches["extended lazy"]["ext_tables_probe"],
+        max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
+        bytes=S * NP + W + 4 * S + 6 * 4 * S * NP,
+        ops=2 * int(npos.astype(np.int64).sum()) * W))
+    del tabs, ptabs
 
     # B3: the planned fields of this batch (the main path's commit input)
     _tabs, A, B = ext_fields(dh_d, torch.from_numpy(rc).to(dev), npos_d,
@@ -569,20 +713,14 @@ def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
         name="commit_fields (B3)", route="cuda",
         source="tamp_tpu_torch/csrc/encode_commit.cu",
         replaces="tamp_tpu/ops/encode_commit_pallas.py:260",
-        launches=launches["commit_fields"],
+        launches=launches["extended"]["commit_fields"],
         max_abs_err=max_abs_err([(out, pout), (st, pst)]), ms=ms,
         plain_ms=pms,
         bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
         ops=3 * steps))
 
     # B4: the parse of the main path's container
-    _raw, _ss, pieces = _parse_frame(blob)
-    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
-                                   literal=literal, extended=True,
-                                   device=dev)
-    pk = dc.fuse_parse(nxt, packed)
-    NBP = pk.shape[1]
-    del nxt, packed
+    pk, tokens = stream_tokens(dev, blobs["extended"], window, literal, True)
     max_out = dw._pow2_bucket(shard_size, 1024)
     ms, got = cuda_ms(lambda: dc._launch(pk, dict_d, dict_d, W=W, more=False,
                                          max_out=max_out))
@@ -591,16 +729,73 @@ def phase_kernel_times(dev, report, data, blob, launches, shard_size: int,
                                    max_out=max_out)
     pms = (time.perf_counter() - h0) * 1e3
     # the walk reads one parse word per token and writes the output once
-    tokens = walk_count(pk.cpu().numpy(), [NBP] * S,
-                        lambda p: (p >> 11) & 63)
     out_bytes = int(got[1].sum())
     kernels.append(dict(
         name="commit_decode (B4)", route="cuda",
         source="tamp_tpu_torch/csrc/decode_commit.cu",
         replaces="tamp_tpu/ops/decode_commit_pallas.py:87",
-        launches=launches["commit_decode"],
+        launches=launches["extended"]["commit_decode"],
         max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
         bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes))
+    del pk, got, plain
+
+    # B5: the v1 tables of the raw shards (the v1 path: cap 15, no probe)
+    raw = np.zeros((S, shard_size), np.uint8)
+    for i, x in enumerate(shards):
+        raw[i, : x.shape[0]] = x
+    nraw = np.asarray([x.shape[0] for x in shards], np.int32)
+    raw_d = torch.from_numpy(raw).to(dev)
+    nraw_d = torch.from_numpy(nraw).to(dev)
+    dict1 = torch.from_numpy(dictionary_array(W, 8)).to(dev)
+    kw = dict(window_bits=window, cap=v1_cap(window, literal))
+    ms, tabs = cuda_ms(lambda: v1_tables(raw_d, nraw_d, dict1, **kw))
+    pms, ptabs = cuda_ms(lambda: v1_tables_plain(raw_d, nraw_d, dict1, **kw),
+                         reps=1)
+    kernels.append(dict(
+        name="v1_tables (B5)", route="cuda",
+        source="tamp_tpu_torch/csrc/match_ext.cu",
+        replaces="tamp_tpu/ops/match_pallas.py:75",
+        launches=launches["v1"]["v1_tables"],
+        max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
+        bytes=S * shard_size + W + 4 * S + 2 * 4 * S * shard_size,
+        ops=int(nraw.astype(np.int64).sum()) * W))
+    del tabs, ptabs
+    # the v1 lazy path's call: the probe family as well
+    pms, ptabs = cuda_ms(lambda: v1_tables_plain(raw_d, nraw_d, dict1,
+                                                 probe=True, **kw), reps=1)
+    ms, tabs = cuda_ms(lambda: v1_tables(raw_d, nraw_d, dict1, probe=True,
+                                         **kw))
+    report(f"  v1_tables (B5) with the probe family: {ms:.3f} ms (plain "
+           f"{pms:.1f} ms), max_abs_err "
+           f"{max_abs_err(zip(tabs, ptabs))} [{card}]")
+    if max_abs_err(zip(tabs, ptabs)):
+        fail("B5 with the probe family differs from its plain version")
+    del ptabs
+
+    # B6: the lazy v1 walk over this batch's packed tables
+    flen, fidx, plen, pidx = tabs
+    packed = (flen << 23) | (fidx << 8) | raw_d.to(torch.int32)
+    probe = (plen << 15) | pidx
+    del tabs, flen, fidx, plen, pidx
+    kw = dict(window=window, literal=literal,
+              max_out=shard_size + shard_size // 8 + 64)
+    ms, (out, st) = cuda_ms(lambda: commit_v1_lazy(packed, probe, nraw_d,
+                                                   **kw))
+    h0 = time.perf_counter()
+    pout, pst = commit_v1_lazy_plain(packed, probe, nraw_d, **kw)
+    pms = (time.perf_counter() - h0) * 1e3
+    # the walk reads P and Q at its visited positions, one per token: the
+    # tokens of the v1 lazy container (its < 16-byte host tails included)
+    _pk, steps = stream_tokens(dev, blobs["v1 lazy"], window, literal, False)
+    kernels.append(dict(
+        name="commit_v1_lazy (B6)", route="cuda",
+        source="tamp_tpu_torch/csrc/encode_commit.cu",
+        replaces="tamp_tpu/ops/encode_commit_pallas.py:61",
+        launches=launches["v1 lazy"]["commit_v1_lazy"],
+        max_abs_err=max_abs_err([(out, pout), (st, pst)]), ms=ms,
+        plain_ms=pms,
+        bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
+        ops=3 * steps))
 
     ops_per_s = int_ops_per_s()  # every kernel's work is integer work
     report(f"  integer peak {ops_per_s / 1e12:.2f} T/s [{card}]")
@@ -655,17 +850,24 @@ def main() -> int:
            f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    data, blob, launches = phase_main_path(dev, report, 8,
-                                           DEFAULT_SHARD_SIZE, card)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    phase_breakdown(dev, report, data, blob, DEFAULT_SHARD_SIZE, card)
-    phase_profile(report, data, blob, DEFAULT_SHARD_SIZE, card)
+    data = corpus(8 * DEFAULT_SHARD_SIZE)
+    blobs, launches, ratios = {}, {}, {}
+    for name, kw, kernels in PATHS:
+        blobs[name], launches[name], ratios[name] = phase_main_path(
+            dev, report, data, DEFAULT_SHARD_SIZE, card, name, kw, kernels)
+        if name == "extended":  # the main path: where its time goes
+            phase_breakdown(dev, report, data, blobs[name],
+                            DEFAULT_SHARD_SIZE, card)
+            phase_profile(report, data, blobs[name], DEFAULT_SHARD_SIZE,
+                          card)
+    for fmt in ("extended", "v1"):
+        if not ratios[f"{fmt} lazy"] < ratios[fmt]:
+            fail(f"{fmt}: lazy matching did not beat the greedy parse on "
+                 f"text ({ratios[f'{fmt} lazy']} vs {ratios[fmt]})")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    kernels = phase_kernel_times(dev, report, data, blob, launches,
+    kernels = phase_kernel_times(dev, report, data, blobs, launches,
                                  DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
 

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of tamp_tpu's device path.
 
-The TTPU container round trip of the format default (extended format,
-window 10, literal 8, no lazy matching) on an NVIDIA Hopper card:
+The TTPU container round trip on an NVIDIA Hopper card, extended and v1
+formats, lazy matching on and off, windows 8-15, literals 5-8:
 
 - encode: :func:`tamp_tpu_torch.parallel.shard.compress_sharded`
   (``engine="device-commit"``);

@@ -7,11 +7,14 @@ Counterpart of ``tamp_tpu/engine/pipeline_ext.encode_ext_device_commit``
      shard (engine/plan.py);
   2. device, one stage per batch (:func:`ext_device_stage`): the planned
      fields (:func:`ext_fields`: region planes from the chunk counts, the
-     sentinel-filled model bytes, kernel B1 (both match-table families),
-     the field planner of ops/plan_ext.py), then kernel B3 (the
-     planned-fields commit);
+     sentinel-filled model bytes, kernel B1 (both match-table families)
+     or, under lazy matching, kernel B2 (the same and the probe family),
+     the field planner of ops/plan_ext.py with its lazy deferral), then
+     kernel B3 (the planned-fields commit);
   3. host: the last < 16 model bytes of each shard (engine/tail.py), from
-     the kernel's stop and bit remainder and a few table rows.
+     the kernel's stop and bit remainder and a few table rows.  The
+     planned walk never defers there (its lazy deferral needs 16 bytes
+     ahead), so the tail is the same with lazy matching on or off.
 
 Output is byte-identical to the JAX package's device-commit encode and to
 the native planned committer (``force_planned=True,
@@ -29,13 +32,14 @@ from ..device import resolve_device
 from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
 from ..ops.encode_commit import (
-    ERR_EXCESS, S_ACC, S_AN, S_ERR, S_NBYTES, S_T, TILE, commit_fields,
+    ERR_EXCESS, S_ACC, S_AN, S_ERR, S_T, TILE, commit_fields,
 )
-from ..ops.match_ext import ext_tables
+from ..ops.match_ext import ext_tables, ext_tables_probe
 from ..ops.plan_ext import (
     MAX_PLAN_WINDOW, SPLIT_WINDOW, derive_region_arrays, plan_fields_ext,
 )
 from .encode import build_header
+from .pipeline import pull_body_bytes
 from .plan import ext_prep
 from .tail import TAIL_ROWS, ext_tail_bits
 
@@ -44,14 +48,16 @@ __all__ = ["encode_ext_device_commit", "ext_device_stage", "ext_fields",
 
 
 def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
-               dict_u8: torch.Tensor, *, window: int, literal: int):
+               dict_u8: torch.Tensor, *, window: int, literal: int,
+               lazy: bool = False):
     """Planned fields of one batch: (tables, A, B).
 
     ``dh_u8``/``rc_u8``: (S, NP) uint8 model bytes and chunk counts;
     ``npos``: (S,) int32 model lengths; ``dict_u8``: (W,) uint8.  Runs the
     region planes, the sentinel fill, kernel B1 (the four match tables
-    len16, idx16, lenx, idxx) and the field planner; A and B are the
-    commit's (S, NP) int32 field planes."""
+    len16, idx16, lenx, idxx) or with ``lazy`` kernel B2 (the same four and
+    the probe planes plen, pidx), and the field planner; A and B are the
+    commit's (S, NP) int32 field planes, ``tables`` the four tables."""
     NP = dh_u8.shape[1]
     maxpat = compute_min_pattern_size(window, literal) + 131
     rc = rc_u8.to(torch.int32)
@@ -59,22 +65,29 @@ def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
     col = torch.arange(NP, dtype=torch.int32, device=dh_u8.device)
     dh_sent = torch.where(col[None, :] < npos[:, None],
                           dh_u8.to(torch.int32), 0x1FF)
-    tabs = ext_tables(dh_u8, npos, dict_u8, window_bits=window, LEXT=maxpat)
+    plen = pidx = None
+    if lazy:
+        *tabs, plen, pidx = ext_tables_probe(dh_u8, npos, dict_u8,
+                                             window_bits=window, LEXT=maxpat)
+    else:
+        tabs = ext_tables(dh_u8, npos, dict_u8, window_bits=window,
+                          LEXT=maxpat)
     A, B = plan_fields_ext(dh_sent, *tabs, bound, rc, rk, window=window,
-                           literal=literal, dlast=int(dict_u8[-1]))
-    return tabs, A, B
+                           literal=literal, dlast=int(dict_u8[-1]),
+                           plen=plen, pidx=pidx)
+    return tuple(tabs), A, B
 
 
 def ext_device_stage(dh_u8: torch.Tensor, rc_u8: torch.Tensor,
                      npos: torch.Tensor, dict_u8: torch.Tensor, *,
-                     window: int, literal: int):
+                     window: int, literal: int, lazy: bool = False):
     """Device half of the encode for one batch: (bytes, state, tables).
 
     Inputs as :func:`ext_fields`.  Returns the commit's (kernel B3) byte
     rows and state rows and the four match tables the host tail reads a
     few rows of."""
     tabs, A, B = ext_fields(dh_u8, rc_u8, npos, dict_u8, window=window,
-                            literal=literal)
+                            literal=literal, lazy=lazy)
     NP = dh_u8.shape[1]
     out, state = commit_fields(
         A, B, npos, max_out=NP + NP // 8 + 64,
@@ -114,14 +127,12 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
                              device=None) -> list[bytes]:
     """Extended-format encode of a batch of shards; one Tamp stream each.
 
-    ``dictionary``: a full-window custom dictionary (bytes or uint8 array),
-    else the extended format's default (``dictionary_array(W, literal)``).
+    ``lazy_matching``: the planned walk's pure-position deferral (kernel B2
+    and the planner's lazy rule).  ``dictionary``: a full-window custom
+    dictionary (bytes or uint8 array), else the extended format's default
+    (``dictionary_array(W, literal)``).
     ``device``: None for the CUDA card; ``"cpu"`` runs the plain versions.
     """
-    if lazy_matching:
-        raise NotImplementedError(
-            "lazy_matching=True needs the probe table family (kernel B2): "
-            "ROADMAP.md queue A, 'Lazy probe family'")
     if window > MAX_PLAN_WINDOW:
         raise ValueError(
             f"device extended encode supports window <= {MAX_PLAN_WINDOW}")
@@ -138,14 +149,13 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
     out, state, tabs = ext_device_stage(
         torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev), npos_d,
         torch.from_numpy(dict_arr.copy()).to(dev), window=window,
-        literal=literal)
+        literal=literal, lazy=lazy_matching)
     state = state.cpu().numpy()
     if (state[:, S_ERR] == ERR_EXCESS).any():
         raise ExcessBitsError
     if (state[:, S_ERR] != 0).any():
         raise RuntimeError("commit walk stalled on malformed fields")
-    nb_max = max(1, int(state[:, S_NBYTES].max()))
-    bodies = out[:, :nb_max].cpu().numpy()
+    bodies = pull_body_bytes(out, state)
     # the tail walk reads table rows at model positions >= npos - 15 only
     base = torch.clamp_min(npos_d - TAIL_ROWS, 0)
     ridx = torch.clamp_max(
@@ -171,6 +181,5 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
             data, t_in, dhi, khat, plans, tuple(rows[:, i]), int(base[i]),
             window=window, literal=literal, acc=int(st[S_ACC]),
             an=int(st[S_AN]), dict_last=int(dict_arr[-1]))
-        body = bodies[i, : int(st[S_NBYTES])].tobytes()
-        results.append(bytes([hv]) + body + tail)
+        results.append(bytes([hv]) + bodies[i].tobytes() + tail)
     return results

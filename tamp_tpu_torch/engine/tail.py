@@ -27,6 +27,7 @@ from ..constants import (
     compute_min_pattern_size,
 )
 from ..exceptions import ExcessBitsError
+from .encode import bits_to_bytes
 from .plan import RLE_MAX, RLE_MAX_WIN
 
 __all__ = ["ext_tail_bits", "TAIL_ROWS"]
@@ -225,14 +226,4 @@ def ext_tail_bits(data, t_in: int, dh, khat, plans, rows, base: int, *,
         last = int(dh[kwr - 1]) if kwr else int(dict_last)
         fields = _tail_fields(data, t_in, kwr, last, plans, khat, rows, base,
                               window=window, literal=literal)
-    out = bytearray()
-    for v, nb in fields + [(0, 0)]:  # the empty field drains the remainder
-        acc = (acc << nb) | v
-        an += nb
-        while an >= 8:
-            out.append((acc >> (an - 8)) & 0xFF)
-            an -= 8
-            acc &= (1 << an) - 1
-    if an:
-        out.append((acc << (8 - an)) & 0xFF)
-    return bytes(out)
+    return bits_to_bytes(fields, acc, an)

@@ -5,10 +5,10 @@ with a plain C interface (all processes start together), under
 ``build/tamp_tpu_torch/`` at the repository root, at first use.  The file
 name carries a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is loaded as is.  The libraries are bound
-with ``ctypes``: every pointer and the stream are passed as ``c_void_p``
-(a Python int from ``tensor.data_ptr()`` or ``stream.cuda_stream``), every
-C entry returns ``cudaGetLastError()`` after its launch, and
-:func:`check` raises on a non-zero code.
+with ``ctypes`` (:func:`launch`): every pointer and the stream are passed
+as ``c_void_p`` (a Python int from ``tensor.data_ptr()`` or
+``stream.cuda_stream``), every C entry returns ``cudaGetLastError()`` after
+its launch, and :func:`check` raises on a non-zero code.
 
 Nothing here runs at import: the CPU tests import every module, and a
 build is only started by a wrapper handed a CUDA tensor (or by
@@ -25,7 +25,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_all", "check", "SOURCES"]
+__all__ = ["load", "build_all", "check", "launch", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
@@ -101,3 +101,20 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero CUDA error code returned by a C entry."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def launch(name: str, entry: str, device, pointers, ints) -> None:
+    """Call the C entry ``entry`` of ``csrc/<name>.cu`` on ``device``'s
+    current stream: ``pointers`` (tensors, or None for a null pointer),
+    then the ``ints``, then the stream; raise if the launch failed.  The
+    caller keeps the tensors alive and contiguous."""
+    import torch
+
+    fn = getattr(load(name), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    ptrs = [None if p is None else p.data_ptr() for p in pointers]
+    with torch.cuda.device(device):
+        rc = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, f"{entry} kernel")

@@ -16,8 +16,6 @@ never wrap; a double FLUSH on a ``more`` stream resets the ring to
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -139,22 +137,14 @@ def commit_decode(nxt: torch.Tensor, packed: torch.Tensor,
 
 
 def _launch(pk, dict_init, dict_reset, *, W: int, more: bool, max_out: int):
-    lib = _build.load("decode_commit")
-    fn = lib.tpt_commit_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
     S, NBP = pk.shape
     dev = pk.device
     out = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
     lens = torch.empty(S, dtype=torch.int32, device=dev)
     errs = torch.empty(S, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(pk.data_ptr(), dict_init.data_ptr(), dict_reset.data_ptr(),
-                out.data_ptr(), lens.data_ptr(), errs.data_ptr(), S, NBP,
-                W.bit_length() - 1, int(more), max_out, stream)
-    _build.check(rc, "commit_decode kernel")
+    _build.launch("decode_commit", "tpt_commit_decode", dev,
+                  (pk, dict_init, dict_reset, out, lens, errs),
+                  (S, NBP, W.bit_length() - 1, int(more), max_out))
     commit_decode.launches += 1
     return out, lens, errs
 

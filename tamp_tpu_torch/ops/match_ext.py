@@ -1,41 +1,27 @@
-"""Extended match tables (kernel B1) and their plain PyTorch version.
+"""Extended match tables (kernels B1 and B2) and their plain PyTorch versions.
 
-Counterpart of ``tamp_tpu/ops/match_ext_pallas.py::ext_tables_pallas``
-(the ``_kernel_swar`` kernel).  For S shards of model-history bytes
-``dh`` (S, MP) uint8 with valid lengths ``npos`` and a (W,) uint8 window
-dictionary, returns ``(len16, idx16, lenx, idxx)``, each (S, MP) int32:
-the longest linear-buffer match of ``dh[s, t:]`` (runs stop at npos)
-against the window model ``C = dict || dh[s]`` at caps 16 and ``LEXT``,
-lowest ring slot among the longest.  Positions >= npos hold len 0,
-index 0.  The semantics oracle is ``engine/search_np.match_tables_ext``
-of the JAX package; the CUDA kernel is ``csrc/match_ext.cu``.
+Counterpart of ``tamp_tpu/ops/match_ext_pallas.py::ext_tables_pallas``:
+B1 is its ``_kernel_swar`` kernel, B2 its byte kernel ``_kernel`` with the
+probe family (``probe=True``, the lazy extended encode).  For S shards of
+model-history bytes ``dh`` (S, MP) uint8 with valid lengths ``npos`` and a
+(W,) uint8 window dictionary, B1 returns ``(len16, idx16, lenx, idxx)``,
+each (S, MP) int32: the longest linear-buffer match of ``dh[s, t:]`` (runs
+stop at npos) against the window model ``C = dict || dh[s]`` at caps 16
+and ``LEXT``, lowest ring slot among the longest.  B2 adds ``(plen,
+pidx)``: target ``dh[s, t+1:]`` against the ring at t, cap 15 (see
+ops/match_v1.py).  Positions >= npos hold len 0, index 0.  The semantics
+oracles are ``engine/search_np.match_tables_ext`` and ``match_tables`` of
+the JAX package; the CUDA kernels are in ``csrc/match_ext.cu``.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import _build
+from .match_v1 import check_inputs, families_plain, launch_tables, runs_down
 
-__all__ = ["ext_tables", "ext_tables_plain"]
-
-
-def _runs_down(eq: torch.Tensor, cap: int) -> torch.Tensor:
-    """Run lengths of consecutive ones down dim 1 (rows), log-doubled;
-    exact wherever ``cap`` rows follow, then capped at ``cap`` (int16: the
-    values stay below 2 * cap)."""
-    L = eq.to(torch.int16)
-    R = L.shape[1]
-    k = 1
-    while k < cap:
-        nxt = torch.zeros_like(L)
-        if k < R:
-            nxt[:, : R - k] = L[:, k:]
-        L = L + torch.where(L == k, nxt, 0)
-        k *= 2
-    return torch.clamp_max(L, cap)
+__all__ = ["ext_tables", "ext_tables_plain", "ext_tables_probe",
+           "ext_tables_probe_plain"]
 
 
 def ext_tables_plain(dh: torch.Tensor, npos: torch.Tensor,
@@ -77,9 +63,9 @@ def ext_tables_plain(dh: torch.Tensor, npos: torch.Tensor,
     for t0 in range(0, MP, T):
         Tc = min(T, MP - t0)
         eq = Cw[:, t0 : t0 + R] == d[:, t0 : t0 + R, None]
-        L = _runs_down(eq, LEXT)[:, :Tc]
+        L = runs_down(eq, LEXT)[:, :Tc]
         geq = dg[:, t0 : t0 + R, 1:] == C[:, t0 : t0 + R, None]
-        G = _runs_down(geq, LEXT)[:, :Tc]
+        G = runs_down(geq, LEXT)[:, :Tc]
         tau = (t0 + torch.arange(Tc, device=dev, dtype=torch.int32)) & (W - 1)
         Lc = L[:, :, cols]
         glue = (tau[None, :, None] >= dd) & (Lc >= dd)
@@ -95,46 +81,46 @@ def ext_tables_plain(dh: torch.Tensor, npos: torch.Tensor,
     return tuple(outs)
 
 
-def _check_inputs(dh, npos, dict_arr, window_bits):
-    if dh.dtype != torch.uint8 or dh.dim() != 2:
-        raise ValueError("dh must be a (S, MP) uint8 tensor")
-    if npos.dtype != torch.int32 or npos.shape != (dh.shape[0],):
-        raise ValueError("npos must be an (S,) int32 tensor")
-    if dict_arr.dtype != torch.uint8 or dict_arr.shape != (1 << window_bits,):
-        raise ValueError("dict_arr must be a (W,) uint8 tensor")
-    if not (npos.device == dict_arr.device == dh.device):
-        raise ValueError("dh, npos and dict_arr must share one device")
-
-
 def ext_tables(dh: torch.Tensor, npos: torch.Tensor, dict_arr: torch.Tensor,
                *, window_bits: int, LEXT: int):
     """(len16, idx16, lenx, idxx): kernel B1 for CUDA tensors, the plain
     version for CPU tensors."""
-    _check_inputs(dh, npos, dict_arr, window_bits)
+    check_inputs(dh, npos, dict_arr, window_bits)
     if dh.device.type == "cpu":
         return ext_tables_plain(dh, npos, dict_arr, window_bits=window_bits,
                                 LEXT=LEXT)
-    if dh.device.type != "cuda":
-        raise ValueError(f"unsupported device {dh.device}")
-    lib = _build.load("match_ext")
-    fn = lib.tpt_ext_tables
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    S, MP = dh.shape
-    dh = dh.contiguous()
-    npos = npos.contiguous()
-    dict_arr = dict_arr.contiguous()
-    outs = [torch.empty((S, MP), dtype=torch.int32, device=dh.device)
-            for _ in range(4)]
-    stream = torch.cuda.current_stream(dh.device).cuda_stream
-    with torch.cuda.device(dh.device):
-        rc = fn(dh.data_ptr(), npos.data_ptr(), dict_arr.data_ptr(),
-                *(o.data_ptr() for o in outs), S, MP, window_bits, LEXT,
-                stream)
-    _build.check(rc, "ext_tables kernel")
+    outs = launch_tables("tpt_ext_tables", dh, npos, dict_arr, 4, 0,
+                         window_bits, LEXT)
     ext_tables.launches += 1
-    return tuple(outs)
+    return outs
 
 
 ext_tables.launches = 0
+
+
+def ext_tables_probe_plain(dh: torch.Tensor, npos: torch.Tensor,
+                           dict_arr: torch.Tensor, *, window_bits: int,
+                           LEXT: int):
+    """B2 in plain tensor ops: B1's plain version and the probe family of
+    ops/match_v1.py on the model history."""
+    return (*ext_tables_plain(dh, npos, dict_arr, window_bits=window_bits,
+                              LEXT=LEXT),
+            *families_plain(dh, npos, dict_arr, window_bits=window_bits,
+                            cap=None, probe=True))
+
+
+def ext_tables_probe(dh: torch.Tensor, npos: torch.Tensor,
+                     dict_arr: torch.Tensor, *, window_bits: int, LEXT: int):
+    """(len16, idx16, lenx, idxx, plen, pidx): kernel B2 for CUDA tensors,
+    the plain version for CPU tensors."""
+    check_inputs(dh, npos, dict_arr, window_bits)
+    if dh.device.type == "cpu":
+        return ext_tables_probe_plain(dh, npos, dict_arr,
+                                      window_bits=window_bits, LEXT=LEXT)
+    outs = launch_tables("tpt_ext_tables_probe", dh, npos, dict_arr, 6, 0,
+                         window_bits, LEXT)
+    ext_tables_probe.launches += 1
+    return outs
+
+
+ext_tables_probe.launches = 0

@@ -128,9 +128,10 @@ def _plan_stage1(dh: torch.Tensor, *, dlast: int):
 
 
 def _plan_stage2(dh, last, avail, len16, idx16, lenx, idxx, bound, rle_c,
-                 rle_k, *, window: int, literal: int):
+                 rle_k, plen, pidx, *, window: int, literal: int):
     """Per-position decision and field values: (A, nb, adv, err, use_ev)
-    before the literal-pair fuse."""
+    before the literal-pair fuse; ``plen``/``pidx`` (or None) the probe
+    planes of lazy matching."""
     minp = compute_min_pattern_size(window, literal)
     W = 1 << window
     lit_flag = 1 << literal
@@ -150,6 +151,19 @@ def _plan_stage2(dh, last, avail, len16, idx16, lenx, idxx, bound, rle_c,
     lit1 = split & (room == 1)  # 1-byte remainder crosses the ring end
 
     is_match = size1 >= minp
+
+    # lazy deferral, pure-position: a basic match of size <= 8 becomes a
+    # literal when the next position matches strictly longer (probe: target
+    # p + 1, cap 15, ring at p) and the probe's source does not hold the
+    # write head.  Only in the steady state (bound >= 16, where the cap-15
+    # table equals the exact probe search), and nothing is cached: the walk
+    # at p + 1 decides from its own tables.
+    go_lazy = torch.zeros_like(is_match)
+    if plen is not None:
+        posring = _iota(dh) & (W - 1)
+        overlap = (pidx <= posring) & (posring < pidx + plen)
+        go_lazy = (is_match & (size1 <= 8) & (bound >= 16) & (plen > size1)
+                   & ~overlap)
     ext_entry = is_match & (size1 > minp + 11)
     m = torch.minimum(lenx, bound)
     # avoid-divergence policy
@@ -180,15 +194,16 @@ def _plan_stage2(dh, last, avail, len16, idx16, lenx, idxx, bound, rle_c,
     fr = rle_c >= 2
     rv, rn = _rle_field(torch.clamp_min(torch.where(fr, rle_c, rle_cnt), 2))
 
-    # priority: forced-RLE chunk start > dynamic RLE > pattern > literal
+    # priority: forced-RLE chunk start > dynamic RLE > lazy literal >
+    # pattern > literal
     zero = torch.zeros_like(dh)
-    is_lit = ~do_rle & ~is_match
+    is_lit = ~do_rle & (~is_match | go_lazy)
     A = torch.where(is_lit, lv, zero)
     nb = torch.where(is_lit, nbl, zero)
     adv = torch.where(is_lit, 1, zero)
     err = is_lit & lerr
 
-    use_bm = is_match & (~ext_entry | ext_basic) & ~do_rle
+    use_bm = is_match & ~go_lazy & (~ext_entry | ext_basic) & ~do_rle
     use_ev = is_match & ext_entry & ~ext_basic & ~do_rle
     A = torch.where(use_bm, bv, A)
     nb = torch.where(use_bm, bn, nb)
@@ -236,17 +251,19 @@ def _plan_stage3(A, nb, adv, err, use_ev, idxx, *, window: int,
 
 
 def plan_fields_ext(dh, len16, idx16, lenx, idxx, bound, rle_c, rle_k, *,
-                    window: int, literal: int, dlast: int):
+                    window: int, literal: int, dlast: int, plen=None,
+                    pidx=None):
     """(A, B) per-position fields of the planned extended walk.
 
     All arrays (S, MP) int32 in model space: ``dh`` model bytes (padding
     value > 255); ``len16/idx16`` and ``lenx/idxx`` the two table families;
     ``bound``, ``rle_c``, ``rle_k`` the region planes (derive_region_arrays);
-    ``dlast`` the dictionary's last byte.  A = field value; B = ``nb |
-    adv << 6 | err << 14`` (plus the split index for window >= 14)."""
+    ``dlast`` the dictionary's last byte; ``plen/pidx`` the probe family,
+    given for lazy matching only.  A = field value; B = ``nb | adv << 6 |
+    err << 14`` (plus the split index for window >= 14)."""
     last, avail = _plan_stage1(dh, dlast=dlast)
     A, nb, adv, err, use_ev = _plan_stage2(
         dh, last, avail, len16, idx16, lenx, idxx, bound, rle_c, rle_k,
-        window=window, literal=literal)
+        plen, pidx, window=window, literal=literal)
     return _plan_stage3(A, nb, adv, err, use_ev, idxx, window=window,
                         literal=literal)

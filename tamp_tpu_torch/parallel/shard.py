@@ -72,27 +72,28 @@ def compress_sharded(
 ) -> bytes:
     """Compress ``data`` as a TTPU container, all shards batched on the card.
 
-    ``engine="device-commit"`` (the only engine of this port so far):
-    extended-format planned encode, byte-identical to the JAX package's
-    ``compress_sharded(engine="device-commit")``.  ``dictionary`` (a
-    full-window custom dictionary) seeds every shard's window; pass the same
-    one to the decode side.  ``device``: None for the CUDA card, ``"cpu"``
-    for the plain versions."""
+    ``engine="device-commit"`` (the only engine of this port so far),
+    byte-identical to the JAX package's
+    ``compress_sharded(engine="device-commit")``: the extended-format
+    planned encode (engine/pipeline_ext.py) or, with ``extended=False``,
+    the v1 encode (engine/pipeline.py), each with or without
+    ``lazy_matching``.  ``dictionary`` (a full-window custom dictionary)
+    seeds every shard's window; pass the same one to the decode side.
+    ``device``: None for the CUDA card, ``"cpu"`` for the plain versions."""
     if engine != "device-commit":
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet: ROADMAP.md queue A "
             "('Greedy-parity arm' for device-greedy, 'Optimal modes' for "
             "device-optimal)")
-    if not extended:
-        raise NotImplementedError(
-            "extended=False (the v1 format) is not ported yet: ROADMAP.md "
-            "queue A, 'v1 device path'")
-    from ..engine.pipeline_ext import encode_ext_device_commit
+    if extended:
+        from ..engine.pipeline_ext import encode_ext_device_commit as encode
+    else:
+        from ..engine.pipeline import encode_v1_device_commit as encode
 
     data = bytes(data)
     shards = [data[i : i + shard_size]
               for i in range(0, len(data), shard_size)] or [b""]
-    blobs = encode_ext_device_commit(
+    blobs = encode(
         shards, window=window, literal=literal, lazy_matching=lazy_matching,
         dictionary=dictionary, device=device)
     return _pack_frame(blobs, len(data), shard_size)

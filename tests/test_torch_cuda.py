@@ -13,8 +13,13 @@ import torch
 from tamp_tpu_torch.constants import compute_min_pattern_size
 from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
-from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_fields_plain
-from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
+from tamp_tpu_torch.ops.encode_commit import (
+    commit_fields, commit_fields_plain, commit_v1_lazy, commit_v1_lazy_plain,
+)
+from tamp_tpu_torch.ops.match_ext import (
+    ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
+)
+from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
 from tamp_tpu_torch.parallel.shard import (
     compress_sharded, decompress_sharded_device,
 )
@@ -51,6 +56,60 @@ def test_b1_kernel_equals_plain(cuda, window):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("window", [8, 11, 15])
+def test_b2_kernel_equals_plain(cuda, window):
+    lext = compute_min_pattern_size(window, 8) + 131
+    rng = np.random.default_rng(window + 1)
+    dh = torch.from_numpy(rng.integers(97, 101, (2, 4096)).astype(np.uint8))
+    npos = torch.tensor([4096, 1501], dtype=torch.int32)
+    d = torch.from_numpy(dictionary_array(1 << window))
+    want = ext_tables_probe_plain(dh, npos, d, window_bits=window, LEXT=lext)
+    got = ext_tables_probe(dh.to(cuda), npos.to(cuda), d.to(cuda),
+                           window_bits=window, LEXT=lext)
+    assert len(got) == 6
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("probe", [False, True])
+@pytest.mark.parametrize("cap", [15, 16])
+@pytest.mark.parametrize("window", [8, 11, 15])
+def test_b5_kernel_equals_plain(cuda, window, cap, probe):
+    rng = np.random.default_rng(window * 2 + cap)
+    data = torch.from_numpy(rng.integers(97, 100, (2, 4096)).astype(np.uint8))
+    data[0, 1000:1300] = 7  # a run: glue zones
+    npos = torch.tensor([4096, 1499], dtype=torch.int32)
+    d = torch.from_numpy(dictionary_array(1 << window))
+    kw = dict(window_bits=window, cap=cap, probe=probe)
+    want = v1_tables_plain(data, npos, d, **kw)
+    got = v1_tables(data.to(cuda), npos.to(cuda), d.to(cuda), **kw)
+    assert len(got) == len(want) == (4 if probe else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_b6_kernel_equals_plain(cuda):
+    rng = np.random.default_rng(2)
+    S, NP = 3, 4096
+    size = rng.integers(0, 17, (S, NP))
+    packed = (size << 23) | (rng.integers(0, 1024, (S, NP)) << 8) \
+        | rng.integers(0, 128, (S, NP))
+    probe = (rng.integers(0, 16, (S, NP)) << 15) | rng.integers(0, 1024,
+                                                              (S, NP))
+    packed[2, 2480:2520] = 0x41  # literals, then one 0x80+ byte: literal 7
+    packed[2, 2500] = 0xC3       # cannot hold it (ERR_EXCESS)
+    probe[2, 2480:2520] = 0
+    packed = torch.from_numpy(packed.astype(np.int32))
+    probe = torch.from_numpy(probe.astype(np.int32))
+    npos = torch.tensor([4096, 2000, 4000], dtype=torch.int32)
+    kw = dict(window=10, literal=7, max_out=NP + NP // 8 + 64)
+    want = commit_v1_lazy_plain(packed, probe, npos, **kw)
+    got = commit_v1_lazy(packed.to(cuda), probe.to(cuda), npos.to(cuda), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[1][:, 6].tolist() == [0, 0, 1]
+
+
 def test_b3_kernel_equals_plain(cuda):
     rng = np.random.default_rng(1)
     S, NP = 3, 4096
@@ -81,6 +140,26 @@ def test_entry_points_round_trip_and_match_plain(cuda):
     for raw, size in ((b"", 1024), (tiny, 7), (tiny, 17)):
         blob = compress_sharded(raw, shard_size=size)
         assert blob == compress_sharded(raw, shard_size=size, device="cpu")
+        assert bytes(decompress_sharded_device(blob)) == raw
+
+
+@pytest.mark.parametrize("kw", [
+    {"extended": False}, {"extended": False, "lazy_matching": True},
+    {"lazy_matching": True}, {"extended": False, "window": 11, "literal": 5},
+])
+def test_v1_and_lazy_round_trip_and_match_plain(cuda, kw):
+    lmask = (1 << kw.get("literal", 8)) - 1
+    data = bytes(b & lmask for b in _text(40000, 4))
+    blob = compress_sharded(data, shard_size=16384, **kw)
+    assert blob == compress_sharded(data, shard_size=16384, device="cpu",
+                                    **kw)
+    assert bytes(decompress_sharded_device(blob)) == data
+    tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
+    for raw, size in ((b"", 1024), (tiny, 7), (tiny, 17)):
+        raw = bytes(b & lmask for b in raw)
+        blob = compress_sharded(raw, shard_size=size, **kw)
+        assert blob == compress_sharded(raw, shard_size=size, device="cpu",
+                                        **kw)
         assert bytes(decompress_sharded_device(blob)) == raw
 
 

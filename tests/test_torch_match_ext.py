@@ -1,6 +1,7 @@
-"""Kernel B1's plain version (tamp_tpu_torch.ops.match_ext) against the JAX
-package: the quarter-lane Pallas kernel in interpret mode and the NumPy
-oracles of engine/search_np.  Integer tables: equality is exact."""
+"""Kernels B1's and B2's plain versions (tamp_tpu_torch.ops.match_ext)
+against the JAX package: the quarter-lane and byte Pallas kernels in
+interpret mode and the NumPy oracles of engine/search_np.  Integer tables:
+equality is exact."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,9 @@ import torch
 from tamp_tpu.dictionary import dictionary_array
 from tamp_tpu.engine.search_np import match_tables, match_tables_ext
 from tamp_tpu.ops.match_ext_pallas import ext_tables_pallas_host
-from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_plain
+from tamp_tpu_torch.ops.match_ext import (
+    ext_tables, ext_tables_plain, ext_tables_probe,
+)
 
 
 def _text(n: int, seed: int) -> np.ndarray:
@@ -109,3 +112,32 @@ def test_b1_padding_positions():
     for x in a:
         assert int(x[0, 1000:].abs().sum()) == 0
         assert int(x[1, 37:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("window,n,pallas", [(8, 700, True), (10, 1500, True),
+                                             (12, 1200, False),
+                                             (15, 500, False)])
+def test_b2_plain_probe_matches_pallas_and_oracle(window, n, pallas):
+    # kernel B2: B1's four planes plus the probe family (target t + 1, cap
+    # 15, ring at t) on the model history
+    maxpat = 133
+    d = dictionary_array(1 << window, literal=8)
+    arr = _text(n, window + 20)
+    arr[n // 2 : n // 2 + 40] = 5
+    NP = arr.shape[0]
+    outs = ext_tables_probe(
+        torch.from_numpy(arr[None].copy()),
+        torch.tensor([NP], dtype=torch.int32), torch.from_numpy(d),
+        window_bits=window, LEXT=maxpat)
+    got = [o[0].numpy() for o in outs]
+    b1 = _port([arr], d, window, maxpat)[0]
+    for g, w in zip(got[:4], b1):
+        np.testing.assert_array_equal(g, w)
+    t16 = match_tables(arr, d, window, compute_probe=True)
+    np.testing.assert_array_equal(got[4], t16.probe_len.astype(np.int32))
+    np.testing.assert_array_equal(got[5], t16.probe_idx)
+    if pallas:
+        pal = ext_tables_pallas_host(arr, d, window, maxpat, probe=True,
+                                     interpret=True)
+        for g, w in zip(got, pal):
+            np.testing.assert_array_equal(g, w)

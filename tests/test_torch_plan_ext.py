@@ -14,7 +14,7 @@ from tamp_tpu.ops import plan_ext as jplan
 from tamp_tpu_torch.constants import compute_min_pattern_size
 from tamp_tpu_torch.engine.plan import ext_prep
 from tamp_tpu_torch.ops import plan_ext as tplan
-from tamp_tpu_torch.ops.match_ext import ext_tables_plain
+from tamp_tpu_torch.ops.match_ext import ext_tables_plain, ext_tables_probe
 
 
 def _data(n: int, seed: int) -> np.ndarray:
@@ -88,3 +88,47 @@ def test_plan_fields_match_jax(window, literal):
     np.testing.assert_array_equal(B.numpy(), np.asarray(JB))
     if window >= jplan.SPLIT_WINDOW:  # the split index field is exercised
         assert (B.numpy() >> 15 & 1).any()
+
+
+@pytest.mark.parametrize("window,literal", [(8, 8), (10, 8), (11, 6),
+                                            (14, 8)])
+def test_lazy_plan_fields_match_jax(window, literal):
+    # the lazy deferral: a basic match of <= 8 bytes becomes a literal where
+    # the probe is longer, clear of the write head, and bound >= 16
+    W = 1 << window
+    maxpat = compute_min_pattern_size(window, literal) + 131
+    d = dictionary_array(W, literal=literal)
+    rows = [_data(1500 if window <= 12 else 700, window + 3)
+            & ((1 << literal) - 1)]
+    preps = [ext_prep(r, window) for r in rows]
+    NP = 2048
+    dh = np.zeros((1, NP), np.uint8)
+    rc = np.zeros((1, NP), np.uint8)
+    dh[0, : preps[0][2].shape[0]] = preps[0][2]
+    rc[0, : preps[0][3].shape[0]] = preps[0][3]
+    npos = np.asarray([preps[0][2].shape[0]], np.int32)
+    tabs = [t.numpy() for t in ext_tables_probe(
+        torch.from_numpy(dh), torch.from_numpy(npos), torch.from_numpy(d),
+        window_bits=window, LEXT=maxpat)]
+    col = np.arange(NP)[None, :]
+    dh_sent = np.where(col < npos[:, None], dh.astype(np.int32), 0x1FF)
+    rc32 = rc.astype(np.int32)
+    bnd, rk = tplan.derive_region_arrays(torch.from_numpy(rc32),
+                                         window=window)
+    kw = dict(window=window, literal=literal, dlast=int(d[-1]))
+    A, B = tplan.plan_fields_ext(
+        torch.from_numpy(dh_sent), *(torch.from_numpy(t) for t in tabs[:4]),
+        bnd, torch.from_numpy(rc32), rk, plen=torch.from_numpy(tabs[4]),
+        pidx=torch.from_numpy(tabs[5]), **kw)
+    JA, JB = jplan.plan_fields_ext(
+        jnp.asarray(dh_sent), *(jnp.asarray(t) for t in tabs[:4]),
+        jnp.asarray(bnd.numpy()), jnp.asarray(rc32),
+        jnp.asarray(rk.numpy()), plen=jnp.asarray(tabs[4]),
+        pidx=jnp.asarray(tabs[5]), lazy=True, **kw)
+    np.testing.assert_array_equal(A.numpy(), np.asarray(JA))
+    np.testing.assert_array_equal(B.numpy(), np.asarray(JB))
+    # the deferral fired: the lazy plan differs from the non-lazy one
+    _A0, B0 = tplan.plan_fields_ext(
+        torch.from_numpy(dh_sent), *(torch.from_numpy(t) for t in tabs[:4]),
+        bnd, torch.from_numpy(rc32), rk, **kw)
+    assert not torch.equal(B, B0)

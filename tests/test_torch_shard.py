@@ -67,9 +67,38 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
         tshard.decompress_sharded_device(blob)
 
 
+@pytest.mark.skipif(not _native.available(), reason="native engine needed")
+@pytest.mark.parametrize("kw", [
+    {"extended": False}, {"extended": False, "lazy_matching": True},
+    {"lazy_matching": True}, {"extended": False, "window": 11, "literal": 5},
+])
+def test_v1_and_lazy_containers_match_jax(kw):
+    lmask = (1 << kw.get("literal", 8)) - 1
+    data = bytes(b & lmask for b in _corpus(7000, 4))
+    blob = tshard.compress_sharded(data, shard_size=2500, device="cpu", **kw)
+    assert blob == jshard.compress_sharded(data, shard_size=2500,
+                                           engine="device-commit", **kw)
+    assert bytes(jshard.decompress_sharded(blob)) == data
+    assert bytes(tshard.decompress_sharded_device(blob, device="cpu")) == data
+
+
+def test_v1_container_custom_dictionary():
+    rng = np.random.default_rng(5)
+    dictionary = bytes(rng.integers(97, 123, 1024).astype(np.uint8))
+    data = dictionary[:1800] + _corpus(900, 6)
+    for lazy in (False, True):
+        blob = tshard.compress_sharded(data, shard_size=1500, extended=False,
+                                       lazy_matching=lazy,
+                                       dictionary=dictionary, device="cpu")
+        assert blob == jshard.compress_sharded(
+            data, shard_size=1500, extended=False, lazy_matching=lazy,
+            dictionary=dictionary, engine="device-commit")
+        assert bytes(tshard.decompress_sharded_device(
+            blob, dictionary=dictionary, device="cpu")) == data
+
+
 def test_not_ported_modes_raise():
-    for kw in ({"engine": "device-greedy"}, {"engine": "native"},
-               {"extended": False}, {"lazy_matching": True}):
+    for kw in ({"engine": "device-greedy"}, {"engine": "native"}):
         with pytest.raises(NotImplementedError):
             tshard.compress_sharded(b"abc", device="cpu", **kw)
     blob = tshard.compress_sharded(b"abc", device="cpu")
@@ -96,7 +125,8 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "tamp_tpu"), (f, name)
     code = ("import sys, tamp_tpu_torch, tamp_tpu_torch.parallel.shard, "
-            "tamp_tpu_torch.engine.pipeline_ext; "
+            "tamp_tpu_torch.engine.pipeline_ext, "
+            "tamp_tpu_torch.engine.pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tamp_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
