@@ -8,12 +8,16 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card's name and power limit; build the kernels from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, at a
    reduced size (2 shards x 64 KiB), exactly: B1 and B2 at windows
-   8/10/12/15, B3 at windows 10 and 14 plus an excess-bits row, B4 on an
-   extended stream, a window-15 stream, a double-FLUSH ``more`` stream and
-   a corrupt stream, B5 at cap 15 (w10 l8) and cap 16 (w11 l5) with and
-   without the probe and at w15, B6 at w10 l8, w11 l5 and an excess-bits
-   row at l7; the entry points on empty and tiny shards for the extended
-   and v1 formats, lazy and not;
+   8/10/12/15, B3 at windows 10 and 14 plus an excess-bits row, B4, B8, X1
+   and X2 on an extended stream, a window-15 stream, a double-FLUSH
+   ``more`` stream, a v1 stream, an out-of-bounds, an overflowing and a
+   corrupt stream (error codes included; the chase and xla tables equal,
+   and on valid streams the wavefront finish equals B4), B5 at cap 15 (w10
+   l8) and cap 16 (w11 l5) with and without the probe and at w15, B6 at w10
+   l8, w11 l5 and an excess-bits row at l7; the entry points on empty and
+   tiny shards for the extended and v1 formats, lazy and not, and two
+   streams whose payload fills its bucket exactly in every decode mode and
+   the serial algorithm;
 3. four round trips at full size: 8 x 1 MiB shards of a seeded text-like
    corpus with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded(engine="device-commit")`` and
@@ -24,7 +28,13 @@ Phases (any failure raises, and the script exits non-zero):
    events, median of 3 after a warm-up), the ratio, and the card's
    container equal to the plain versions' on a small input.  For the main
    path also the time of each stage of the encode and the decode, and the
-   device's busy and idle share in each (torch.profiler);
+   device's busy and idle share in each (torch.profiler).  Then the decode
+   modes: those four containers and an extended window-15 one of the same
+   corpus, each decoded through ``decompress_sharded_device`` with
+   ``TAMP_TPU_DECODE`` set to commit, chase and xla, and with
+   ``algorithm="serial"``: the output equal to the input, the launch
+   counts of that one decode (B8 and X1 on chase, X1 on xla, X2 on serial,
+   B4 on none of the three), and the rate;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take).
 
@@ -54,6 +64,23 @@ PATHS = (
      ("v1_tables", "commit_fields", "commit_decode")),
     ("v1 lazy", {"extended": False, "lazy_matching": True},
      ("v1_tables", "commit_v1_lazy", "commit_decode")),
+)
+# the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
+# X2) each must launch; none of them launches B4
+DECODES = (
+    ("chase", ("token_table_chase", "trunc_deficits")),
+    ("xla", ("trunc_deficits",)),
+    ("serial", ("serial_decode",)),
+)
+# two w10/l8 streams whose 64-byte payload fills its bucket, the last token
+# ending on the payload's last bit, and their raw bytes
+EXACT_BUCKET = (
+    ("5ab5dbed80876bb50142a8169b459edf64b45a2df66b5dbad968b6c80052db69b35aadd"
+     "62b15becf63b2d98032da00770150b4592c96c9059ace2040444576d091",
+     b"koloekj oooihgodhhofknlhm knmifjnbbogcefhgmoepi hddl fgniboiemaa"),
+    ("5ab75a02a6df66083b2d9ad770b65c0c46d800f62b3d92c965b1da6c83396ab75b2c968"
+     "020b458ac56db5596d6c09b183659187966b500ed92d36d01eb558ac770",
+     b"nho ofooefkplpialoebgddecidoijnldhdhhbbmjekfkpcoad aafjjndimnljbcp"),
 )
 
 
@@ -234,6 +261,7 @@ def phase_kernels_small(dev, report):
     from tamp_tpu_torch.dictionary import dictionary_array
     from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
     from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_serial as dser
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import (
         commit_fields, commit_fields_plain, commit_v1_lazy,
@@ -242,6 +270,9 @@ def phase_kernels_small(dev, report):
     from tamp_tpu_torch.ops.encode_fused import v1_cap
     from tamp_tpu_torch.ops.match_ext import (
         ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
+    )
+    from tamp_tpu_torch.ops.token_chase import (
+        token_table_chase, token_table_chase_plain,
     )
     from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
     from tamp_tpu_torch.parallel.shard import (
@@ -368,6 +399,42 @@ def phase_kernels_small(dev, report):
                f"lens={got[1].tolist()} errs={got[2].tolist()}")
         if err:
             fail(f"B4 differs from its plain version on {name}")
+
+        # B8 and the xla table; X1 on the chase table's fold
+        NBP = nxt.shape[1]
+        T_max = NBP // (1 + literal) + 2
+        tab = token_table_chase(nxt, NBP, T_max)
+        ptab = token_table_chase_plain(nxt, NBP, T_max)
+        xtab = dw._token_table(nxt, NBP, literal, T_max)
+        x1_in = dw.fold_inputs(*tab, packed, more=more)
+        defs = dw.trunc_deficits(*x1_in, W)
+        pdefs = dw.trunc_deficits_plain(*x1_in, W)
+        fin = dw.wavefront_finish(*tab, packed, di, dr, window=window,
+                                  more=more, max_out=max_out)
+        # X2 on the same payloads
+        pl = np.zeros((len(streams), max(len(s) for s in streams)), np.uint8)
+        for i, s in enumerate(streams):
+            pl[i, : len(s) - skip] = np.frombuffer(s[skip:], np.uint8)
+        pl = torch.from_numpy(pl)
+        nb = torch.tensor([len(s) - skip for s in streams], dtype=torch.int32)
+        kw = dict(window=window, literal=literal, extended=extended,
+                  more=more, max_out=max_out)
+        ser = dser.serial_decode(pl.to(dev), nb.to(dev), di, dr, **kw)
+        pser = dser.serial_decode_plain(pl, nb, di.cpu(), dr.cpu(), **kw)
+        sync(dev)
+        e8 = max_abs_err(zip(tab, ptab)) + max_abs_err(zip(xtab, ptab))
+        e1 = max_abs_err([(defs, pdefs)])
+        e2 = max_abs_err(zip(ser, pser))
+        report(f"B8 {name}: kernel vs plain max_abs_err={e8} "
+               f"T={tab[1].tolist()}; X1: max_abs_err={e1} truncating "
+               f"tokens={x1_in[3].tolist()}; X2: max_abs_err={e2} "
+               f"lens={ser[1].tolist()} errs={ser[2].tolist()}")
+        if e8 or e1 or e2:
+            fail(f"B8, X1 or X2 differs from its plain version on {name}")
+        if not got[2].any() and max_abs_err(zip(fin, got)):
+            fail(f"the chase decode differs from B4's on {name}")
+        if not got[2].any() and ser[2].any():
+            fail(f"X2 rejected {name}")
         return got
 
     for window in (10, 15):
@@ -408,6 +475,22 @@ def phase_kernels_small(dev, report):
     if out[0, : int(lens[0])].cpu().numpy().tobytes() != want:
         fail("B4 v1 stream decoded wrongly")
 
+    # payloads that fill their bucket: every decode mode keeps the final
+    # token
+    for hexs, raw in EXACT_BUCKET:
+        stream = bytes.fromhex(hexs)
+        for mode in dw.MODES:
+            if dw.decode_shards_wavefront([stream], max_out=4096, device=dev,
+                                          mode=mode) != [raw]:
+                fail(f"mode {mode} dropped a bucket-filling payload's final "
+                     "token")
+        if dser.decode_shards_device([stream], max_out=4096,
+                                     device=dev) != [raw]:
+            fail("the serial decoder dropped a bucket-filling payload's "
+                 "final token")
+    report("exact-bucket payloads: equal to their input in modes "
+           f"{dw.MODES} and the serial algorithm")
+
     # empty and tiny shards through the entry points, card against plain
     tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
     for name, kw, _kernels in PATHS:
@@ -417,9 +500,11 @@ def phase_kernels_small(dev, report):
                                         **kw):
                 fail(f"{name}: tiny shards of {size} bytes encode "
                      "differently")
-            if bytes(decompress_sharded_device(blob, device=dev)) != data:
-                fail(f"{name}: tiny shards of {size} bytes did not "
-                     "round-trip")
+            for alg in ("wavefront", "serial"):
+                if bytes(decompress_sharded_device(
+                        blob, algorithm=alg, device=dev)) != data:
+                    fail(f"{name}: tiny shards of {size} bytes did not "
+                         f"round-trip ({alg})")
         report(f"entry points, {name}: empty and tiny shards equal to the "
                "plain versions")
 
@@ -427,14 +512,17 @@ def phase_kernels_small(dev, report):
 def counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
     from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops.decode_serial import serial_decode
+    from tamp_tpu_torch.ops.decode_wavefront import trunc_deficits
     from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_v1_lazy
     from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
     from tamp_tpu_torch.ops.match_v1 import v1_tables
+    from tamp_tpu_torch.ops.token_chase import token_table_chase
 
     fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
-           v1_tables, commit_v1_lazy)
+           v1_tables, commit_v1_lazy, token_table_chase, trunc_deficits,
+           serial_decode)
     return {fn.__name__: fn for fn in fns}
-
 
 
 def phase_main_path(dev, report, data, shard_size: int, card: str,
@@ -487,6 +575,53 @@ def phase_main_path(dev, report, data, shard_size: int, card: str,
     report(f"  {name}: the card's container equals the plain versions' on "
            f"{len(piece)} bytes")
     return blob, launches, ratio
+
+
+def phase_decode_modes(dev, report, data, blobs, shard_size: int,
+                       card: str):
+    """Phase 3, the decode modes: each container of ``blobs`` (by path
+    name) decoded in modes commit, chase and xla and by the serial
+    algorithm, through ``decompress_sharded_device`` with
+    ``TAMP_TPU_DECODE`` set.  Each decode must give the input and launch
+    its kernels (B4 on no mode but commit); returns the launch counts of
+    each one decode and the rates, by (container, mode)."""
+    import os
+
+    from tamp_tpu_torch.parallel.shard import decompress_sharded_device
+
+    fns = counters()
+    launches, rates = {}, {}
+    for name, blob in blobs.items():
+        for mode, kernels in (("commit", ("commit_decode",)),) + DECODES:
+            alg = "serial" if mode == "serial" else "wavefront"
+            os.environ["TAMP_TPU_DECODE"] = mode if alg == "wavefront" \
+                else "commit"
+            try:
+                for fn in fns.values():
+                    fn.launches = 0
+                back = decompress_sharded_device(blob, algorithm=alg,
+                                                 device=dev)
+                got = {k: fn.launches for k, fn in fns.items()}
+                if bytes(back) != data:
+                    fail(f"{name}, mode {mode}: the decode differs from the "
+                         "input")
+                for k in kernels:
+                    if got[k] <= 0:
+                        fail(f"{name}, mode {mode}: kernel {k} was not "
+                             "launched")
+                if mode != "commit" and got["commit_decode"]:
+                    fail(f"{name}, mode {mode}: B4 was launched")
+                ms, _ = cuda_ms(lambda: decompress_sharded_device(
+                    blob, algorithm=alg, device=dev))
+            finally:
+                del os.environ["TAMP_TPU_DECODE"]
+            launches[name, mode] = got
+            rates[name, mode] = len(data) / ms / 1e3
+            ran = {k: n for k, n in got.items() if n}
+            report(f"  decode {name}, mode {mode}: equal, "
+                   f"{rates[name, mode]:.2f} MB/s ({ms:.1f} ms), launches "
+                   f"{ran} [{card}]")
+    return launches, rates
 
 
 def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
@@ -566,7 +701,9 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
 def phase_profile(report, data, blob, shard_size: int, card: str):
     """Device busy and idle share of one encode and one decode, from a
     torch.profiler trace: the device activity (kernels and copies) summed
-    over the wall time of the call."""
+    over the wall time of the call; the decode also in mode chase."""
+    import os
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -575,9 +712,18 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
         compress_sharded, decompress_sharded_device,
     )
 
+    def chase():
+        os.environ["TAMP_TPU_DECODE"] = "chase"
+        try:
+            return decompress_sharded_device(blob)
+        finally:
+            del os.environ["TAMP_TPU_DECODE"]
+
     for name, fn in (
             ("encode", lambda: compress_sharded(data, shard_size=shard_size)),
-            ("decode", lambda: decompress_sharded_device(blob))):
+            ("decode", lambda: decompress_sharded_device(blob)),
+            ("decode (chase)", chase)):
+        fn()  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -630,11 +776,12 @@ def stream_tokens(dev, blob, window: int, literal: int, extended: bool):
     return pk, tokens
 
 
-def phase_kernel_times(dev, report, data, blobs, launches, shard_size: int,
-                       card: str):
+def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
+                       shard_size: int, card: str):
     """Phase 4: each kernel at its path's shapes against its plain
     version: times, results, bounds.  ``blobs`` and ``launches``: the
-    containers and launch counts of phase 3, by path.  Returns the
+    containers and launch counts of phase 3, by path; ``dec_launches``:
+    those of its decode modes, by (container, mode).  Returns the
     ``kernels`` records."""
     import numpy as np
     import torch
@@ -643,11 +790,16 @@ def phase_kernel_times(dev, report, data, blobs, launches, shard_size: int,
     from tamp_tpu_torch.dictionary import dictionary_array
     from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
     from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_serial as dser
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import (
         S_NBYTES, commit_fields, commit_fields_plain, commit_v1_lazy,
         commit_v1_lazy_plain,
     )
+    from tamp_tpu_torch.ops.token_chase import (
+        token_table_chase, token_table_chase_plain,
+    )
+    from tamp_tpu_torch.parallel.shard import _parse_frame
     from tamp_tpu_torch.ops.encode_fused import v1_cap
     from tamp_tpu_torch.ops.match_ext import (
         ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
@@ -796,6 +948,83 @@ def phase_kernel_times(dev, report, data, blobs, launches, shard_size: int,
         plain_ms=pms,
         bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
         ops=3 * steps))
+    del out, st, pout, pst, packed, probe
+
+    # B8: the chase of the main path's parse
+    pieces = _parse_frame(blobs["extended"])[2]
+    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
+                                   literal=literal, extended=True, device=dev)
+    NBP = nxt.shape[1]
+    T_max = NBP // (1 + literal) + 2
+    ms, tab = cuda_ms(lambda: token_table_chase(nxt, NBP, T_max))
+    nxt_h = nxt.cpu()
+    h0 = time.perf_counter()
+    ptab = token_table_chase_plain(nxt_h, NBP, T_max)
+    pms = (time.perf_counter() - h0) * 1e3
+    tokens = int(tab[1].sum())
+    # the chase reads one jump word per token and writes one start each
+    kernels.append(dict(
+        name="token_table_chase (B8)", route="cuda",
+        source="tamp_tpu_torch/csrc/decode_wavefront.cu",
+        replaces="tamp_tpu/ops/token_chase_pallas.py:51",
+        launches=dec_launches["extended", "chase"]["token_table_chase"],
+        max_abs_err=max_abs_err(zip(tab, ptab)), ms=ms, plain_ms=pms,
+        bytes=8 * tokens + 4 * S, ops=2 * tokens))
+    xms, _xtab = cuda_ms(lambda: dw._token_table(nxt, NBP, literal, T_max))
+    fms, _fin = cuda_ms(lambda: dw.wavefront_finish(
+        *tab, packed, dict_d, dict_d, window=window, more=False,
+        max_out=dw._pow2_bucket(shard_size, 1024)))
+    report(f"  xla token table (tensor ops, the xla mode's B8 stage): "
+           f"{xms:.3f} ms; wavefront_finish (tensor ops and X1, both "
+           f"modes): {fms:.3f} ms [{card}]")
+    del nxt, nxt_h, ptab, _xtab, _fin
+
+    # X1: the truncation deficits of the main path's token table
+    x1_in = dw.fold_inputs(*tab, packed, more=False)
+    ms, defs = cuda_ms(lambda: dw.trunc_deficits(*x1_in, W))
+    x1_h = [x.cpu() for x in x1_in]
+    h0 = time.perf_counter()
+    pdefs = dw.trunc_deficits_plain(*x1_h, W)
+    pms = (time.perf_counter() - h0) * 1e3
+    n_tr = int(x1_in[3].sum())
+    report(f"  X1 inputs: {n_tr} truncating tokens of {tokens}")
+    # the fold reads three words and writes one per truncating token
+    kernels.append(dict(
+        name="trunc_deficits (X1)", route="cuda",
+        source="tamp_tpu_torch/csrc/decode_wavefront.cu",
+        replaces="tamp_tpu/ops/decode_wavefront.py:358",
+        launches=dec_launches["extended", "chase"]["trunc_deficits"],
+        max_abs_err=max_abs_err([(defs, pdefs)]), ms=ms, plain_ms=pms,
+        bytes=16 * n_tr + 4 * S, ops=6 * n_tr))
+    del tab, packed, x1_in, x1_h, defs, pdefs
+
+    # X2: the serial decode of the main path's payloads
+    Lp = max(len(p) - 1 for p in pieces)
+    pl = np.zeros((S, Lp), np.uint8)
+    for i, p in enumerate(pieces):
+        pl[i, : len(p) - 1] = np.frombuffer(p[1:], np.uint8)
+    pl_h = torch.from_numpy(pl)
+    nb_h = torch.tensor([len(p) - 1 for p in pieces], dtype=torch.int32)
+    pl_d, nb_d = pl_h.to(dev), nb_h.to(dev)
+    kw = dict(window=window, literal=literal, extended=True, more=False,
+              max_out=shard_size)
+    ms, got = cuda_ms(lambda: dser.serial_decode(pl_d, nb_d, dict_d, dict_d,
+                                                 **kw))
+    h0 = time.perf_counter()
+    plain = dser.serial_decode_plain(pl_h, nb_h, dict_d.cpu(), dict_d.cpu(),
+                                     **kw)
+    pms = (time.perf_counter() - h0) * 1e3
+    out_bytes = int(got[1].sum())
+    # the payload read once, the output written once
+    kernels.append(dict(
+        name="serial_decode (X2)", route="cuda",
+        source="tamp_tpu_torch/csrc/decode_serial.cu",
+        replaces="tamp_tpu/ops/decode_jax.py:77",
+        launches=dec_launches["extended", "serial"]["serial_decode"],
+        max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
+        bytes=int(nb_h.sum()) + 2 * W + out_bytes + 12 * S,
+        ops=out_bytes))
+    del got, plain
 
     ops_per_s = int_ops_per_s()  # every kernel's work is integer work
     report(f"  integer peak {ops_per_s / 1e12:.2f} T/s [{card}]")
@@ -864,11 +1093,22 @@ def main() -> int:
         if not ratios[f"{fmt} lazy"] < ratios[fmt]:
             fail(f"{fmt}: lazy matching did not beat the greedy parse on "
                  f"text ({ratios[f'{fmt} lazy']} vs {ratios[fmt]})")
+    t1 = time.perf_counter()
+    from tamp_tpu_torch.parallel.shard import compress_sharded
+
+    modes_in = dict(blobs)
+    modes_in["extended w15"] = compress_sharded(
+        data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev)
+    report(f"phase 3: extended w15 container encoded in "
+           f"{time.perf_counter() - t1:.1f} s, ratio "
+           f"{len(modes_in['extended w15']) / len(data):.6f}")
+    dec_launches, _rates = phase_decode_modes(
+        dev, report, data, modes_in, DEFAULT_SHARD_SIZE, card)
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    kernels = phase_kernel_times(dev, report, data, blobs, launches,
-                                 DEFAULT_SHARD_SIZE, card)
+    kernels = phase_kernel_times(dev, report, data, modes_in, launches,
+                                 dec_launches, DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
 
     print(json.dumps({"kernels": kernels}), flush=True)

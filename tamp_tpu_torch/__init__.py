@@ -5,7 +5,9 @@ formats, lazy matching on and off, windows 8-15, literals 5-8:
 
 - encode: :func:`tamp_tpu_torch.parallel.shard.compress_sharded`
   (``engine="device-commit"``);
-- decode: :func:`tamp_tpu_torch.parallel.shard.decompress_sharded_device`.
+- decode: :func:`tamp_tpu_torch.parallel.shard.decompress_sharded_device`,
+  every device decode mode of the JAX package (``commit``, ``chase``,
+  ``xla``; ``TAMP_TPU_DECODE``) and ``algorithm="serial"``.
 
 Streams and containers are byte-identical to the JAX package's.  The
 package imports PyTorch and NumPy only; its CUDA kernels (``csrc/``) are

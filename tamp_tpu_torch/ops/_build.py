@@ -29,7 +29,8 @@ __all__ = ["load", "build_all", "check", "launch", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
-SOURCES = ("match_ext", "encode_commit", "decode_commit")
+SOURCES = ("match_ext", "encode_commit", "decode_commit", "decode_wavefront",
+           "decode_serial")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

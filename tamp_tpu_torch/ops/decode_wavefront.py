@@ -1,8 +1,8 @@
-"""Device decode of same-config Tamp streams: per-bit parse + commit.
+"""Device decode of same-config Tamp streams: per-bit parse, then one of
+three modes.
 
-Counterpart of ``tamp_tpu/ops/decode_wavefront.py`` on its commit path
-(``decode_shards_wavefront`` -> ``_decode_group`` ->
-``_wavefront_batch(mode="commit")``):
+Counterpart of ``tamp_tpu/ops/decode_wavefront.py``
+(``decode_shards_wavefront`` -> ``_decode_group`` -> ``_wavefront_batch``):
 
 1. **Speculative per-bit parse** (:func:`speculative_parse`, tensor ops):
    for every bit offset of every payload, decode the token that would start
@@ -10,11 +10,29 @@ Counterpart of ``tamp_tpu/ops/decode_wavefront.py`` on its commit path
    package does this bit math in uint32; here it is int64 with explicit
    32-bit masks.  It allocates about a dozen (S, NBP) int64 temporaries, a
    few GB at 8 shards of 1 MiB: memory traded for simplicity.
-2. **Commit** (kernel B4, ops/decode_commit.py): one serial walk per shard
-   from bit 0 along the parse chain, against a window ring.
+2. One of three modes (``mode``, or ``TAMP_TPU_DECODE``; ``"commit"`` by
+   default at every window):
+
+   - ``commit``: kernel B4 (ops/decode_commit.py), one serial walk per
+     shard along the parse chain against a window ring;
+   - ``chase``: the token table by kernel B8 (ops/token_chase.py), then
+     :func:`wavefront_finish`;
+   - ``xla``: the token table by :func:`_token_table` (tensor ops), then
+     :func:`wavefront_finish`.
+
+   :func:`wavefront_finish` places every token's output, folds the window
+   writes (kernel X1 for the serial truncation deficits), links each output
+   byte to its source and resolves the links by pointer doubling.
+
+A complete token never ends at bit NBP: the payload bucket holds one spare
+byte past the longest payload (:func:`payload_parse`), so NBP marks only
+incomplete tokens in every mode.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 import torch
@@ -32,15 +50,26 @@ from ..constants import (
 from ..device import resolve_device
 from ..dictionary import dictionary_array
 from ..exceptions import OutOfBoundsError
+from . import _build
 from .decode_commit import (
     ERR_OK, ERR_OOB, ERR_OVERFLOW, K_EXT, K_FLUSH, K_LIT, K_MATCH, K_RLE,
     commit_decode,
 )
+from .token_chase import token_table_chase
 
-__all__ = ["decode_shards_wavefront", "payload_parse", "speculative_parse"]
+__all__ = ["decode_shards_wavefront", "decode_group", "payload_parse",
+           "speculative_parse", "wavefront_finish", "fold_inputs",
+           "trunc_deficits", "trunc_deficits_plain", "resolve_mode", "MODES"]
 
 _M32 = 0xFFFFFFFF
 GROUP_PAYLOAD_BYTES = 1 << 23  # payload bytes parsed in one device group
+MODES = ("commit", "chase", "xla")
+K_PAD = 5       # token-table slot past the last token
+ERR_SEGKEY = 4  # too many double-FLUSH segments for the keyed search
+I32MAX = 2**31 - 1
+RLE_MAX_WINDOW_WRITE = 8
+BLOCK_BITS = 256  # block of the xla token table; a token is <= 35 bits
+ENTRY_SPAN = 64   # block-exit offsets are < 35: the entry offsets a map needs
 
 
 def _bit_windows(pp: torch.Tensor, NBP: int):
@@ -152,6 +181,8 @@ def _raise_err(e: int) -> None:
         raise OutOfBoundsError("window reference out of bounds")
     if e == ERR_OVERFLOW:
         raise ValueError("decoded output exceeds max_out")
+    if e == ERR_SEGKEY:
+        raise ValueError("stream exceeds wavefront segment budget")
     raise ValueError("invalid tamp stream")
 
 
@@ -159,10 +190,13 @@ def payload_parse(payloads, *, window: int, literal: int, extended: bool,
                   device):
     """Per-bit parse of a group of header-less payloads on ``device``:
     (nxt, packed) (S, NBP) int32, ``packed = kind | cnt << 3 | idx << 11``,
-    the input of the decode commit; NBP is 8x the power-of-two bucket of
-    the longest payload."""
+    the input of every decode mode.  NBP is 8x the power-of-two bucket of
+    the longest payload plus one byte: with that spare byte no complete
+    token ends at bit NBP, the value that marks an incomplete one (the JAX
+    package buckets the bare length, and there a last token that ends on
+    the bucket's last bit is dropped in its commit and chase modes)."""
     S = len(payloads)
-    L = _pow2_bucket(max(len(p) for p in payloads), 64)
+    L = _pow2_bucket(max(len(p) for p in payloads) + 1, 64)
     # the parse peeks up to ~22 bits past a start at bit 8L: pad 8 bytes
     blobs = np.zeros((S, L + 8), np.uint8)
     nbytes = np.zeros(S, np.int32)
@@ -176,31 +210,326 @@ def payload_parse(payloads, *, window: int, literal: int, extended: bool,
     return nxt, kind | (cnt << 3) | (idx << 11)
 
 
+def _token_table(nxt: torch.Tensor, NBP: int, literal: int, T_max: int):
+    """Token starts (S, T_max) int32, zero past the last, and their count
+    T (S,) int32: the orbit of ``nxt`` from bit 0, a bit whose ``nxt`` is
+    NBP dropped as an incomplete trailing token.
+
+    Counterpart of the JAX package's ``_token_table`` (there ``incomplete``
+    is a separate plane; with the spare byte of :func:`payload_parse` it is
+    ``nxt == NBP``), batched over shards, in four stages:
+
+    1. pointer doubling gives each bit its block exit, the first orbit
+       position past its 256-bit block (as JAX);
+    2. the block entries, the orbit's first position in each block: the JAX
+       package chains them with a serial ``lax.scan`` over the blocks; here
+       they come from a log-depth prefix composition of the per-block exit
+       maps (Hillis-Steele, ceil(log2(nblk)) gathers).  An exit is less
+       than 35 bits past its block's end, so each map needs only the entry
+       offsets 0..ENTRY_SPAN-1 and a sentinel for an ended orbit;
+    3. a lockstep walk over all blocks (as JAX) marks each block's tokens;
+    4. a prefix sum over the marks compacts them into the table.
+    """
+    S = nxt.shape[0]
+    dev = nxt.device
+    B = BLOCK_BITS
+    nblk = NBP // B
+    nx = nxt.to(torch.int64)
+    b = torch.arange(NBP, device=dev)
+    pos_end = ((b // B) + 1) * B
+    ex = nx
+    for _ in range(math.ceil(math.log2(B // (1 + literal) + 2))):
+        hop = ex.gather(1, ex.clamp(0, NBP - 1))
+        ex = torch.where(ex < pos_end, hop, ex)
+
+    D = ENTRY_SPAN
+    blk = torch.arange(nblk, device=dev)
+    ex_in = ex.view(S, nblk, B)[:, :, :D]
+    # the clamp only keeps a malformed plane's gathers in range
+    F = torch.where(ex_in >= NBP, D,
+                    (ex_in - ((blk + 1) * B)[None, :, None]).clamp(0, D))
+    F = torch.cat([F, torch.full((S, nblk, 1), D, device=dev)], dim=2)
+    shift = 1
+    while shift < nblk:  # F[k] becomes F[k] o ... o F[0]
+        F = torch.cat([F[:, :shift], F[:, shift:].gather(2, F[:, :-shift])],
+                      dim=1)
+        shift *= 2
+    off = torch.cat([torch.zeros((S, 1), dtype=torch.int64, device=dev),
+                     F[:, :-1, 0]], dim=1)
+    c = torch.where(off >= D, NBP, blk * B + off)
+
+    lim = (blk + 1) * B
+    mark = torch.zeros((S, NBP + 1), dtype=torch.bool, device=dev)
+    for _ in range(B // (1 + literal) + 2):
+        in_blk = c < lim
+        n = nx.gather(1, c.clamp_max(NBP - 1))
+        mark.scatter_(1, torch.where(in_blk & (n < NBP), c, NBP), True)
+        c = torch.where(in_blk, n, c)
+    mark = mark[:, :NBP]
+    T = mark.sum(1)
+    slot = torch.where(mark, torch.cumsum(mark, 1) - 1, T_max)
+    starts = torch.zeros((S, T_max + 1), dtype=torch.int64, device=dev)
+    starts.scatter_(1, slot.clamp_max(T_max), b.expand(S, NBP))
+    return starts[:, :T_max].to(torch.int32), T.to(torch.int32)
+
+
+def _seg_base(values: torch.Tensor, resets: torch.Tensor, seg: torch.Tensor):
+    """Per-token segment-relative values (S, T_max): ``values`` (a global
+    exclusive prefix sum) less its value at the segment's first token (the
+    reset FLUSH).  Counterpart of the JAX package's ``_seg_base``."""
+    n = values.shape[1]
+    base = torch.zeros((values.shape[0], n + 1), dtype=values.dtype,
+                       device=values.device)
+    base.scatter_(1, torch.where(resets, seg, n), values)
+    return values - base.gather(1, seg.clamp_max(n - 1))
+
+
+def trunc_deficits_plain(seg_c, s_c, w_c, n_tr, W: int):
+    """X1 as a Python loop per shard (on host copies of the inputs); the
+    result is returned on the inputs' device."""
+    S, T_max = seg_c.shape
+    sg_h, s_h, w_h = (x.cpu().numpy() for x in (seg_c, s_c, w_c))
+    n_h = n_tr.cpu().numpy()
+    defs = np.zeros((S, T_max), np.int32)
+    for s in range(S):
+        D = cur = 0
+        for i in range(int(n_h[s])):
+            sg = int(sg_h[s, i])
+            if sg != cur:
+                D = 0
+            room = W - ((int(s_h[s, i]) - D) % W)
+            d = max(0, int(w_h[s, i]) - room)
+            D += d
+            cur = sg
+            defs[s, i] = d
+    return torch.from_numpy(defs).to(seg_c.device)
+
+
+def trunc_deficits(seg_c, s_c, w_c, n_tr, W: int):
+    """Window-write truncation deficits of the truncating tokens (RLE and
+    extended matches) of each shard, compacted: ``defs_c`` (S, T_max)
+    int32 from their segment ids ``seg_c``, segment-relative untruncated
+    write offsets ``s_c`` and untruncated write counts ``w_c`` (all (S,
+    T_max) int32, valid below ``n_tr`` (S,)).  Counterpart of the
+    ``tr_body`` while_loop of the JAX package's ``_wavefront_finish``:
+    kernel X1 for CUDA tensors, the plain version for CPU tensors."""
+    for x in (seg_c, s_c, w_c):
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape != seg_c.shape:
+            raise ValueError("seg_c, s_c and w_c must be (S, T_max) int32")
+    if n_tr.dtype != torch.int32 or n_tr.shape != seg_c.shape[:1]:
+        raise ValueError("n_tr must be an (S,) int32 tensor")
+    if seg_c.device.type == "cpu":
+        return trunc_deficits_plain(seg_c, s_c, w_c, n_tr, W)
+    if seg_c.device.type != "cuda":
+        raise ValueError(f"unsupported device {seg_c.device}")
+    S, T_max = seg_c.shape
+    defs = torch.zeros((S, T_max), dtype=torch.int32, device=seg_c.device)
+    _build.launch("decode_wavefront", "tpt_trunc_deficits", seg_c.device,
+                  (seg_c.contiguous(), s_c.contiguous(), w_c.contiguous(),
+                   n_tr.contiguous(), defs), (S, T_max, W))
+    trunc_deficits.launches += 1
+    return defs
+
+
+trunc_deficits.launches = 0
+
+
+def _tokens(starts, T, packed, more: bool):
+    """Token arrays (S, T_max) int64 from the token table: (active, kind,
+    count, index, resets, seg); a slot past T is K_PAD with count 0, and a
+    double FLUSH (``more`` streams) starts a segment."""
+    T_max = starts.shape[1]
+    tid = torch.arange(T_max, device=starts.device)
+    active = tid[None, :] < T.to(torch.int64)[:, None]
+    pk = packed.gather(1, starts.to(torch.int64)).to(torch.int64)
+    tk = torch.where(active, pk & 7, K_PAD)
+    tcnt = torch.where(active, (pk >> 3) & 0xFF, 0)
+    tidx = torch.where(active, pk >> 11, 0)
+    fl = tk == K_FLUSH
+    if more:
+        resets = fl & torch.nn.functional.pad(fl[:, :-1], (1, 0))
+    else:
+        resets = torch.zeros_like(fl)
+    return active, tk, tcnt, tidx, resets, torch.cumsum(resets, 1)
+
+
+def _fold_terms(tk, tcnt, resets, seg):
+    """The untruncated window-write counts ``w_unc``, their segment-relative
+    exclusive sums ``S_seg``, the truncating tokens' ids ``tr_tok`` (compact,
+    ``n_tr`` of them per shard) and the inputs of :func:`trunc_deficits`."""
+    S, T_max = tk.shape
+    w_unc = torch.where(tk == K_LIT, 1, torch.where(
+        tk == K_MATCH, tcnt, torch.where(
+            tk == K_RLE, tcnt.clamp_max(RLE_MAX_WINDOW_WRITE), torch.where(
+                tk == K_EXT, tcnt, 0))))
+    S_seg = _seg_base(torch.cumsum(w_unc, 1) - w_unc, resets, seg)
+    trunc = (tk == K_RLE) | (tk == K_EXT)
+    n_tr = trunc.sum(1)
+    tr_tok = torch.zeros((S, T_max + 1), dtype=torch.int64, device=tk.device)
+    tr_tok.scatter_(1, torch.where(trunc, torch.cumsum(trunc, 1) - 1, T_max),
+                    torch.arange(T_max, device=tk.device).expand(S, T_max))
+    tr_tok = tr_tok[:, :T_max]
+    i32 = torch.int32
+    x1_in = (seg.gather(1, tr_tok).to(i32), S_seg.gather(1, tr_tok).to(i32),
+             w_unc.gather(1, tr_tok).to(i32), n_tr.to(i32))
+    return w_unc, S_seg, tr_tok, n_tr, x1_in
+
+
+def fold_inputs(starts, T, packed, *, more: bool):
+    """The inputs of kernel X1 (``seg_c, s_c, w_c, n_tr``) for a token
+    table, as :func:`wavefront_finish` builds them."""
+    _a, tk, tcnt, _i, resets, seg = _tokens(starts, T, packed, more)
+    return _fold_terms(tk, tcnt, resets, seg)[4]
+
+
+def wavefront_finish(starts, T, packed, dict_init, dict_reset, *,
+                     window: int, more: bool, max_out: int):
+    """The stages after boundary resolution, batched over shards: (out
+    (S, max_out) uint8, lens (S,) int32, errs (S,) int32).
+
+    Counterpart of the JAX package's ``_wavefront_finish`` (vmapped), with
+    the same results, errors included: token gather from the token table
+    ``starts``/``T`` and the parse words ``packed``; OOB check; double-FLUSH
+    segments (``more`` streams); placement by prefix sum; the window-write
+    fold (untruncated prefix sums, then the truncation deficits by
+    :func:`trunc_deficits`); per-output-byte source links; pointer doubling.
+    The arithmetic is int64 (JAX's is int32; no valid stream overflows it).
+    JAX's ``mode="drop"`` scatters go to one spare slot past the end; its
+    early exit of the pointer doubling is a fixed round count here, which
+    gives the same result.  The keyed search on ``more`` streams is a
+    row-wise ``searchsorted``; where the output overflows, its keys are not
+    sorted and the bytes may differ from JAX's, but the error is the same.
+    """
+    S, T_max = starts.shape
+    dev = starts.device
+    W = 1 << window
+    tid = torch.arange(T_max, device=dev)
+    tids = tid.expand(S, T_max)
+    active, tk, tcnt, tidx, resets, seg = _tokens(starts, T, packed, more)
+
+    err = torch.zeros(S, dtype=torch.int64, device=dev)
+    is_m = (tk == K_MATCH) | (tk == K_EXT)
+    err = torch.where((is_m & (tidx + tcnt > W)).any(1), ERR_OOB, err)
+
+    cs_cnt = torch.cumsum(tcnt, 1)
+    out_start = cs_cnt - tcnt
+    out_len = cs_cnt[:, -1]
+    err = torch.where((err == ERR_OK) & (out_len > max_out), ERR_OVERFLOW,
+                      err)
+    out_len = out_len.clamp_max(max_out)
+
+    # window-write fold: untruncated sums, then the truncation deficits
+    w_unc, S_seg, tr_tok, n_tr, x1_in = _fold_terms(tk, tcnt, resets, seg)
+    defs_c = trunc_deficits(*x1_in, W)
+    defs = torch.zeros((S, T_max + 1), dtype=torch.int64, device=dev)
+    defs.scatter_(1, torch.where(tid[None, :] < n_tr[:, None], tr_tok, T_max),
+                  defs_c.to(torch.int64))
+    defs = defs[:, :T_max]
+    D_seg = _seg_base(torch.cumsum(defs, 1) - defs, resets, seg)
+    A = W + S_seg - D_seg  # write-stream position before each token
+
+    # per-output-byte source links
+    obyte = torch.arange(max_out, device=dev)
+    valid_b = obyte[None, :] < out_len[:, None]
+    tok_of = torch.zeros((S, max_out + 1), dtype=torch.int64, device=dev)
+    tok_of.scatter_reduce_(
+        1, torch.where(active, out_start, max_out).clamp_max(max_out), tids,
+        reduce="amax")
+    tok_of = torch.cummax(tok_of[:, :max_out], 1).values
+    off = obyte[None, :] - out_start.gather(1, tok_of)
+    kb = tk.gather(1, tok_of)
+    tix = tidx.gather(1, tok_of)
+    src = torch.where(kb == K_LIT, -(tix + 1), 0)
+    rle_b = kb == K_RLE
+    m_b = (kb == K_MATCH) | (kb == K_EXT)
+    Am1 = A.gather(1, tok_of) - 1
+    a = torch.where(rle_b, Am1, torch.where(
+        m_b, Am1 - torch.remainder(Am1 - (tix + off), W), 0))
+    need = rle_b | m_b
+    seg_of = seg.gather(1, tok_of)
+    a_dict = a.clamp(0, W - 1)
+    dict_val = torch.where(seg_of == 0, dict_init.to(torch.int64)[a_dict],
+                           dict_reset.to(torch.int64)[a_dict])
+    src = torch.where(need & (a < W), -(dict_val + 1), src)
+
+    from_out = need & (a >= W)
+    if not more:
+        # one segment: the write stream [W, W + out_len) is dense, so the
+        # owning token (max id with A <= a) is a scatter and a running max
+        DOM = W + max_out
+        ownmap = torch.zeros((S, DOM + 1), dtype=torch.int64, device=dev)
+        ownmap.scatter_reduce_(
+            1, torch.where(active, A.clamp_max(DOM), DOM), tids,
+            reduce="amax")
+        ownmap = torch.cummax(ownmap[:, :DOM], 1).values
+        own = ownmap.gather(1, a.clamp(0, DOM - 1))
+    else:
+        # keyed (per-segment) monotone write positions; the budget test is
+        # JAX's float32 one, so the same streams fail it
+        BIG = W + max_out + 2
+        n_seg = seg[:, -1] + 1
+        over = (n_seg.to(torch.float32) + 1.0) * float(BIG) >= 2.0**31
+        err = torch.where((err == ERR_OK) & over, ERR_SEGKEY, err)
+        A_key = torch.where(active, A + seg * BIG, I32MAX)
+        a_key = torch.where(from_out, a + seg_of * BIG, 0)
+        own = torch.searchsorted(A_key, a_key, right=True) - 1
+        own = own.clamp(0, T_max - 1)
+    src = torch.where(from_out,
+                      out_start.gather(1, own) + (a - A.gather(1, own)), src)
+
+    # pointer-doubling value resolution: JAX's round bound, no early exit
+    for _ in range(max(1, math.ceil(math.log2(max(max_out, 2))) + 1)):
+        src = torch.where(src >= 0, src.gather(1, src.clamp(0, max_out - 1)),
+                          src)
+    out = torch.where(valid_b, -src - 1, 0) & 0xFF
+    return out.to(torch.uint8), out_len.to(torch.int32), err.to(torch.int32)
+
+
+def resolve_mode(mode=None) -> str:
+    """The decode mode: ``mode`` itself (one of MODES), or for None the
+    ``TAMP_TPU_DECODE`` environment variable where it names a mode, else
+    ``"commit"`` at every window (B4 has no ring-size limit on the card)."""
+    if mode is None:
+        env = os.environ.get("TAMP_TPU_DECODE")
+        return env if env in MODES else "commit"
+    if mode not in MODES:
+        raise ValueError(f"unknown decode mode {mode!r}: one of {MODES}")
+    return mode
+
+
 def decode_group(payloads, *, window: int, literal: int, extended: bool,
-                 more: bool, dict_init, dict_reset, max_out: int, device):
-    """Parse + commit of one group of header-less payloads on ``device``:
-    (out (S, max_out') uint8, lens (S,), errs (S,)) tensors, with
+                 more: bool, dict_init, dict_reset, max_out: int, device,
+                 mode: str = "commit"):
+    """Parse + decode of one group of header-less payloads on ``device`` in
+    ``mode``: (out (S, max_out') uint8, lens (S,), errs (S,)) tensors, with
     max_out' the power-of-two bucket of ``max_out``."""
+    mode = resolve_mode(mode)
     nxt, packed = payload_parse(payloads, window=window, literal=literal,
                                 extended=extended, device=device)
     di = torch.from_numpy(np.array(dict_init, np.uint8)).to(device)
     dr = torch.from_numpy(np.array(dict_reset, np.uint8)).to(device)
-    return commit_decode(nxt, packed, di, dr, W=1 << window, more=more,
-                         max_out=_pow2_bucket(max_out, 1024))
+    max_out = _pow2_bucket(max_out, 1024)
+    if mode == "commit":
+        return commit_decode(nxt, packed, di, dr, W=1 << window, more=more,
+                             max_out=max_out)
+    NBP = nxt.shape[1]
+    T_max = NBP // (1 + literal) + 2
+    if mode == "chase":
+        starts, T = token_table_chase(nxt, NBP, T_max)
+    else:
+        starts, T = _token_table(nxt, NBP, literal, T_max)
+    del nxt
+    return wavefront_finish(starts, T, packed, di, dr, window=window,
+                            more=more, max_out=max_out)
 
 
-def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
-                            device=None) -> list[bytes]:
-    """Decode same-config Tamp streams (header included) on the card.
-
-    All shards must share one header configuration (the TTPU container
-    guarantees it); ``max_out`` bounds each shard's decoded size.  Shards are
-    batched into groups of at most ``GROUP_PAYLOAD_BYTES`` payload bytes to
-    cap the per-bit working set (~100 bytes of device memory per payload
-    bit)."""
-    dev = resolve_device(device)
-    if not shards:
-        return []
+def split_streams(shards, dictionary):
+    """The header configuration that same-config Tamp streams share and
+    their header-less payloads: (window, literal, extended, more,
+    dict_init, default_dict, payloads).  ``dict_init`` is the first W bytes
+    of ``dictionary`` for a custom-dictionary stream (which must fill the
+    window), else the default dictionary, which is also what a double FLUSH
+    resets the window to."""
     h = shards[0][0]
     window = (h >> 5) + 8
     literal = ((h >> 3) & 3) + 5
@@ -219,7 +548,6 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
         dict_init = d[:W]
     else:
         dict_init = default_dict
-
     payloads = []
     for s in shards:
         if s[0] != h:
@@ -227,6 +555,27 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
         if more and (len(s) < 2 or s[1] != 0):
             raise ValueError("reserved header byte must be zero")
         payloads.append(bytes(s[skip:]))
+    return window, literal, extended, more, dict_init, default_dict, payloads
+
+
+def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
+                            device=None, mode: str | None = None
+                            ) -> list[bytes]:
+    """Decode same-config Tamp streams (header included) on the card.
+
+    All shards must share one header configuration (the TTPU container
+    guarantees it); ``max_out`` bounds each shard's decoded size.  ``mode``
+    is ``"commit"``, ``"chase"`` or ``"xla"`` (see the module docstring);
+    None takes ``TAMP_TPU_DECODE`` where it names a mode, else ``"commit"``.
+    Shards are batched into groups of at most ``GROUP_PAYLOAD_BYTES``
+    payload bytes to cap the per-bit working set (~100 bytes of device
+    memory per payload bit)."""
+    mode = resolve_mode(mode)
+    dev = resolve_device(device)
+    if not shards:
+        return []
+    (window, literal, extended, more, dict_init, default_dict,
+     payloads) = split_streams(shards, dictionary)
 
     groups: list[list[bytes]] = []
     i = 0
@@ -248,7 +597,7 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
         outs, lens, errs = decode_group(
             group, window=window, literal=literal, extended=extended,
             more=more, dict_init=dict_init, dict_reset=default_dict,
-            max_out=max_out, device=dev)
+            max_out=max_out, device=dev, mode=mode)
         errs = errs.cpu().numpy()
         lens = lens.cpu().numpy()
         for k in range(len(group)):

@@ -103,24 +103,28 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
                               algorithm: str = "wavefront",
                               dictionary: bytes | None = None,
                               device=None) -> bytearray:
-    """Decode a TTPU container on the card (per-bit parse + commit kernel).
+    """Decode a TTPU container on the card.
 
-    ``shard_size`` (the per-shard output bound) comes from the v2 frame;
-    pass it explicitly only for v1 containers.  ``dictionary`` must match
-    the encode side's."""
-    if algorithm != "wavefront":
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported yet: ROADMAP.md queue A, "
-            "'Other decode modes'")
-    from ..ops.decode_wavefront import decode_shards_wavefront
-
+    ``algorithm="wavefront"`` (default): the per-bit parse, then the decode
+    mode that ``TAMP_TPU_DECODE`` names (``commit``, ``chase`` or ``xla``;
+    ``commit``, kernel B4, when it names none), ops/decode_wavefront.py.
+    ``algorithm="serial"``: the token-serial decoder, kernel X2
+    (ops/decode_serial.py).  ``shard_size`` (the per-shard output bound)
+    comes from the v2 frame; pass it explicitly only for v1 containers.
+    ``dictionary`` must match the encode side's."""
     raw_size, frame_shard_size, pieces = _parse_frame(blob)
     if shard_size is None:
         shard_size = frame_shard_size
     if shard_size is None:
         shard_size = DEFAULT_SHARD_SIZE  # v1 frame without a caller bound
-    outs = decode_shards_wavefront(pieces, max_out=shard_size,
-                                   dictionary=dictionary, device=device)
+    if algorithm == "wavefront":
+        from ..ops.decode_wavefront import decode_shards_wavefront as decode
+    elif algorithm == "serial":
+        from ..ops.decode_serial import decode_shards_device as decode
+    else:
+        raise ValueError(f"unknown device decode algorithm: {algorithm!r}")
+    outs = decode(pieces, max_out=shard_size, dictionary=dictionary,
+                  device=device)
     out = bytearray()
     for d in outs:
         out += d

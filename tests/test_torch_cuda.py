@@ -6,6 +6,8 @@ on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,11 @@ import torch
 from tamp_tpu_torch.constants import compute_min_pattern_size
 from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
+from tamp_tpu_torch.ops import decode_serial as dser
+from tamp_tpu_torch.ops import decode_wavefront as dw
+from tamp_tpu_torch.ops.token_chase import (
+    token_table_chase, token_table_chase_plain,
+)
 from tamp_tpu_torch.ops.encode_commit import (
     commit_fields, commit_fields_plain, commit_v1_lazy, commit_v1_lazy_plain,
 )
@@ -21,7 +28,7 @@ from tamp_tpu_torch.ops.match_ext import (
 )
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
 from tamp_tpu_torch.parallel.shard import (
-    compress_sharded, decompress_sharded_device,
+    _parse_frame, compress_sharded, decompress_sharded_device,
 )
 
 pytestmark = pytest.mark.cuda
@@ -177,3 +184,93 @@ def test_custom_dictionary_round_trip(cuda, window, literal):
                                     device="cpu")
     assert bytes(decompress_sharded_device(blob, dictionary=dictionary)) \
         == data
+
+
+def _parse(cuda, streams):
+    return dw.payload_parse([b[1:] for b in streams], window=10, literal=8,
+                            extended=True, device=cuda)
+
+
+def test_b8_kernel_equals_plain(cuda):
+    blob = compress_sharded(_text(40000, 6), shard_size=16384)
+    nxt, _packed = _parse(cuda, _parse_frame(blob)[2])
+    NBP = nxt.shape[1]
+    T_max = NBP // 9 + 2
+    before = token_table_chase.launches
+    got = token_table_chase(nxt, NBP, T_max)
+    assert token_table_chase.launches == before + 1
+    want = token_table_chase_plain(nxt.cpu(), NBP, T_max)
+    xla = dw._token_table(nxt, NBP, 8, T_max)
+    for g, w, x in zip(got, want, xla):
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(x.cpu(), w)
+
+
+def test_x1_kernel_equals_plain(cuda):
+    rng = np.random.default_rng(7)
+    S, T_max, W = 40, 3000, 1024
+    seg = np.cumsum(rng.random((S, T_max)) < 0.01, axis=1).astype(np.int32)
+    s_c = rng.integers(0, 1 << 20, (S, T_max)).astype(np.int32)
+    w_c = rng.integers(0, 300, (S, T_max)).astype(np.int32)
+    n_tr = rng.integers(0, T_max, S).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (seg, s_c, w_c, n_tr)]
+    want = dw.trunc_deficits_plain(*args, W)
+    before = dw.trunc_deficits.launches
+    got = dw.trunc_deficits(*(a.to(cuda) for a in args), W)
+    assert dw.trunc_deficits.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) > 0
+
+
+@pytest.mark.parametrize("window", [8, 10, 15])
+def test_x2_kernel_equals_plain(cuda, window):
+    data = _text(30000, window)
+    data = data[:12000] + b"\x00" * 2000 + data[12000:]
+    blob = compress_sharded(data, window=window, shard_size=16384)
+    pieces = [p[1:] for p in _parse_frame(blob)[2]]
+    bad = bytearray(pieces[0])
+    bad[len(bad) // 2] ^= 0x5A
+    pieces.append(bytes(bad))
+    Lp = max(len(p) for p in pieces)
+    pl = np.zeros((len(pieces), Lp), np.uint8)
+    for i, p in enumerate(pieces):
+        pl[i, : len(p)] = np.frombuffer(p, np.uint8)
+    pl = torch.from_numpy(pl)
+    nb = torch.tensor([len(p) for p in pieces], dtype=torch.int32)
+    d = torch.from_numpy(dictionary_array(1 << window))
+    for max_out in (16384, 5000):
+        kw = dict(window=window, literal=8, extended=True, more=False,
+                  max_out=max_out)
+        want = dser.serial_decode_plain(pl, nb, d, d, **kw)
+        got = dser.serial_decode(pl.to(cuda), nb.to(cuda), d.to(cuda),
+                                 d.to(cuda), **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert want[0][0, :5000].numpy().tobytes() == data[:5000]
+
+
+@pytest.mark.parametrize("mode", ["chase", "xla", "serial"])
+def test_decode_modes_round_trip_and_match_plain(cuda, mode):
+    data = _text(40000, 5)
+    blob = compress_sharded(data, shard_size=16384)
+    if mode == "serial":
+        kw = dict(algorithm="serial")
+        counter = dser.serial_decode
+    else:
+        kw = {}
+        counter = token_table_chase if mode == "chase" else \
+            dw.trunc_deficits
+    before = (counter.launches, dc.commit_decode.launches)
+    prev = os.environ.get("TAMP_TPU_DECODE")
+    os.environ["TAMP_TPU_DECODE"] = mode
+    try:
+        got = decompress_sharded_device(blob, **kw)
+        plain = decompress_sharded_device(blob, device="cpu", **kw)
+    finally:
+        if prev is None:
+            del os.environ["TAMP_TPU_DECODE"]
+        else:
+            os.environ["TAMP_TPU_DECODE"] = prev
+    assert bytes(got) == bytes(plain) == data
+    assert counter.launches > before[0]
+    assert dc.commit_decode.launches == before[1]

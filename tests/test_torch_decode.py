@@ -155,3 +155,30 @@ def test_decode_shards_groups_by_payload_budget(monkeypatch):
         got = twf.decode_shards_wavefront(streams, max_out=4096,
                                           device="cpu")
         assert got == want
+
+
+# Two inputs whose w10/l8 payload is exactly 64 bytes, a power-of-two
+# bucket, with the last token ending on the payload's last bit: parsed at
+# NBP = 8 x 64 that token's end equals the incomplete-token mark NBP, and
+# the commit walk dropped it (62 and 65 bytes came back).
+EXACT_BUCKET = [
+    b"koloekj oooihgodhhofknlhm knmifjnbbogcefhgmoepi hddl fgniboiemaa",
+    b"nho ofooefkplpialoebgddecidoijnldhdhhbbmjekfkpcoad aafjjndimnljbcp",
+]
+
+
+@pytest.mark.parametrize("mode", ["commit", "chase", "xla", "serial"])
+@pytest.mark.parametrize("raw", EXACT_BUCKET)
+def test_exact_bucket_payload_keeps_its_final_token(raw, mode):
+    stream = tamp_tpu.compress(raw, window=10, literal=8)
+    assert len(stream) - 1 == 64
+    assert bytes(_native.native_decompress(stream)) == raw
+    if mode == "serial":
+        from tamp_tpu_torch.ops.decode_serial import decode_shards_device
+
+        got = decode_shards_device([stream], max_out=4096, device="cpu")
+    else:  # commit is also the default mode
+        kw = {} if mode == "commit" else {"mode": mode}
+        got = twf.decode_shards_wavefront([stream], max_out=4096,
+                                          device="cpu", **kw)
+    assert got == [raw]

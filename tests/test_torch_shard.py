@@ -101,9 +101,14 @@ def test_not_ported_modes_raise():
     for kw in ({"engine": "device-greedy"}, {"engine": "native"}):
         with pytest.raises(NotImplementedError):
             tshard.compress_sharded(b"abc", device="cpu", **kw)
+    # every decode algorithm is ported: an unknown one is a ValueError, as
+    # in the JAX package
     blob = tshard.compress_sharded(b"abc", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tshard.decompress_sharded_device(blob, algorithm="serial",
+    for algorithm in ("wavefront", "serial"):
+        assert bytes(tshard.decompress_sharded_device(
+            blob, algorithm=algorithm, device="cpu")) == b"abc"
+    with pytest.raises(ValueError):
+        tshard.decompress_sharded_device(blob, algorithm="bogus",
                                          device="cpu")
 
 
@@ -126,7 +131,9 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
             assert top not in ("jax", "jaxlib", "tamp_tpu"), (f, name)
     code = ("import sys, tamp_tpu_torch, tamp_tpu_torch.parallel.shard, "
             "tamp_tpu_torch.engine.pipeline_ext, "
-            "tamp_tpu_torch.engine.pipeline; "
+            "tamp_tpu_torch.engine.pipeline, "
+            "tamp_tpu_torch.ops.decode_wavefront, "
+            "tamp_tpu_torch.ops.decode_serial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tamp_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
