@@ -5,7 +5,8 @@
 
 Phases (any failure raises, and the script exits non-zero):
 
-1. the card's name and power limit; build the kernels from ``csrc/``;
+1. the card's name and power limit; build the kernels and the host greedy
+   committer from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, at a
    reduced size (2 shards x 64 KiB), exactly: B1 and B2 at windows
    8/10/12/15, B3 at windows 10 and 14 plus an excess-bits row, B4, B8, X1
@@ -14,21 +15,28 @@ Phases (any failure raises, and the script exits non-zero):
    corrupt stream (error codes included; the chase and xla tables equal,
    and on valid streams the wavefront finish equals B4), B5 at cap 15 (w10
    l8) and cap 16 (w11 l5) with and without the probe and at w15, B6 at w10
-   l8, w11 l5 and an excess-bits row at l7; the entry points on empty and
-   tiny shards for the extended and v1 formats, lazy and not, and two
-   streams whose payload fills its bucket exactly in every decode mode and
-   the serial algorithm;
-3. four round trips at full size: 8 x 1 MiB shards of a seeded text-like
-   corpus with a run-heavy stretch, window 10 / literal 8, through
-   ``compress_sharded(engine="device-commit")`` and
-   ``decompress_sharded_device``: the main path (extended, no lazy
-   matching), then extended with lazy matching, v1, and v1 with lazy
-   matching.  For each: the kernel launch counts of that one round trip
+   l8, w11 l5 and an excess-bits row at l7, B7 at w10 l8 with and without
+   lazy matching, w15 and w14 l6 (minp 3); the entry points on empty and
+   tiny shards for the extended and v1 formats, lazy and not, the greedy
+   encode (sparse and dense pulls, lazy and not) equal to the table-less
+   committer, and two streams whose payload fills its bucket exactly in
+   every decode mode and the serial algorithm;
+3. six round trips at full size: 8 x 1 MiB shards of a seeded random-word
+   text with a run-heavy stretch, window 10 / literal 8, through
+   ``compress_sharded`` and ``decompress_sharded_device``: the main path
+   (``engine="device-commit"``, extended, no lazy matching), then extended
+   with lazy matching, v1, v1 with lazy matching, and
+   ``engine="device-greedy"`` without and with lazy matching.  For each:
+   the kernel launch counts of that one round trip
    (every count set to 0 just before it), encode and decode rates (CUDA
    events, median of 3 after a warm-up), the ratio, and the card's
    container equal to the plain versions' on a small input.  For the main
    path also the time of each stage of the encode and the decode, and the
-   device's busy and idle share in each (torch.profiler).  Then the decode
+   device's busy and idle share in each (torch.profiler).  For the greedy
+   paths: the container equal to the table-less committer's (the card-side
+   parity check), a stage breakdown with the bytes pulled per input byte,
+   the device's idle share, the dense pull's rate and the table-less
+   threaded committer's rate (the host-only yardstick).  Then the decode
    modes: those four containers and an extended window-15 one of the same
    corpus, each decoded through ``decompress_sharded_device`` with
    ``TAMP_TPU_DECODE`` set to commit, chase and xla, and with
@@ -55,7 +63,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 lanes (H100 whitepaper)
 SMALL = 1 << 16            # shard size of phase 2
 # the round trips of phase 3, the main path first: name, compress_sharded
-# options, and the kernels (wrapper names, B1..B6) each must launch
+# options, and the kernels (wrapper names, B1..B7) each must launch
 PATHS = (
     ("extended", {}, ("ext_tables", "commit_fields", "commit_decode")),
     ("extended lazy", {"lazy_matching": True},
@@ -64,7 +72,13 @@ PATHS = (
      ("v1_tables", "commit_fields", "commit_decode")),
     ("v1 lazy", {"extended": False, "lazy_matching": True},
      ("v1_tables", "commit_v1_lazy", "commit_decode")),
+    ("greedy", {"engine": "device-greedy"},
+     ("v1_tables", "greedy_predict_batch", "commit_decode")),
+    ("greedy lazy", {"engine": "device-greedy", "lazy_matching": True},
+     ("v1_tables", "greedy_predict_batch", "commit_decode")),
 )
+GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
+                   (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
 # X2) each must launch; none of them launches B4
 DECODES = (
@@ -112,13 +126,14 @@ def int_ops_per_s() -> float:
 
 
 def corpus(size: int, seed: int = 0x7A3B) -> bytes:
-    """Seeded text-like bytes (a random-word text, repeated) with a
-    run-heavy stretch in its middle so forced RLE regions occur."""
+    """Seeded text: 200 000 draws from 512 random lower-case words (2-9
+    letters), space-separated and repeated, with a run-heavy stretch of
+    1/16 of the size in its middle so forced RLE regions occur."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    words = [bytes(rng.integers(97, 123, rng.integers(2, 10)))
-             for _ in range(512)]
+    words = [rng.integers(97, 123, rng.integers(2, 10)).astype(np.uint8)
+             .tobytes() for _ in range(512)]
     base = b" ".join(words[int(i) % 512]
                      for i in rng.integers(0, 512, 200_000))
     text = (base * (-(-size // len(base))))[:size]
@@ -259,7 +274,10 @@ def phase_kernels_small(dev, report):
 
     from tamp_tpu_torch.constants import compute_min_pattern_size
     from tamp_tpu_torch.dictionary import dictionary_array
-    from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
+    from tamp_tpu_torch.engine.greedy import greedy_compress
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        encode_ext_device_greedy, ext_fields, prepare_batch,
+    )
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_serial as dser
     from tamp_tpu_torch.ops import decode_wavefront as dw
@@ -276,7 +294,7 @@ def phase_kernels_small(dev, report):
     )
     from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
     from tamp_tpu_torch.parallel.shard import (
-        _parse_frame, compress_sharded, decompress_sharded_device,
+        _pack_frame, _parse_frame, compress_sharded, decompress_sharded_device,
     )
 
     small = corpus(2 * SMALL, seed=5)
@@ -378,6 +396,22 @@ def phase_kernels_small(dev, report):
             fail(f"B3 differs from its plain version at window {window}")
         if literal == 7 and errs != [0, 1]:
             fail("B3 missed the excess-bits row")
+
+    for window, literal, lazy in GREEDY_B7_CASES:
+        datas = shards if literal == 8 else [x & 63 for x in shards]
+        data, npos, _d = v1_batch(datas, window)
+        d = torch.from_numpy(dictionary_array(1 << window, literal)).to(dev)
+        bm, ent, st, plain = b7_pair(data, npos, d, window=window,
+                                     literal=literal, lazy=lazy)
+        err = b7_err((bm, ent, st), plain)
+        report(f"B7 w{window} l{literal} lazy={lazy}: kernel vs plain "
+               f"max_abs_err={err} entries={st[:, 0].tolist()} "
+               f"stops={st[:, 1].tolist()}")
+        if err:
+            fail(f"B7 differs from its plain version at window {window}, "
+                 f"literal {literal}, lazy={lazy}")
+        if not (st[:, 0] > 0).all():
+            fail("B7 predicted no token start on text")
 
     def decode_case(name, streams, window, literal, more, dict_init,
                     max_out, extended=True):
@@ -508,6 +542,65 @@ def phase_kernels_small(dev, report):
         report(f"entry points, {name}: empty and tiny shards equal to the "
                "plain versions")
 
+    # the greedy encode on empty and tiny shards, both pulls: equal to the
+    # table-less committer, and decoded back
+    for pull in ("sparse", "dense"):
+        for lazy in (False, True):
+            for data, size in ((b"", SMALL), (tiny, 7), (tiny, 16),
+                               (tiny, 17)):
+                pieces = [data[i : i + size]
+                          for i in range(0, len(data), size)] or [b""]
+                got = encode_ext_device_greedy(pieces, lazy_matching=lazy,
+                                               pull=pull, device=dev)
+                if got != [greedy_compress(x, lazy_matching=lazy)
+                           for x in pieces]:
+                    fail(f"greedy {pull} lazy={lazy}: tiny shards of {size} "
+                         "bytes differ from the table-less committer")
+                blob = _pack_frame(got, len(data), size)
+                for alg in ("wavefront", "serial"):
+                    if bytes(decompress_sharded_device(
+                            blob, algorithm=alg, device=dev)) != data:
+                        fail(f"greedy {pull} lazy={lazy}: tiny shards of "
+                             f"{size} bytes did not round-trip ({alg})")
+    report("entry points, greedy sparse and dense pulls, lazy and not: empty "
+           "and tiny shards equal to the table-less committer")
+
+
+def b7_inputs(data, npos, d, *, window: int, lazy: bool):
+    """Kernel B7's inputs as the greedy path makes them from the raw rows
+    ``data``: the packed walker plane ``pk`` and the probe plane ``pp``
+    (None without lazy matching)."""
+    from tamp_tpu_torch.engine import pipeline_ext as pe
+
+    tabs = pe.greedy_tables(data, npos, d, window=window, lazy=lazy)
+    return pe.greedy_predict_planes(data, npos, tabs, int(d[-1]), lazy=lazy)
+
+
+def b7_pair(data, npos, d, *, window: int, literal: int, lazy: bool):
+    """B7 on the card and its plain version on the same inputs: (bitmap,
+    entries, state, plain results)."""
+    from tamp_tpu_torch.ops.greedy_predict import (
+        greedy_predict_batch, greedy_predict_plain,
+    )
+
+    pk, pp = b7_inputs(data, npos, d, window=window, lazy=lazy)
+    kw = dict(NP=pk.shape[1], window=window, literal=literal, lazy=lazy)
+    bm, ent, st = greedy_predict_batch(pk, pp, npos, **kw)
+    plain = greedy_predict_plain(pk, pp, npos, **kw)
+    sync(data.device)
+    return bm, ent, st, plain
+
+
+def b7_err(got, plain) -> int:
+    """max_abs_err of B7's outputs against its plain version: bitmap and
+    state whole, entries up to each shard's count (the kernel leaves the
+    rest of the row unwritten)."""
+    bm, ent, st = got
+    pbm, pent, pst = plain
+    n = pst[:, 0].tolist()
+    return max_abs_err([(bm, pbm), (st, pst)] + [
+        (ent[s, :k], pent[s, :k]) for s, k in enumerate(n)])
+
 
 def counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
@@ -515,13 +608,14 @@ def counters():
     from tamp_tpu_torch.ops.decode_serial import serial_decode
     from tamp_tpu_torch.ops.decode_wavefront import trunc_deficits
     from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_v1_lazy
+    from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
     from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
     from tamp_tpu_torch.ops.match_v1 import v1_tables
     from tamp_tpu_torch.ops.token_chase import token_table_chase
 
     fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
            v1_tables, commit_v1_lazy, token_table_chase, trunc_deficits,
-           serial_decode)
+           serial_decode, greedy_predict_batch)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -698,10 +792,95 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
         report(f"  {name}: {statistics.median(ts[1:]):.2f} ms [{card}]")
 
 
+def phase_greedy(dev, report, data, blob, shard_size: int, card: str,
+                 lazy: bool):
+    """Phase 3, a greedy path: its container (``blob``) equal to the
+    table-less committer's on the same shards; where the encode's time goes
+    (the entry point's own stages of engine/pipeline_ext.py, host clock
+    around work that ends in a synchronize, median of 3 after a warm-up);
+    the whole call in both pulls; and the rate of the table-less committer
+    in threads, the host-only yardstick."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine import pipeline_ext as pe
+    from tamp_tpu_torch.engine.pipeline import pad_shards
+    from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
+    from tamp_tpu_torch.parallel.shard import _pack_frame
+
+    name = "greedy lazy" if lazy else "greedy"
+    window, literal = 10, 8
+    pieces = [data[i : i + shard_size]
+              for i in range(0, len(data), shard_size)]
+    datas = [np.frombuffer(x, np.uint8) for x in pieces]
+    stages: dict[str, list[float]] = {}
+
+    def timed(stage, fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    pulled = 0
+    for _ in range(4):
+        ref = timed("table-less committer, threaded (host only)",
+                    lambda: pe.greedy_commits(datas, lambda i: None,
+                                              lazy_matching=lazy))
+        dh, npos = timed("host batch (pad shards)",
+                         lambda: pad_shards(datas))
+        dh_d, npos_d, dict_d = timed("host->device", lambda: (
+            torch.from_numpy(dh).to(dev), torch.from_numpy(npos).to(dev),
+            torch.from_numpy(dictionary_array(1 << window, literal)).to(dev)))
+        tabs = timed("B5 v1_tables cap 16" + (" + probe" if lazy else ""),
+                     lambda: pe.greedy_tables(dh_d, npos_d, dict_d,
+                                              window=window, lazy=lazy))
+        pk, pp = timed("pack_predict_plane (+ probe plane)",
+                       lambda: pe.greedy_predict_planes(
+                           dh_d, npos_d, tabs, int(dict_d[-1]), lazy=lazy))
+        del tabs
+        bm, ent, _st = timed("B7 greedy_predict_batch", lambda: (
+            greedy_predict_batch(pk, pp, npos_d, NP=dh.shape[1],
+                                 window=window, literal=literal, lazy=lazy)))
+        bits, ent_h = timed("bitmap and entry pull",
+                            lambda: pe.pull_sparse(bm, ent, lazy))
+        pulled = bm.numel() * 4 + ent_h.size * 4
+        blobs = timed("threaded commits (expand + commit)",
+                      lambda: pe.greedy_commits(
+                          datas, lambda i: pe.sparse_tables(
+                              bits[i], ent_h[i], datas[i].shape[0], lazy),
+                          lazy_matching=lazy))
+        timed("frame", lambda: _pack_frame(blobs, len(data), shard_size))
+        timed("whole encode_ext_device_greedy call, sparse pull",
+              lambda: pe.encode_ext_device_greedy(
+                  pieces, lazy_matching=lazy, device=dev))
+        dense = timed("whole call, dense pull", lambda: (
+            pe.encode_ext_device_greedy(pieces, lazy_matching=lazy,
+                                        pull="dense", device=dev)))
+        del pk, pp, bm, ent
+    if blob != _pack_frame(ref, len(data), shard_size):
+        fail(f"{name}: the card's container differs from the table-less "
+             "committer's")
+    if blobs != ref or dense != ref:
+        fail(f"{name}: the staged or dense-pull streams differ from the "
+             "table-less committer's")
+    report(f"  {name}: container equal to the table-less committer's; "
+           f"pulled {pulled} bytes ({pulled / len(data):.4f} per input "
+           f"byte; dense {2 * (2 if lazy else 1)} per position) [{card}]")
+    for stage, ts in stages.items():
+        ms = statistics.median(ts[1:])
+        rate = (f", {len(data) / ms / 1e3:.2f} MB/s"
+                if stage.startswith(("whole", "table-less")) else "")
+        report(f"  {name} {stage}: {ms:.2f} ms{rate} [{card}]")
+
+
 def phase_profile(report, data, blob, shard_size: int, card: str):
     """Device busy and idle share of one encode and one decode, from a
     torch.profiler trace: the device activity (kernels and copies) summed
-    over the wall time of the call; the decode also in mode chase."""
+    over the wall time of the call; the decode also in mode chase, and the
+    greedy encodes (without and with lazy matching)."""
     import os
 
     import torch
@@ -722,7 +901,12 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
     for name, fn in (
             ("encode", lambda: compress_sharded(data, shard_size=shard_size)),
             ("decode", lambda: decompress_sharded_device(blob)),
-            ("decode (chase)", chase)):
+            ("decode (chase)", chase),
+            ("greedy encode", lambda: compress_sharded(
+                data, shard_size=shard_size, engine="device-greedy")),
+            ("greedy lazy encode", lambda: compress_sharded(
+                data, shard_size=shard_size, engine="device-greedy",
+                lazy_matching=True))):
         fn()  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -801,6 +985,9 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     )
     from tamp_tpu_torch.parallel.shard import _parse_frame
     from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.greedy_predict import (
+        greedy_predict_batch, greedy_predict_plain,
+    )
     from tamp_tpu_torch.ops.match_ext import (
         ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
     )
@@ -950,6 +1137,50 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         ops=3 * steps))
     del out, st, pout, pst, packed, probe
 
+    # B7: the greedy path's walk over this batch's packed plane (cap-16
+    # tables of the raw shards, the extended dictionary)
+    pk, _pp = b7_inputs(raw_d, nraw_d, dict_d, window=window, lazy=False)
+    kw = dict(NP=shard_size, window=window, literal=literal, lazy=False)
+    ms, got = cuda_ms(lambda: greedy_predict_batch(pk, None, nraw_d, **kw))
+    h0 = time.perf_counter()
+    plain = greedy_predict_plain(pk, None, nraw_d, **kw)
+    pms = (time.perf_counter() - h0) * 1e3
+    minp = compute_min_pattern_size(window, literal)
+
+    def b7_adv(p):
+        ln, run = (p >> 15) & 31, (p >> 20) & 255
+        if run >= 2 and not (run <= 6 and ln > run):
+            return min(run, 241)
+        return ln if ln >= minp else 1
+
+    # the walk reads one plane word per step; it writes the whole bitmap,
+    # one word per entry and the state rows
+    steps = walk_count(pk.cpu().numpy(), np.maximum(nraw - 15, 0), b7_adv)
+    n_ent = int(plain[2][:, 0].sum())
+    report(f"  B7 inputs: {steps} walk steps, {n_ent} entries [{card}]")
+    kernels.append(dict(
+        name="greedy_predict_batch (B7)", route="cuda",
+        source="tamp_tpu_torch/csrc/greedy_predict.cu",
+        replaces="tamp_tpu/ops/greedy_predict_pallas.py:62",
+        launches=launches["greedy"]["greedy_predict_batch"],
+        max_abs_err=b7_err(got, plain), ms=ms, plain_ms=pms,
+        bytes=4 * steps + S * shard_size // 8 + 4 * n_ent + 36 * S,
+        ops=4 * steps))
+    del pk, got, plain
+    # the greedy lazy path's call: the probe plane as well
+    bm, ent, st, plain = b7_pair(raw_d, nraw_d, dict_d, window=window,
+                                 literal=literal, lazy=True)
+    pk, pp = b7_inputs(raw_d, nraw_d, dict_d, window=window, lazy=True)
+    lms, _got = cuda_ms(lambda: greedy_predict_batch(
+        pk, pp, nraw_d, NP=shard_size, window=window, literal=literal,
+        lazy=True))
+    report(f"  greedy_predict_batch (B7) lazy: {lms:.3f} ms, max_abs_err "
+           f"{b7_err((bm, ent, st), plain)}, entries "
+           f"{int(st[:, 0].sum())} [{card}]")
+    if b7_err((bm, ent, st), plain):
+        fail("B7 with lazy matching differs from its plain version")
+    del pk, pp, bm, ent, st, plain, _got
+
     # B8: the chase of the main path's parse
     pieces = _parse_frame(blobs["extended"])[2]
     nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
@@ -1080,6 +1311,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     data = corpus(8 * DEFAULT_SHARD_SIZE)
+    report(f"phase 3: corpus of {len(data)} bytes, zero-byte share "
+           f"{data.count(0) / len(data):.4f}")
     blobs, launches, ratios = {}, {}, {}
     for name, kw, kernels in PATHS:
         blobs[name], launches[name], ratios[name] = phase_main_path(
@@ -1089,14 +1322,21 @@ def main() -> int:
                             DEFAULT_SHARD_SIZE, card)
             phase_profile(report, data, blobs[name], DEFAULT_SHARD_SIZE,
                           card)
-    for fmt in ("extended", "v1"):
+        if name.startswith("greedy"):
+            base = "extended lazy" if "lazy" in name else "extended"
+            report(f"  {name}: ratio {ratios[name]:.6f} beside device-commit "
+                   f"{base} {ratios[base]:.6f}")
+            phase_greedy(dev, report, data, blobs[name], DEFAULT_SHARD_SIZE,
+                         card, lazy="lazy" in name)
+    for fmt in ("extended", "v1", "greedy"):
         if not ratios[f"{fmt} lazy"] < ratios[fmt]:
             fail(f"{fmt}: lazy matching did not beat the greedy parse on "
                  f"text ({ratios[f'{fmt} lazy']} vs {ratios[fmt]})")
     t1 = time.perf_counter()
     from tamp_tpu_torch.parallel.shard import compress_sharded
 
-    modes_in = dict(blobs)
+    modes_in = {k: v for k, v in blobs.items()
+                if not k.startswith("greedy")}
     modes_in["extended w15"] = compress_sharded(
         data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev)
     report(f"phase 3: extended w15 container encoded in "

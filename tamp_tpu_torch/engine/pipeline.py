@@ -36,7 +36,7 @@ from ..ops.encode_fused import encode_v1_fused
 from .commit import ring_find_longest, ring_model_snapshot
 from .encode import bits_to_bytes, build_header, model_history
 
-__all__ = ["encode_v1_device_commit", "pull_body_bytes"]
+__all__ = ["encode_v1_device_commit", "pad_shards", "pull_body_bytes"]
 
 
 def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
@@ -103,6 +103,17 @@ def _tail_fields(data, C, t: int, cached, *, window: int, literal: int,
     return fields
 
 
+def pad_shards(datas):
+    """(batch, npos): the raw shards zero-padded into one (S, NP) uint8
+    array, NP a power of two >= TILE, and their (S,) int32 lengths."""
+    maxN = max(d.shape[0] for d in datas)
+    NP = 1 << (max(maxN, TILE, 1) - 1).bit_length()
+    batch = np.zeros((len(datas), NP), np.uint8)
+    for i, d in enumerate(datas):
+        batch[i, : d.shape[0]] = d
+    return batch, np.asarray([d.shape[0] for d in datas], np.int32)
+
+
 def encode_v1_device_commit(shards, *, window: int = 10, literal: int = 8,
                             lazy_matching: bool = False,
                             dictionary: bytes | None = None,
@@ -122,12 +133,8 @@ def encode_v1_device_commit(shards, *, window: int = 10, literal: int = 8,
     histories = [model_history(d, window, literal, False, dictionary)[1]
                  for d in datas]
     dict_arr = histories[0][: 1 << window]
-    maxN = max(d.shape[0] for d in datas)
-    NP = 1 << (max(maxN, TILE, 1) - 1).bit_length()  # pow2, TILE-aligned
-    npos = np.asarray([d.shape[0] for d in datas], np.int32)
-    batch = np.zeros((S, NP), np.uint8)
-    for i, d in enumerate(datas):
-        batch[i, : d.shape[0]] = d
+    batch, npos = pad_shards(datas)
+    NP = batch.shape[1]
 
     out, state = encode_v1_fused(
         torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),

@@ -1,18 +1,25 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's native libraries (``csrc/``).
 
-Each source is compiled by its own ``nvcc`` process into a shared library
-with a plain C interface (all processes start together), under
-``build/tamp_tpu_torch/`` at the repository root, at first use.  The file
-name carries a hash of the source and the flags, so an edited source
+Two routes, one per source kind:
+
+- a CUDA kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
+  ``sm_90a`` into a shared library with a plain C interface;
+- a host source ``csrc/<name>.cpp`` (the greedy committer) is compiled by
+  the host C++ compiler (``$CXX``, else ``c++``) with ``-O3 -std=c++17
+  -shared -fPIC``.
+
+Each source gets its own compiler process (all processes start together),
+under ``build/tamp_tpu_torch/`` at the repository root, at first use.  The
+file name carries a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is loaded as is.  The libraries are bound
-with ``ctypes`` (:func:`launch`): every pointer and the stream are passed
-as ``c_void_p`` (a Python int from ``tensor.data_ptr()`` or
-``stream.cuda_stream``), every C entry returns ``cudaGetLastError()`` after
-its launch, and :func:`check` raises on a non-zero code.
+with ``ctypes``.  For a kernel (:func:`launch`) every pointer and the
+stream are passed as ``c_void_p`` (a Python int from ``tensor.data_ptr()``
+or ``stream.cuda_stream``), every C entry returns ``cudaGetLastError()``
+after its launch, and :func:`check` raises on a non-zero code.
 
 Nothing here runs at import: the CPU tests import every module, and a
-build is only started by a wrapper handed a CUDA tensor (or by
-``chip_smoke.py``).
+build is only started by a wrapper handed a CUDA tensor, by the greedy
+committer's first call (engine/greedy.py), or by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ __all__ = ["load", "build_all", "check", "launch", "SOURCES"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
 SOURCES = ("match_ext", "encode_commit", "decode_commit", "decode_wavefront",
-           "decode_serial")
+           "decode_serial", "greedy_predict", "greedy_commit")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -54,24 +62,43 @@ def _nvcc() -> str:
     return found
 
 
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "c++"))
+    if found is None:
+        raise RuntimeError("no host C++ compiler: set CXX or put c++ on PATH")
+    return found
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` (a kernel) or ``csrc/<name>.cpp`` (host code)."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: Path) -> list[str]:
+    return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name)
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Path]:
-    """Compile every missing library, one ``nvcc`` per source, in parallel."""
+    """Compile every missing library, one compiler process per source, in
+    parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     procs = []
     for name in names:
         out = _target(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
+        src = _source(name)
+        cc = _nvcc() if src.suffix == ".cu" else _cxx()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [cc, *_flags(src), "-o", str(tmp), str(src)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -79,16 +106,17 @@ def build_all(names=SOURCES) -> dict[str, Path]:
         log = proc.communicate()[0].decode(errors="replace")
         build_log[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc rc={proc.returncode}):\n{log}")
+            failed.append(f"{name} (rc={proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return {name: _target(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp`` (built on first
+    use)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -72,20 +72,28 @@ def compress_sharded(
 ) -> bytes:
     """Compress ``data`` as a TTPU container, all shards batched on the card.
 
-    ``engine="device-commit"`` (the only engine of this port so far),
-    byte-identical to the JAX package's
+    ``engine="device-commit"``, byte-identical to the JAX package's
     ``compress_sharded(engine="device-commit")``: the extended-format
     planned encode (engine/pipeline_ext.py) or, with ``extended=False``,
     the v1 encode (engine/pipeline.py), each with or without
-    ``lazy_matching``.  ``dictionary`` (a full-window custom dictionary)
-    seeds every shard's window; pass the same one to the decode side.
-    ``device``: None for the CUDA card, ``"cpu"`` for the plain versions."""
-    if engine != "device-commit":
+    ``lazy_matching``.  ``engine="device-greedy"`` (extended only): tables
+    on the card, the greedy walk in the host committer; every shard's
+    stream is byte-identical to the reference greedy encoder
+    (engine/pipeline_ext.encode_ext_device_greedy).  ``dictionary`` (a
+    full-window custom dictionary) seeds every shard's window; pass the
+    same one to the decode side.  ``device``: None for the CUDA card,
+    ``"cpu"`` for the plain versions."""
+    if engine == "device-greedy":
+        if not extended:
+            raise ValueError("device-greedy is the extended-format mode; "
+                             "v1 engine='device-commit' is already "
+                             "reference-exact")
+        from ..engine.pipeline_ext import encode_ext_device_greedy as encode
+    elif engine != "device-commit":
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet: ROADMAP.md queue A "
-            "('Greedy-parity arm' for device-greedy, 'Optimal modes' for "
-            "device-optimal)")
-    if extended:
+            "('Optimal modes' for device-optimal, item 7 for device)")
+    elif extended:
         from ..engine.pipeline_ext import encode_ext_device_commit as encode
     else:
         from ..engine.pipeline import encode_v1_device_commit as encode

@@ -17,6 +17,11 @@ from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
 from tamp_tpu_torch.ops import decode_serial as dser
 from tamp_tpu_torch.ops import decode_wavefront as dw
+from tamp_tpu_torch.engine.greedy import SPARSE_NONE, greedy_compress
+from tamp_tpu_torch.engine.pipeline_ext import encode_ext_device_greedy
+from tamp_tpu_torch.ops.greedy_predict import (
+    greedy_predict_batch, greedy_predict_plain, pack_predict_plane,
+)
 from tamp_tpu_torch.ops.token_chase import (
     token_table_chase, token_table_chase_plain,
 )
@@ -28,7 +33,7 @@ from tamp_tpu_torch.ops.match_ext import (
 )
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
 from tamp_tpu_torch.parallel.shard import (
-    _parse_frame, compress_sharded, decompress_sharded_device,
+    _pack_frame, _parse_frame, compress_sharded, decompress_sharded_device,
 )
 
 pytestmark = pytest.mark.cuda
@@ -274,3 +279,82 @@ def test_decode_modes_round_trip_and_match_plain(cuda, mode):
     assert bytes(got) == bytes(plain) == data
     assert counter.launches > before[0]
     assert dc.commit_decode.launches == before[1]
+
+
+def _greedy_planes(cuda, window, literal, lazy, seed):
+    """B7's inputs on the card from kernel B5's cap-16 tables of two
+    text shards (one short, one with a long run)."""
+    lmask = (1 << literal) - 1
+    S, NP = 2, 8192
+    dh = np.zeros((S, NP), np.uint8)
+    a = np.frombuffer(bytes(b & lmask for b in _text(8000, seed)), np.uint8)
+    dh[0, :8000] = a[:8000]
+    dh[1, :5000] = a[2000:7000]
+    dh[1, 1000:1400] = 3
+    npos = torch.tensor([8000, 5000], dtype=torch.int32, device=cuda)
+    d = torch.from_numpy(dictionary_array(1 << window, literal)).to(cuda)
+    dh = torch.from_numpy(dh).to(cuda)
+    tabs = v1_tables(dh, npos, d, window_bits=window, cap=16, probe=lazy)
+    pk = pack_predict_plane(dh, npos, tabs[0], tabs[1], dlast=int(d[-1]))
+    pp = ((tabs[3] & 0x7FFF) | ((tabs[2] & 15) << 15)) if lazy else None
+    return pk, pp, npos, tabs
+
+
+@pytest.mark.parametrize("window,literal,lazy", [
+    (10, 8, False), (10, 8, True), (15, 8, False), (14, 6, True)])
+def test_b7_kernel_equals_plain(cuda, window, literal, lazy):
+    pk, pp, npos, _tabs = _greedy_planes(cuda, window, literal, lazy, window)
+    kw = dict(NP=pk.shape[1], window=window, literal=literal, lazy=lazy)
+    before = greedy_predict_batch.launches
+    bm, ent, st = greedy_predict_batch(pk, pp, npos, **kw)
+    assert greedy_predict_batch.launches == before + 1
+    pbm, pent, pst = greedy_predict_plain(pk.cpu(), None if pp is None
+                                          else pp.cpu(), npos.cpu(), **kw)
+    assert torch.equal(bm.cpu(), pbm)
+    assert torch.equal(st.cpu(), pst)
+    for s in range(pk.shape[0]):
+        ne = int(pst[s, 0])
+        assert ne > 0
+        assert torch.equal(ent[s, :ne].cpu(), pent[s, :ne])
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_greedy_commit_ignores_holes_in_card_tables(cuda, lazy):
+    _pk, _pp, npos, tabs = _greedy_planes(cuda, 10, 8, lazy, 3)
+    n = int(npos[0])
+    data = _text(8000, 3)[:n]
+    tabs = [t[0, :n].cpu().numpy() for t in tabs]
+    tabs = [t.astype(np.uint8 if k % 2 == 0 else np.int32)
+            for k, t in enumerate(tabs)]
+    want = greedy_compress(data, lazy_matching=lazy)
+    assert greedy_compress(data, lazy_matching=lazy, tables=tabs) == want
+    rng = np.random.default_rng(4)
+    for frac in (0.3, 0.9, 1.0):
+        hole = rng.random(n) < frac
+        holed = [t.copy() for t in tabs]
+        for k in range(0, len(holed), 2):
+            holed[k][hole] = SPARSE_NONE
+        assert greedy_compress(data, lazy_matching=lazy,
+                               tables=holed) == want
+
+
+@pytest.mark.parametrize("pull", ["sparse", "dense"])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_greedy_entry_point_tiny_shards(cuda, pull, lazy):
+    tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
+    before = greedy_predict_batch.launches
+    for raw, size in ((b"", 1024), (tiny, 7), (tiny, 16), (tiny, 17),
+                      (_text(20000, 8), 4096)):
+        shards = [raw[i : i + size]
+                  for i in range(0, len(raw), size)] or [b""]
+        got = encode_ext_device_greedy(shards, lazy_matching=lazy, pull=pull)
+        assert got == [greedy_compress(s, lazy_matching=lazy)
+                       for s in shards]
+        blob = _pack_frame(got, len(raw), size)
+        assert bytes(decompress_sharded_device(blob)) == raw
+    assert (greedy_predict_batch.launches > before) == (pull == "sparse")
+    blob = compress_sharded(tiny, shard_size=16, engine="device-greedy",
+                            lazy_matching=lazy)
+    assert blob == compress_sharded(tiny, shard_size=16,
+                                    engine="device-greedy",
+                                    lazy_matching=lazy, device="cpu")

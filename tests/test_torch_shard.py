@@ -98,7 +98,8 @@ def test_v1_container_custom_dictionary():
 
 
 def test_not_ported_modes_raise():
-    for kw in ({"engine": "device-greedy"}, {"engine": "native"}):
+    for kw in ({"engine": "device-optimal"}, {"engine": "device"},
+               {"engine": "native"}):
         with pytest.raises(NotImplementedError):
             tshard.compress_sharded(b"abc", device="cpu", **kw)
     # every decode algorithm is ported: an unknown one is a ValueError, as
@@ -132,6 +133,8 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
     code = ("import sys, tamp_tpu_torch, tamp_tpu_torch.parallel.shard, "
             "tamp_tpu_torch.engine.pipeline_ext, "
             "tamp_tpu_torch.engine.pipeline, "
+            "tamp_tpu_torch.engine.greedy, "
+            "tamp_tpu_torch.ops.greedy_predict, "
             "tamp_tpu_torch.ops.decode_wavefront, "
             "tamp_tpu_torch.ops.decode_serial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
