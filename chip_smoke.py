@@ -20,7 +20,13 @@ Phases (any failure raises, and the script exits non-zero):
    tiny shards for the extended and v1 formats, lazy and not, the greedy
    encode (sparse and dense pulls, lazy and not) equal to the table-less
    committer, and two streams whose payload fills its bucket exactly in
-   every decode mode and the serial algorithm;
+   every decode mode and the serial algorithm; then the walks' hazards: B4
+   on seeded random hazard streams (matches into the last 1-64 ring bytes,
+   RLE and extended matches at the ring end, FLUSH and double FLUSH,
+   out-of-bounds and overflow mid-stream, a trailing incomplete token) at
+   windows 8, 10 and 15, and B3 on seeded random fields (split indices at
+   windows 14 and 15, an error field and a zero advance mid-tile, max_out
+   clipping, npos < 16);
 3. six round trips at full size: 8 x 1 MiB shards of a seeded random-word
    text with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded`` and ``decompress_sharded_device``: the main path
@@ -44,7 +50,9 @@ Phases (any failure raises, and the script exits non-zero):
    counts of that one decode (B8 and X1 on chase, X1 on xla, X2 on serial,
    B4 on none of the three), and the rate;
 4. each kernel at its path's shapes: its time, its plain version's time
-   and result, and its bound (the least time the card could take).
+   and result, and its bound (the least time the card could take); B3's
+   and B4's rows also carry their walk steps (``steps``: planned-field
+   steps, tokens).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -265,6 +273,186 @@ def oob_stream():
     bw.put(HC[11], HL[11])  # size minp + 11 = 13 at slot 1020: 1033 > W
     bw.put(1020, 10)
     return bw.bytes()
+
+
+def hazard_stream(seed: int, window: int, *, more: bool = False,
+                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1):
+    """A seeded random valid extended Tamp stream aimed at B4's hazards:
+    literal runs; basic matches into the last 1-64 ring bytes written (so
+    many read bytes of the previous few tokens, and many hold the write
+    head); RLE up to its longest (241); extended matches that pass the ring
+    end when they can; on a ``more`` stream FLUSH and double FLUSH tokens.
+    ``oob_at``: token index of a match that reads past the window (ERR_OOB),
+    which ends the stream.  Returns (stream, decoded length up to the OOB
+    token).  tests/test_torch_cuda.py holds a copy."""
+    import numpy as np
+
+    from tamp_tpu_torch.constants import (
+        EXTENDED_MATCH_SYMBOL, EXTENDED_MATCH_TRAILING_BITS, FLUSH_SYMBOL,
+        HUFFMAN_CODES, HUFFMAN_LENGTHS, RLE_SYMBOL, RLE_TRAILING_BITS,
+        compute_min_pattern_size,
+    )
+
+    HC, HL = HUFFMAN_CODES, HUFFMAN_LENGTHS
+    ET, RT = EXTENDED_MATCH_TRAILING_BITS, RLE_TRAILING_BITS
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    bw = BitWriter()
+    bw.put(((window - 8) << 5) | ((literal - 5) << 3) | 2 | int(more), 8)
+    if more:
+        bw.put(0, 8)  # reserved header byte
+    pos = out = 0  # the ring head and the output length
+    lwf = False
+    for k in range(n_tokens):
+        r = rng.random()
+        if k == oob_at:
+            bw.put(HC[11], HL[11])
+            bw.put(W - 2, window)
+            break
+        if more and r < 0.05:  # FLUSH, often twice: the ring resets
+            for _ in range(1 + int(rng.random() < 0.6)):
+                bw.put(HC[FLUSH_SYMBOL], HL[FLUSH_SYMBOL])
+                bw.align()
+                pos = 0 if lwf else pos
+                lwf = True
+            continue
+        lwf = False
+        if r < 0.35:  # literal
+            bw.put((1 << literal) | int(rng.integers(0, 1 << literal)),
+                   literal + 1)
+            cnt = wr = 1
+        elif r < 0.7:  # basic match, mostly into the last 64 ring bytes
+            sym = int(rng.integers(0, 12))
+            cnt = wr = sym + minp
+            d = int(rng.integers(1, 65 if r < 0.62 else W))
+            bw.put(HC[sym], HL[sym])
+            bw.put(min((pos - d) % W, W - cnt), window)
+        elif r < 0.84:  # RLE of 2..241 bytes
+            s2, trail = int(rng.integers(0, 15)), int(rng.integers(0, 16))
+            cnt = (s2 << RT) + trail + 2
+            wr = min(cnt, 8, W - pos)
+            bw.put(HC[RLE_SYMBOL], HL[RLE_SYMBOL])
+            bw.put(HC[s2], HL[s2] - 1)
+            bw.put(trail, RT)
+        else:  # extended match, past the ring end when it can
+            lo, hi = minp + 12, minp + 12 + (14 << ET) + 7
+            cnt = int(rng.integers(lo, hi + 1))
+            if W - pos <= hi and rng.random() < 0.7:
+                cnt = int(rng.integers(max(lo, W - pos), hi + 1))
+            wr = min(cnt, W - pos)
+            v = cnt - lo
+            d = int(rng.integers(1, 65))
+            bw.put(HC[EXTENDED_MATCH_SYMBOL], HL[EXTENDED_MATCH_SYMBOL])
+            bw.put(HC[v >> ET], HL[v >> ET] - 1)
+            bw.put(v & ((1 << ET) - 1), ET)
+            bw.put(min((pos - d) % W, W - cnt), window)
+        pos = (pos + wr) % W
+        out += cnt
+    return bw.bytes(), out
+
+
+def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
+    """Seeded random planned fields (A, B) as int32 arrays, in the ranges
+    ops/plan_ext.py produces (fields of 1-24 bits, advances mostly 1-3 and
+    up to 255, at windows 14 and 15 a split index on 30 % of them), with
+    B3's hazards: an error field in the middle of a tile (row 1), a zero
+    advance in the middle of a tile (row 2), values wider than their fields
+    (row 3).  tests/test_torch_cuda.py holds a copy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(1, 25, (S, NP))
+    adv = np.where(rng.random((S, NP)) < 0.8, rng.integers(1, 4, (S, NP)),
+                   rng.integers(1, 256, (S, NP)))
+    A = rng.integers(0, 1 << 24, (S, NP)) & ((1 << nb) - 1)
+    B = nb | (adv << 6)
+    if idx_bits:
+        B |= ((rng.random((S, NP)) < 0.3) << 15) \
+            | (rng.integers(0, 1 << idx_bits, (S, NP)) << 16)
+    if S > 1:
+        B[1, NP // 2 + 37 :] |= 1 << 14
+    if S > 2:
+        B[2, NP // 3 + 11 :] &= ~(255 << 6)
+    if S > 3:
+        A[3] = rng.integers(0, 1 << 24, NP)
+    return A.astype(np.int32), B.astype(np.int32)
+
+
+def phase_hazards(dev, report):
+    """Phase 2, the walks' hazards: B4 on seeded hazard streams and B3 on
+    seeded hazard fields, each against its plain version, exactly."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.encode_commit import (
+        commit_fields, commit_fields_plain,
+    )
+
+    want_err = {"out of bounds": dc.ERR_OOB, "overflow": dc.ERR_OVERFLOW,
+                "overflow, max_out not a multiple of 16": dc.ERR_OVERFLOW}
+    for window in (8, 10, 15):
+        d = torch.from_numpy(dictionary_array(1 << window)).to(dev)
+        for kind in ("hazards", "more, double FLUSH", "out of bounds",
+                     "overflow", "overflow, max_out not a multiple of 16",
+                     "trailing incomplete token"):
+            more = kind.startswith("more")
+            streams, lens = zip(*(hazard_stream(
+                window * 100 + i, window, more=more, n_tokens=3000 + 700 * i,
+                oob_at=1700 + 90 * i if kind == "out of bounds" else -1)
+                for i in range(4)))
+            max_out = 1 << max(max(lens), 1024).bit_length()
+            if kind.startswith("overflow"):
+                max_out = (min(lens) // 2 & ~15) + 7 * ("multiple" in kind)
+            if kind == "trailing incomplete token":
+                streams = [x[:-2] for x in streams]
+            skip = 2 if more else 1
+            nxt, packed = dw.payload_parse([x[skip:] for x in streams],
+                                           window=window, literal=8,
+                                           extended=True, device=dev)
+            kw = dict(W=1 << window, more=more, max_out=max_out)
+            got = dc.commit_decode(nxt, packed, d, d, **kw)
+            plain = dc.commit_decode_plain(dc.fuse_parse(nxt, packed), d, d,
+                                           **kw)
+            sync(dev)
+            err = max_abs_err(zip(got, plain))
+            report(f"B4 hazard stream w{window} {kind}: kernel vs plain "
+                   f"max_abs_err={err} lens={got[1].tolist()} "
+                   f"errs={got[2].tolist()}")
+            if err:
+                fail(f"B4 differs from its plain version on the w{window} "
+                     f"{kind} hazard streams")
+            if got[2].tolist() != [want_err.get(kind, dc.ERR_OK)] * 4:
+                fail(f"B4 gave the wrong verdict on the w{window} {kind} "
+                     "hazard streams")
+            if kind in ("hazards", "more, double FLUSH") \
+                    and got[1].tolist() != list(lens):
+                fail(f"B4 decoded the w{window} {kind} hazard streams to the "
+                     "wrong lengths")
+
+    NP = 3 * 4096 + 512
+    npos = torch.tensor([NP, NP, NP, NP - 100, 9000, 15], dtype=torch.int32,
+                        device=dev)  # 15: no walk
+    for idx_bits, max_out in ((0, None), (14, None), (15, None), (0, 400),
+                              (15, 401)):
+        A, B = (torch.from_numpy(x).to(dev)
+                for x in hazard_fields(idx_bits + 5, 6, NP, idx_bits))
+        kw = dict(max_out=max_out or NP + NP // 8 + 64, idx_bits=idx_bits)
+        out, st = commit_fields(A, B, npos, **kw)
+        pout, pst = commit_fields_plain(A, B, npos, **kw)
+        sync(dev)
+        err = max_abs_err([(out, pout), (st, pst)])
+        report(f"B3 hazard fields idx_bits={idx_bits} max_out={kw['max_out']}"
+               f": kernel vs plain max_abs_err={err} "
+               f"err_slots={st[:, 6].tolist()} nbytes={st[:, 1].tolist()}")
+        if err:
+            fail(f"B3 differs from its plain version on the hazard fields, "
+                 f"idx_bits={idx_bits}, max_out={kw['max_out']}")
+        if st[:, 6].tolist() != [0, 1, 2, 0, 0, 0] or int(st[5, 0]) != 0:
+            fail("B3 missed an error row or walked a row with npos < 16")
 
 
 def phase_kernels_small(dev, report):
@@ -1054,7 +1242,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         replaces="tamp_tpu/ops/encode_commit_pallas.py:260",
         launches=launches["extended"]["commit_fields"],
         max_abs_err=max_abs_err([(out, pout), (st, pst)]), ms=ms,
-        plain_ms=pms,
+        plain_ms=pms, steps=steps,
         bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
         ops=3 * steps))
 
@@ -1075,6 +1263,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         replaces="tamp_tpu/ops/decode_commit_pallas.py:87",
         launches=launches["extended"]["commit_decode"],
         max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
+        steps=tokens,
         bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes))
     del pk, got, plain
 
@@ -1266,10 +1455,13 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         k["library_ms"] = None  # no single PyTorch call computes these
         k["equal_plain"] = k["max_abs_err"] == 0
+        # B3 and B4: walk steps (tokens for B4), and ns a step of a shard
+        steps = (f", {k['steps']} steps, {k['ms'] * 1e6 * S / k['steps']:.1f}"
+                 " ns a step a shard" if "steps" in k else "")
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
                f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
-               f"launches {k['launches']}, max_abs_err {k['max_abs_err']} "
-               f"[{card}]")
+               f"launches {k['launches']}, max_abs_err {k['max_abs_err']}"
+               f"{steps} [{card}]")
         if not k["equal_plain"]:
             fail(f"{k['name']} differs from its plain version at the main "
                  "path's shapes")
@@ -1306,6 +1498,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_kernels_small(dev, report)
+    phase_hazards(dev, report)
     report(f"phase 2: kernels equal to their plain versions "
            f"({time.perf_counter() - t0:.1f} s)")
 

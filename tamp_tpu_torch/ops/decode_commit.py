@@ -138,6 +138,9 @@ def commit_decode(nxt: torch.Tensor, packed: torch.Tensor,
 
 def _launch(pk, dict_init, dict_reset, *, W: int, more: bool, max_out: int):
     S, NBP = pk.shape
+    if NBP % 4 or not pk.is_contiguous():
+        raise ValueError("the kernel stages parse words in 16-byte units: "
+                         "pk must be contiguous with NBP a multiple of 4")
     dev = pk.device
     out = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
     lens = torch.empty(S, dtype=torch.int32, device=dev)

@@ -12,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from tamp_tpu_torch.constants import compute_min_pattern_size
+from tamp_tpu_torch.constants import (
+    EXTENDED_MATCH_SYMBOL, EXTENDED_MATCH_TRAILING_BITS, FLUSH_SYMBOL,
+    HUFFMAN_CODES, HUFFMAN_LENGTHS, RLE_SYMBOL, RLE_TRAILING_BITS,
+    compute_min_pattern_size,
+)
 from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
 from tamp_tpu_torch.ops import decode_serial as dser
@@ -52,6 +56,119 @@ def _text(n: int, seed: int) -> bytes:
              for _ in range(64)]
     s = b" ".join(words[int(i)] for i in rng.integers(0, 64, n))[:n]
     return s[: n // 2] + b"=" * 300 + s[n // 2 :]
+
+
+class _Bits:
+    """MSB-first bit writer for hand-built Tamp streams."""
+
+    def __init__(self):
+        self.bits: list[int] = []
+
+    def put(self, v: int, n: int):
+        self.bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    def align(self):
+        self.bits.extend([0] * (-len(self.bits) % 8))
+
+    def bytes(self) -> bytes:
+        self.align()
+        return bytes(int("".join(map(str, self.bits[i : i + 8])), 2)
+                     for i in range(0, len(self.bits), 8))
+
+
+def hazard_stream(seed: int, window: int, *, more: bool = False,
+                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1):
+    """A seeded random valid extended Tamp stream aimed at the decode
+    commit's hazards: literal runs; basic matches into the last 1-64 ring
+    bytes written (so many read bytes of the previous few tokens, and many
+    hold the write head); RLE up to its longest (241); extended matches
+    that pass the ring end when they can; on a ``more`` stream FLUSH and
+    double FLUSH tokens.  ``oob_at``: token index of a match that reads past
+    the window (ERR_OOB), which ends the stream.  Returns (stream, decoded
+    length up to the OOB token)."""
+    HC, HL = HUFFMAN_CODES, HUFFMAN_LENGTHS
+    ET, RT = EXTENDED_MATCH_TRAILING_BITS, RLE_TRAILING_BITS
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    bw = _Bits()
+    bw.put(((window - 8) << 5) | ((literal - 5) << 3) | 2 | int(more), 8)
+    if more:
+        bw.put(0, 8)  # reserved header byte
+    pos = out = 0  # the ring head and the output length
+    lwf = False
+    for k in range(n_tokens):
+        r = rng.random()
+        if k == oob_at:
+            bw.put(HC[11], HL[11])
+            bw.put(W - 2, window)
+            break
+        if more and r < 0.05:  # FLUSH, often twice: the ring resets
+            for _ in range(1 + int(rng.random() < 0.6)):
+                bw.put(HC[FLUSH_SYMBOL], HL[FLUSH_SYMBOL])
+                bw.align()
+                pos = 0 if lwf else pos
+                lwf = True
+            continue
+        lwf = False
+        if r < 0.35:  # literal
+            bw.put((1 << literal) | int(rng.integers(0, 1 << literal)),
+                   literal + 1)
+            cnt = wr = 1
+        elif r < 0.7:  # basic match, mostly into the last 64 ring bytes
+            sym = int(rng.integers(0, 12))
+            cnt = wr = sym + minp
+            d = int(rng.integers(1, 65 if r < 0.62 else W))
+            bw.put(HC[sym], HL[sym])
+            bw.put(min((pos - d) % W, W - cnt), window)
+        elif r < 0.84:  # RLE of 2..241 bytes
+            s2, trail = int(rng.integers(0, 15)), int(rng.integers(0, 16))
+            cnt = (s2 << RT) + trail + 2
+            wr = min(cnt, 8, W - pos)
+            bw.put(HC[RLE_SYMBOL], HL[RLE_SYMBOL])
+            bw.put(HC[s2], HL[s2] - 1)
+            bw.put(trail, RT)
+        else:  # extended match, past the ring end when it can
+            lo, hi = minp + 12, minp + 12 + (14 << ET) + 7
+            cnt = int(rng.integers(lo, hi + 1))
+            if W - pos <= hi and rng.random() < 0.7:
+                cnt = int(rng.integers(max(lo, W - pos), hi + 1))
+            wr = min(cnt, W - pos)
+            v = cnt - lo
+            d = int(rng.integers(1, 65))
+            bw.put(HC[EXTENDED_MATCH_SYMBOL], HL[EXTENDED_MATCH_SYMBOL])
+            bw.put(HC[v >> ET], HL[v >> ET] - 1)
+            bw.put(v & ((1 << ET) - 1), ET)
+            bw.put(min((pos - d) % W, W - cnt), window)
+        pos = (pos + wr) % W
+        out += cnt
+    return bw.bytes(), out
+
+
+def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
+    """Seeded random planned fields (A, B) as int32 arrays, in the ranges
+    ops/plan_ext.py produces (fields of 1-24 bits, advances mostly 1-3 and
+    up to 255, at windows 14 and 15 a split index on 30 % of them), with the
+    hazards of the tile-parallel fields commit: an error field in the middle
+    of a tile (row 1), a zero advance in the middle of a tile (row 2), a row
+    of values wider than their fields (row 3, the excess-bits error field's
+    shape)."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(1, 25, (S, NP))
+    adv = np.where(rng.random((S, NP)) < 0.8, rng.integers(1, 4, (S, NP)),
+                   rng.integers(1, 256, (S, NP)))
+    A = rng.integers(0, 1 << 24, (S, NP)) & ((1 << nb) - 1)
+    B = nb | (adv << 6)
+    if idx_bits:
+        B |= ((rng.random((S, NP)) < 0.3) << 15) \
+            | (rng.integers(0, 1 << idx_bits, (S, NP)) << 16)
+    if S > 1:
+        B[1, NP // 2 + 37 :] |= 1 << 14
+    if S > 2:
+        B[2, NP // 3 + 11 :] &= ~(255 << 6)
+    if S > 3:
+        A[3] = rng.integers(0, 1 << 24, NP)
+    return A.astype(np.int32), B.astype(np.int32)
 
 
 @pytest.mark.parametrize("window", [8, 11, 15])
@@ -122,7 +239,7 @@ def test_b6_kernel_equals_plain(cuda):
     assert want[1][:, 6].tolist() == [0, 0, 1]
 
 
-def test_b3_kernel_equals_plain(cuda):
+def _b3_text_fields():
     rng = np.random.default_rng(1)
     S, NP = 3, 4096
     nb = rng.integers(1, 19, (S, NP))
@@ -130,14 +247,88 @@ def test_b3_kernel_equals_plain(cuda):
     A = rng.integers(0, 1 << 18, (S, NP)) & ((1 << nb) - 1)
     B = nb | (adv << 6)
     B[2, 3000:] |= 1 << 14  # an error field ends the third walk
-    A = torch.from_numpy(A.astype(np.int32))
-    B = torch.from_numpy(B.astype(np.int32))
-    npos = torch.tensor([4096, 2000, 4000], dtype=torch.int32)
-    kw = dict(max_out=NP + NP // 8 + 64, idx_bits=0)
+    npos = np.array([4096, 2000, 4000])
+    return A.astype(np.int32), B.astype(np.int32), npos, NP + NP // 8 + 64
+
+
+def _b3_hazard_fields(idx_bits, max_out=None):
+    NP = 3 * 4096 + 512  # tiles of the kernel's 4096 positions, and a rest
+    A, B = hazard_fields(idx_bits + 5, 6, NP, idx_bits)
+    npos = np.array([NP, NP, NP, NP - 100, 9000, 15])  # 15: no walk
+    return A, B, npos, NP + NP // 8 + 64 if max_out is None else max_out
+
+
+@pytest.mark.parametrize("case", [
+    "first", "hazards w10", "hazards w14", "hazards w15",
+    "max_out clipped", "max_out clipped, not a multiple of 4"])
+def test_b3_kernel_equals_plain(cuda, case):
+    if case == "first":
+        A, B, npos, max_out = _b3_text_fields()
+        idx_bits = 0
+    else:
+        idx_bits = {"hazards w14": 14, "hazards w15": 15}.get(case, 0)
+        max_out = {"max_out clipped": 400,
+                   "max_out clipped, not a multiple of 4": 401}.get(case)
+        A, B, npos, max_out = _b3_hazard_fields(idx_bits, max_out)
+    A, B = torch.from_numpy(A), torch.from_numpy(B)
+    npos = torch.from_numpy(npos.astype(np.int32))
+    kw = dict(max_out=max_out, idx_bits=idx_bits)
     want = commit_fields_plain(A, B, npos, **kw)
+    before = commit_fields.launches
     got = commit_fields(A.to(cuda), B.to(cuda), npos.to(cuda), **kw)
+    assert commit_fields.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    if case != "first":
+        assert want[1][:, 6].tolist() == [0, 1, 2, 0, 0, 0]
+        assert want[1][5, 0] == 0  # npos < 16: no walk
+    if case.startswith("max_out"):
+        assert (want[1][:, 1] > max_out).any()
+
+
+def _b4_pair(cuda, streams, window, more, max_out):
+    """B4 on the card and its plain version on the parse of ``streams``."""
+    skip = 2 if more else 1
+    nxt, packed = dw.payload_parse([x[skip:] for x in streams],
+                                   window=window, literal=8, extended=True,
+                                   device=cuda)
+    d = torch.from_numpy(dictionary_array(1 << window)).to(cuda)
+    kw = dict(W=1 << window, more=more, max_out=max_out)
+    before = dc.commit_decode.launches
+    got = dc.commit_decode(nxt, packed, d, d, **kw)
+    assert dc.commit_decode.launches == before + 1
+    want = dc.commit_decode_plain(dc.fuse_parse(nxt, packed).cpu(), d.cpu(),
+                                  d.cpu(), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    return want
+
+
+@pytest.mark.parametrize("kind", [
+    "hazards", "more, double FLUSH", "out of bounds mid-stream",
+    "overflow mid-stream", "overflow, not a multiple of 16",
+    "trailing incomplete token"])
+@pytest.mark.parametrize("window", [8, 10, 15])
+def test_b4_kernel_equals_plain(cuda, window, kind):
+    more = kind.startswith("more")
+    streams, lens = zip(*(hazard_stream(
+        window * 10 + i, window, more=more, n_tokens=1500 + 500 * i,
+        oob_at=900 + 50 * i if kind.startswith("out of") else -1)
+        for i in range(3)))
+    max_out = 1 << max(max(lens), 1024).bit_length()
+    if kind.startswith("overflow"):
+        max_out = min(lens) // 2 & ~15
+        max_out += 7 if "not a multiple" in kind else 0
+    if kind == "trailing incomplete token":
+        streams = [x[:-2] for x in streams]
+    out, got_lens, errs = _b4_pair(cuda, list(streams), window, more,
+                                   max_out)
+    want_err = {"out of bounds mid-stream": dc.ERR_OOB,
+                "overflow mid-stream": dc.ERR_OVERFLOW,
+                "overflow, not a multiple of 16": dc.ERR_OVERFLOW}
+    assert errs.tolist() == [want_err.get(kind, dc.ERR_OK)] * 3
+    if kind in ("hazards", "more, double FLUSH"):
+        assert got_lens.tolist() == list(lens)
 
 
 def test_entry_points_round_trip_and_match_plain(cuda):

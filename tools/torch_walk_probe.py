@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time kernels B4 and B3 of the PyTorch/CUDA port beside the chain floors
+of their walks, on one NVIDIA card.
+
+    python3 tools/torch_walk_probe.py [--no-variants]
+
+Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
+shards, window 10, literal 8.  B4 decodes the main path's container, B3
+commits the main path's planned fields.  ``csrc/walk_probe.cu`` walks the
+same chains in the first port's skeleton and does nothing else; a kernel's
+time minus its probe's is what it spends on top of its chain.  B4 is also
+timed in variants built from ``csrc/decode_commit.cu`` with parts of its
+commit warp cut out (VARIANTS), to split its time between the chain and the
+commit; a variant's output is not checked (``--no-variants`` skips them,
+for a tree whose kernel source lacks their anchors).  Times are CUDA events, median
+of 5 after a warm-up.  Prints one JSON line last, with the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+_COMMIT = "    __threadfence_block();\n    const int nrec = min(32, head - done);\n"
+_PHASES = ("      const int rb = ring", "      out_pos += __shfl_sync")
+_PHASE2 = ("      // phase 2:", "      out_pos += __shfl_sync")
+# B4 variants: name -> edit of the kernel source
+VARIANTS = {
+    # the commit warp drains the queue and commits nothing: the chain alone
+    "b4_chain_only_ms": lambda src: src.replace(
+        _COMMIT, "    done = head;\n    if (lane == 0) *tail_v = done;\n"
+        "    continue;\n" + _COMMIT),
+    # the chain alone, storing no word in the queue
+    "b4_chain_no_queue_ms": lambda src: VARIANTS["b4_chain_only_ms"](
+        src).replace("          queue[(n + u) & (Q - 1)] = p;\n", "").replace(
+        "      queue[n++ & (Q - 1)] = p;", "      ++n;"),
+    # the commit warp copies no byte to the ring (phase 2 cut out)
+    "b4_no_ring_writes_ms": lambda src: src[: src.index(_PHASE2[0])]
+        + src[src.index(_PHASE2[1]) :],
+    # errs counts the commit's batches instead of the error code
+    "b4_batches": lambda src: src.replace(
+        "    done += kk;\n", "    done += kk;\n      ++nbatch;\n").replace(
+        "lwf = 0, err = 0;", "lwf = 0, err = 0, nbatch = 0;").replace(
+        "    errs[s] = err;", "    errs[s] = nbatch;"),
+    # the commit warp books and cuts batches but copies no byte
+    "b4_no_copies_ms": lambda src: src[: src.index(_PHASES[0])]
+        + src[src.index(_PHASES[1]) :],
+}
+
+
+def variant_lib(name: str, edit):
+    """Build the edited copy of csrc/decode_commit.cu as its own library."""
+    import ctypes
+    import subprocess
+
+    from tamp_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "decode_commit.cu").read_text()
+    text = edit(src)
+    if text == src:
+        raise RuntimeError(f"variant {name}: its anchor is not in the source")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / f"probe_{name}.cu"
+    so = cu.with_suffix(".so")
+    cu.write_text(text)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(cu)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).tpt_commit_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    return fn
+
+
+def main() -> int:
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--no-variants", action="store_true",
+                    help="time B4 and B3 and the chain floors only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_walk_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline_ext import ext_fields, prepare_batch
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.encode_commit import commit_fields
+    from tamp_tpu_torch.parallel.shard import (
+        DEFAULT_SHARD_SIZE, compress_sharded,
+    )
+
+    def ms_of(fn, reps=5):
+        return cs.cuda_ms(fn, reps=reps)
+
+    dev = torch.device("cuda")
+    window, literal = 10, 8
+    W = 1 << window
+    data = cs.corpus(8 * DEFAULT_SHARD_SIZE)
+    blob = compress_sharded(data, shard_size=DEFAULT_SHARD_SIZE, device=dev)
+    d = torch.from_numpy(dictionary_array(W, literal)).to(dev)
+    res = {"card": cs.smi()}
+
+    pk, tokens = cs.stream_tokens(dev, blob, window, literal, True)
+    S, NBP = pk.shape
+    max_out = dw._pow2_bucket(DEFAULT_SHARD_SIZE, 1024)
+    out = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    res["b4_ms"], _ = ms_of(lambda: dc._launch(pk, d, d, W=W, more=False,
+                                               max_out=max_out))
+    res["b4_chain_ms"], _ = ms_of(lambda: _build.launch(
+        "walk_probe", "tpt_probe_decode_chain", dev, (pk, out), (S, NBP)))
+    if int(out[:, 0].sum()) != tokens:
+        raise RuntimeError("the decode chain probe counted other tokens")
+    for name, edit in ({} if args.no_variants else VARIANTS).items():
+        fn = variant_lib(name, edit)
+        o = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
+        ln = torch.empty(S, dtype=torch.int32, device=dev)
+        er = torch.empty(S, dtype=torch.int32, device=dev)
+        args = [t.data_ptr() for t in (pk, d, d, o, ln, er)] + [
+            S, NBP, window, 0, max_out,
+            torch.cuda.current_stream().cuda_stream]
+        res[name], _ = ms_of(lambda: _build.check(fn(*args), name))
+        if name == "b4_batches":  # a count, not a time
+            res[name] = int(er.sum())
+    res["tokens"] = tokens
+    del pk
+
+    shards = [np.frombuffer(data[i : i + DEFAULT_SHARD_SIZE], np.uint8)
+              for i in range(0, len(data), DEFAULT_SHARD_SIZE)]
+    _p, dh, rc, npos = prepare_batch(shards, window=window)
+    NP = dh.shape[1]
+    npos_d = torch.from_numpy(npos).to(dev)
+    _t, A, B = ext_fields(torch.from_numpy(dh).to(dev),
+                          torch.from_numpy(rc).to(dev), npos_d, d,
+                          window=window, literal=literal)
+    del _t
+    res["b3_ms"], _ = ms_of(lambda: commit_fields(
+        A, B, npos_d, max_out=NP + NP // 8 + 64, idx_bits=0))
+    res["b3_chain_ms"], _ = ms_of(lambda: _build.launch(
+        "walk_probe", "tpt_probe_fields_chain", dev, (A, B, npos_d, out),
+        (S, NP)))
+    steps = cs.walk_count(B.cpu().numpy(), np.maximum(npos - 15, 0),
+                          lambda m: (m >> 6) & 255)
+    if int(out[:, 0].sum()) != steps:
+        raise RuntimeError("the fields chain probe counted other steps")
+    res["steps"] = steps
+    for k in ("b4", "b3"):  # a shard's walk: its steps are the total / S
+        n = (tokens if k == "b4" else steps) / S
+        res[f"{k}_ns_per_step"] = res[f"{k}_ms"] * 1e6 / n
+        res[f"{k}_chain_ns_per_step"] = res[f"{k}_chain_ms"] * 1e6 / n
+    for k, v in res.items():
+        print(f"{k}: {v}")
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
