@@ -24,9 +24,13 @@ Phases (any failure raises, and the script exits non-zero):
    on seeded random hazard streams (matches into the last 1-64 ring bytes,
    RLE and extended matches at the ring end, FLUSH and double FLUSH,
    out-of-bounds and overflow mid-stream, a trailing incomplete token) at
-   windows 8, 10 and 15, and B3 on seeded random fields (split indices at
+   windows 8, 10 and 15, B3 on seeded random fields (split indices at
    windows 14 and 15, an error field and a zero advance mid-tile, max_out
-   clipping, npos < 16);
+   clipping, npos < 16), B6 on seeded random lazy tables (deferral chains
+   across tile seams, an excess literal deferred and not, deferred sizes up
+   to 65535, a stop with its cache set, max_out clipping, npos < 16) and B7
+   on seeded random walker planes (RLE advances of 241 across tile seams,
+   lazy deferrals, a shard without entries, npos < 16);
 3. six round trips at full size: 8 x 1 MiB shards of a seeded random-word
    text with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded`` and ``decompress_sharded_device``: the main path
@@ -50,9 +54,9 @@ Phases (any failure raises, and the script exits non-zero):
    counts of that one decode (B8 and X1 on chase, X1 on xla, X2 on serial,
    B4 on none of the three), and the rate;
 4. each kernel at its path's shapes: its time, its plain version's time
-   and result, and its bound (the least time the card could take); B3's
-   and B4's rows also carry their walk steps (``steps``: planned-field
-   steps, tokens).
+   and result, and its bound (the least time the card could take); the
+   walks' rows (B3, B4, B6, B7) also carry their walk steps (``steps``:
+   planned-field steps, tokens, lazy-walk tokens, replay steps).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -379,9 +383,110 @@ def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
     return A.astype(np.int32), B.astype(np.int32)
 
 
+def _probe_off_head(t, W):
+    """A probe source index whose 16-byte span does not hold t & (W - 1)."""
+    return ((t & (W - 1)) + 16) & (W - 1)
+
+
+def hazard_lazy_tables(seed: int, S: int, NP: int, window: int, literal: int,
+                       tile: int = 4096):
+    """Seeded random lazy v1 tables (P = len << 23 | idx << 8 | byte, Q =
+    plen << 15 | pidx, int32 arrays) and lengths npos, with B6's hazards:
+    deferral chains across every ``tile`` seam; in row 1 a deferral whose
+    literal is an excess byte and in row 2 an excess literal, both mid-tile
+    (when ``literal`` < 8); in row 3 deferred probe sizes of 300, 4000 and
+    65535; in row 4 a deferral at npos - 16 (the walk stops with its cache
+    set); row 5 has npos < 16.  tests/test_torch_cuda.py holds a copy."""
+    import numpy as np
+
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    lit = 256 if literal == 8 else 1 << literal
+    size = np.where(rng.random((S, NP)) < 0.5, 0,
+                    rng.integers(minp, 17, (S, NP)))
+    idx = rng.integers(0, W, (S, NP))
+    byte = rng.integers(0, lit, (S, NP))
+    psz = rng.integers(0, 16, (S, NP))
+    pix = rng.integers(0, W, (S, NP))
+    t_all = np.arange(NP)
+    chain = minp + 1 + t_all % (10 - minp)  # minp + 1 .. 9, then again
+    for seam in range(tile, NP, tile):
+        sl = slice(seam - 40, seam + 40)
+        size[:, sl] = minp
+        psz[:, sl] = chain[sl]
+        pix[:, sl] = _probe_off_head(t_all[sl], W)
+
+    def lead_in(s, t):  # literals up to t, so the walk lands on t
+        size[s, t - 24 : t + 1] = 0
+        psz[s, t - 24 : t + 1] = 0
+
+    def defer_at(s, t, n):  # a deferral at t to a probe of n bytes
+        lead_in(s, t)
+        size[s, t] = minp
+        psz[s, t] = n
+        pix[s, t] = _probe_off_head(t, W)
+
+    mid = tile // 2 + 37
+    if literal < 8:
+        defer_at(1, mid, minp + 1)
+        byte[1, mid] = 0xC3 | lit
+        lead_in(2, tile + mid)
+        byte[2, tile + mid] = 0xF1 | lit
+    for t, n in ((mid, 300), (tile + mid, 4000), (2 * tile + mid, 65535)):
+        defer_at(3, t, n)
+    npos = np.full(S, NP)
+    npos[4] = NP - 1000
+    defer_at(4, npos[4] - 16, minp + 1)
+    npos[5] = 15
+    P = (size << 23) | (idx << 8) | byte
+    Q = (psz << 15) | pix
+    return P.astype(np.int32), Q.astype(np.int32), npos.astype(np.int32)
+
+
+def hazard_predict_planes(seed: int, S: int, NP: int, window: int,
+                          literal: int, tile: int = 4096):
+    """Seeded random greedy walker planes (pk = idx16 | ln << 15 | run << 20,
+    pp = pidx | plen << 15, int32 arrays) and lengths npos, with B7's
+    hazards: runs of 255 (RLE advances of 241) across every ``tile`` seam;
+    no entry in row 1; lazy deferrals in row 2; row 3 stops mid-tile; row 4
+    has npos < 16.  tests/test_torch_cuda.py holds a copy."""
+    import numpy as np
+
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    ln = np.where(rng.random((S, NP)) < 0.5, rng.integers(0, minp, (S, NP)),
+                  rng.integers(minp, 17, (S, NP)))
+    run = np.where(rng.random((S, NP)) < 0.8, 0, rng.integers(0, 256, (S, NP)))
+    idx = rng.integers(0, 1 << 15, (S, NP))
+    plen = rng.integers(0, 16, (S, NP))
+    pidx = rng.integers(0, W, (S, NP))
+    for seam in range(tile, NP, tile):
+        run[:, seam - 300 : seam + 20] = 255
+    ln[1] = rng.integers(0, minp, NP)
+    t_all = np.arange(NP)
+    short = rng.random(NP) < 0.5
+    ln[2, short] = rng.integers(minp, 9, int(short.sum()))
+    run[2, short] = 0
+    plen[2, short] = 15
+    pidx[2, short] = _probe_off_head(t_all[short], W)
+    npos = np.full(S, NP)
+    npos[3] = NP - tile // 2 - 123
+    npos[4] = 12
+    pk = idx | (ln << 15) | (run << 20)
+    pp = pidx | (plen << 15)
+    return pk.astype(np.int32), pp.astype(np.int32), npos.astype(np.int32)
+
+
 def phase_hazards(dev, report):
-    """Phase 2, the walks' hazards: B4 on seeded hazard streams and B3 on
-    seeded hazard fields, each against its plain version, exactly."""
+    """Phase 2, the walks' hazards: B4 on seeded hazard streams, B3 on
+    seeded hazard fields, B6 on seeded lazy tables and B7 on seeded walker
+    planes, each against its plain version, exactly."""
     import numpy as np
     import torch
 
@@ -389,7 +494,11 @@ def phase_hazards(dev, report):
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import (
-        commit_fields, commit_fields_plain,
+        commit_fields, commit_fields_plain, commit_v1_lazy,
+        commit_v1_lazy_plain,
+    )
+    from tamp_tpu_torch.ops.greedy_predict import (
+        greedy_predict_batch, greedy_predict_plain,
     )
 
     want_err = {"out of bounds": dc.ERR_OOB, "overflow": dc.ERR_OVERFLOW,
@@ -453,6 +562,50 @@ def phase_hazards(dev, report):
                  f"idx_bits={idx_bits}, max_out={kw['max_out']}")
         if st[:, 6].tolist() != [0, 1, 2, 0, 0, 0] or int(st[5, 0]) != 0:
             fail("B3 missed an error row or walked a row with npos < 16")
+
+    for window, literal, max_out in ((10, 8, None), (10, 7, None),
+                                     (11, 5, None), (10, 8, 400),
+                                     (11, 5, 401)):
+        P, Q, npos = (torch.from_numpy(x).to(dev) for x in hazard_lazy_tables(
+            window * 10 + literal, 6, NP, window, literal))
+        kw = dict(window=window, literal=literal,
+                  max_out=max_out or NP + NP // 8 + 64)
+        out, st = commit_v1_lazy(P, Q, npos, **kw)
+        pout, pst = commit_v1_lazy_plain(P, Q, npos, **kw)
+        sync(dev)
+        err = max_abs_err([(out, pout), (st, pst)])
+        report(f"B6 hazard tables w{window} l{literal} max_out={kw['max_out']}"
+               f": kernel vs plain max_abs_err={err} "
+               f"err_slots={st[:, 6].tolist()} cache={st[:, 4].tolist()} "
+               f"stops={st[:, 0].tolist()}")
+        if err:
+            fail(f"B6 differs from its plain version on the hazard tables, "
+                 f"w{window} l{literal}, max_out={kw['max_out']}")
+        if int(st[3, 0]) <= NP or int(st[4, 4]) < 0 or int(st[5, 0]) != 0 \
+                or (literal < 8 and st[1:3, 6].tolist() != [1, 1]):
+            fail("B6's hazard tables missed a jump past the end, a stop with "
+                 "its cache set, an excess literal or the npos < 16 row")
+
+    for window, literal, lazy in ((10, 8, False), (10, 8, True),
+                                  (14, 6, True)):
+        pk, pp, npos = (torch.from_numpy(x).to(dev)
+                        for x in hazard_predict_planes(window + lazy, 5, NP,
+                                                       window, literal))
+        kw = dict(NP=NP, window=window, literal=literal, lazy=lazy)
+        got = greedy_predict_batch(pk, pp, npos, **kw)
+        plain = greedy_predict_plain(pk, pp, npos, **kw)
+        sync(dev)
+        err = b7_err(got, plain)
+        ne = got[2][:, 0].tolist()
+        report(f"B7 hazard planes w{window} l{literal} lazy={lazy}: kernel "
+               f"vs plain max_abs_err={err} entries={ne} "
+               f"stops={got[2][:, 1].tolist()}")
+        if err:
+            fail(f"B7 differs from its plain version on the hazard planes, "
+                 f"w{window} l{literal}, lazy={lazy}")
+        if ne[1] or ne[4] or not min(ne[0], ne[2], ne[3]):
+            fail("B7's hazard planes missed the row without entries or the "
+                 "npos < 16 row")
 
 
 def phase_kernels_small(dev, report):
@@ -1321,7 +1474,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         replaces="tamp_tpu/ops/encode_commit_pallas.py:61",
         launches=launches["v1 lazy"]["commit_v1_lazy"],
         max_abs_err=max_abs_err([(out, pout), (st, pst)]), ms=ms,
-        plain_ms=pms,
+        plain_ms=pms, steps=steps,
         bytes=8 * steps + int(st[:, S_NBYTES].sum()) + 4 * S + 64 * S,
         ops=3 * steps))
     del out, st, pout, pst, packed, probe
@@ -1352,7 +1505,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         source="tamp_tpu_torch/csrc/greedy_predict.cu",
         replaces="tamp_tpu/ops/greedy_predict_pallas.py:62",
         launches=launches["greedy"]["greedy_predict_batch"],
-        max_abs_err=b7_err(got, plain), ms=ms, plain_ms=pms,
+        max_abs_err=b7_err(got, plain), ms=ms, plain_ms=pms, steps=steps,
         bytes=4 * steps + S * shard_size // 8 + 4 * n_ent + 36 * S,
         ops=4 * steps))
     del pk, got, plain
@@ -1455,7 +1608,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         k["library_ms"] = None  # no single PyTorch call computes these
         k["equal_plain"] = k["max_abs_err"] == 0
-        # B3 and B4: walk steps (tokens for B4), and ns a step of a shard
+        # the walks: steps (tokens for B4), and ns a step of a shard
         steps = (f", {k['steps']} steps, {k['ms'] * 1e6 * S / k['steps']:.1f}"
                  " ns a step a shard" if "steps" in k else "")
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "

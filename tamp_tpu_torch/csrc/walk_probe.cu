@@ -1,4 +1,4 @@
-// Chain-floor probes for the serial walks of kernels B4 and B3 (a
+// Chain-floor probes for the serial walks of kernels B4, B3, B6 and B7 (a
 // measurement tool, not a kernel of any path; tools/torch_walk_probe.py
 // builds and times it).
 //
@@ -11,8 +11,14 @@
 //   - probe_decode_chain: c += delta over the fused parse words (B4's chain),
 //     folding kind, cnt and idx into a checksum so they stay decoded;
 //   - probe_fields_chain: t += adv over the planned fields (B3's chain) up to
-//     the first t >= npos - 15 or an error field, folding A into a checksum.
-// Outputs per shard: steps and checksum.
+//     the first t >= npos - 15 or an error field, folding A into a checksum;
+//   - probe_lazy_chain: B6's hop over the packed tables P and the probe Q
+//     with its lazy cache (the deferral decision and the excess-literal
+//     stop included, no bits);
+//   - probe_greedy_chain: B7's hop over the packed plane (and the probe
+//     plane when lazy), no bitmap and no entries.
+// Outputs per shard: steps and checksum (B4, B3), steps and the stop t
+// (B6, B7).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,7 +125,146 @@ probe_fields_chain(const int32_t* __restrict__ A, const int32_t* __restrict__ B,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+probe_lazy_chain(const int32_t* __restrict__ P, const int32_t* __restrict__ Q,
+                 const int32_t* __restrict__ npos_arr,
+                 int32_t* __restrict__ res, int NP, int wmask, int minp,
+                 int lit_limit) {
+  __shared__ int32_t sp[2][TILE];
+  __shared__ int32_t sq[2][TILE];
+  const int s = blockIdx.x;
+  const int npos = npos_arr[s];
+  const int hard_stop = min(npos - 15, NP);
+  const int32_t* p_row = P + (size_t)s * NP;
+  const int32_t* q_row = Q + (size_t)s * NP;
+  const int n_tiles = hard_stop > 0 ? (hard_stop + TILE - 1) / TILE : 0;
+  if (n_tiles > 0) {
+    for (int i = threadIdx.x; i < TILE && i < NP; i += THREADS) {
+      sp[0][i] = p_row[i];
+      sq[0][i] = q_row[i];
+    }
+  }
+  __syncthreads();
+  int t = 0, n = 0, cached = 0, csz = 0;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int cur = tile & 1;
+    if (threadIdx.x >= 32 && tile + 1 < n_tiles) {
+      const int base = (tile + 1) * TILE;
+      for (int i = threadIdx.x - 32; i < TILE && base + i < NP;
+           i += THREADS - 32) {
+        sp[cur ^ 1][i] = p_row[base + i];
+        sq[cur ^ 1][i] = q_row[base + i];
+      }
+    }
+    if (threadIdx.x == 0) {
+      const int base = tile * TILE;
+      const int end = min(base + TILE, hard_stop);
+      while (t < end) {
+        const int32_t p = sp[cur][t - base];
+        const int32_t q = sq[cur][t - base];
+        const int size = cached ? csz : p >> 23;
+        const int pix = q & 0x7FFF, psz = q >> 15, tau = t & wmask;
+        const bool go_lazy = size >= minp && size <= 8 && psz > size &&
+                             !(pix <= tau && tau < pix + psz);
+        const bool is_match = size >= minp && !go_lazy;
+        cached = go_lazy;
+        csz = psz;
+        ++n;
+        if (!is_match && (p & 0xFF) >= lit_limit) {
+          t = npos;
+          break;
+        }
+        t += is_match ? size : 1;
+      }
+    }
+    if (__syncthreads_or(threadIdx.x == 0 && t >= hard_stop)) break;
+  }
+  if (threadIdx.x == 0) {
+    res[2 * s] = n;
+    res[2 * s + 1] = t;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_greedy_chain(const int32_t* __restrict__ pk,
+                   const int32_t* __restrict__ pp,
+                   const int32_t* __restrict__ npos_arr,
+                   int32_t* __restrict__ res, int NP, int wmask, int minp,
+                   int lazy) {
+  __shared__ int32_t sk[2][TILE];
+  __shared__ int32_t sq[2][TILE];
+  const int s = blockIdx.x;
+  const int hard_stop = min(npos_arr[s] - 15, NP);
+  const int32_t* k_row = pk + (size_t)s * NP;
+  const int32_t* q_row = pp + (size_t)s * NP;
+  const int n_tiles = hard_stop > 0 ? (hard_stop + TILE - 1) / TILE : 0;
+  if (n_tiles > 0) {
+    for (int i = threadIdx.x; i < TILE && i < NP; i += THREADS) {
+      sk[0][i] = k_row[i];
+      if (lazy) sq[0][i] = q_row[i];
+    }
+  }
+  __syncthreads();
+  int t = 0, n = 0;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int cur = tile & 1;
+    if (threadIdx.x >= 32 && tile + 1 < n_tiles) {
+      const int base = (tile + 1) * TILE;
+      for (int i = threadIdx.x - 32; i < TILE && base + i < NP;
+           i += THREADS - 32) {
+        sk[cur ^ 1][i] = k_row[base + i];
+        if (lazy) sq[cur ^ 1][i] = q_row[base + i];
+      }
+    }
+    if (threadIdx.x == 0) {
+      const int base = tile * TILE;
+      const int end = min(base + TILE, hard_stop);
+      while (t < end) {
+        const int32_t p = sk[cur][t - base];
+        const int ln = (p >> 15) & 31, run = (p >> 20) & 255;
+        const bool matchy = ln >= minp;
+        const bool rle_go = run >= 2 && !(run <= 6 && ln > run);
+        bool go_lazy = false;
+        if (lazy) {
+          const int32_t q = sq[cur][t - base];
+          const int pix = q & 0x7FFF, psz = (q >> 15) & 15, tau = t & wmask;
+          go_lazy = matchy && ln <= 8 && psz > ln && !rle_go &&
+                    !(pix <= tau && tau < pix + psz);
+        }
+        ++n;
+        t += rle_go ? min(run, 241) : ((matchy && !go_lazy) ? ln : 1);
+      }
+    }
+    if (__syncthreads_or(threadIdx.x == 0 && t >= hard_stop)) break;
+  }
+  if (threadIdx.x == 0) {
+    res[2 * s] = n;
+    res[2 * s + 1] = t;
+  }
+}
+
 }  // namespace
+
+extern "C" int tpt_probe_lazy_chain(const void* P, const void* Q,
+                                    const void* npos, void* res, int S,
+                                    int NP, int window, int literal, int minp,
+                                    void* stream) {
+  probe_lazy_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)P, (const int32_t*)Q, (const int32_t*)npos,
+      (int32_t*)res, NP, (1 << window) - 1, minp,
+      literal == 8 ? 256 : 1 << literal);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_probe_greedy_chain(const void* pk, const void* pp,
+                                      const void* npos, void* res, int S,
+                                      int NP, int window, int minp, int lazy,
+                                      void* stream) {
+  probe_greedy_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pk, (const int32_t*)pp, (const int32_t*)npos,
+      (int32_t*)res, NP, (1 << window) - 1, minp, lazy);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tpt_probe_decode_chain(const void* pk, void* res, int S,
                                       int NBP, void* stream) {

@@ -36,6 +36,7 @@ __all__ = ["commit_fields", "commit_fields_plain", "plan_fields_v1",
            "ERR_EXCESS", "ERR_STALL", "TILE"]
 
 TILE = 512  # the smallest padded model length the pipeline uses
+LAZY_TILE = 4096  # positions per tile of B6's walk (FT, csrc/encode_commit.cu)
 ERR_EXCESS = 1
 ERR_STALL = 2  # a zero advance: malformed fields (the planner never makes one)
 # state-row slots (per-shard output), as in the JAX package
@@ -255,12 +256,22 @@ def commit_v1_lazy(packed: torch.Tensor, probe: torch.Tensor,
         raise ValueError(f"unsupported device {packed.device}")
     S, NP = packed.shape
     dev = packed.device
+    n_tiles = -(-NP // LAZY_TILE)
     out = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
     state = torch.empty((S, S_NSLOTS), dtype=torch.int32, device=dev)
+    # the kernel's workspace: every node's exit map, per tile its entry node
+    # and lazy cache, its bit offset, per shard its bits and stop, and the
+    # word row (zeroed: the tiles OR their words into it) with a tail slot
+    ws = (torch.empty((S, 2 * NP), dtype=torch.int64, device=dev),
+          torch.empty((S, n_tiles, 3), dtype=torch.int32, device=dev),
+          torch.empty((S, n_tiles), dtype=torch.int64, device=dev),
+          torch.empty((S, 4), dtype=torch.int64, device=dev),
+          torch.zeros((S, -(-max_out // 4) + 1), dtype=torch.int32,
+                      device=dev))
     _build.launch("encode_commit", "tpt_commit_v1_lazy", dev,
                   (packed.contiguous(), probe.contiguous(), npos.contiguous(),
-                   out, state),
-                  (S, NP, max_out, window, literal,
+                   out, state, *ws),
+                  (S, NP, n_tiles, max_out, window, literal,
                    compute_min_pattern_size(window, literal)))
     commit_v1_lazy.launches += 1
     return out, state

@@ -41,6 +41,7 @@ __all__ = ["pack_predict_plane", "greedy_predict_batch",
            "P_NSLOTS", "ECHUNK_W"]
 
 ECHUNK_W = 128  # the TPU kernel's entry flush granularity (state slot P_FL)
+TILE = 4096  # positions per tile of the walk (FT, csrc/greedy_predict.cu)
 P_NE, P_T, P_FL, P_NSLOTS = 0, 1, 2, 8  # state-row slots
 
 
@@ -159,14 +160,20 @@ def greedy_predict_batch(pk: torch.Tensor, pp: torch.Tensor | None,
     S = pk.shape[0]
     dev = pk.device
     epad = entry_pad(NP, lazy)
+    n_tiles = -(-NP // TILE)
     bm = torch.empty((S, NP // 32), dtype=torch.int32, device=dev)
     ent = torch.empty((S, epad), dtype=torch.int32, device=dev)
     state = torch.empty((S, P_NSLOTS), dtype=torch.int32, device=dev)
+    # the kernel's workspace: the exit maps of each tile's first 256
+    # positions, each visited tile's entry position and entry offset
+    ws = (torch.empty((S, n_tiles, 256), dtype=torch.int64, device=dev),
+          torch.empty((S, n_tiles), dtype=torch.int32, device=dev),
+          torch.empty((S, n_tiles), dtype=torch.int32, device=dev))
     pk = pk.contiguous()
     _build.launch("greedy_predict", "tpt_greedy_predict", dev,
                   (pk, pp.contiguous() if lazy else pk, npos.contiguous(), bm,
-                   ent, state),
-                  (S, NP, epad, window,
+                   ent, state, *ws),
+                  (S, NP, n_tiles, epad, window,
                    compute_min_pattern_size(window, literal), int(lazy)))
     greedy_predict_batch.launches += 1
     return bm, ent, state

@@ -171,6 +171,102 @@ def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
     return A.astype(np.int32), B.astype(np.int32)
 
 
+def _probe_off_head(t, W):
+    """A probe source index whose 16-byte span does not hold t & (W - 1)."""
+    return ((t & (W - 1)) + 16) & (W - 1)
+
+
+def hazard_lazy_tables(seed: int, S: int, NP: int, window: int, literal: int,
+                       tile: int = 4096):
+    """Seeded random lazy v1 tables (P = len << 23 | idx << 8 | byte, Q =
+    plen << 15 | pidx, int32 arrays) and lengths npos, with the hazards of
+    the tile-parallel lazy walk: runs of short matches each beaten by a
+    longer probe away from the write head (deferral chains) across every
+    ``tile`` seam; in row 1 a deferral whose literal is an excess byte and
+    in row 2 an excess literal, both mid-tile (when ``literal`` < 8); in row
+    3 deferred probe sizes of 300, 4000 and 65535 (jumps across tiles and
+    past the end); in row 4 a deferral at npos - 16, so the walk stops with
+    its cache set; row 5 has npos < 16.  S >= 6."""
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    lit = 256 if literal == 8 else 1 << literal
+    size = np.where(rng.random((S, NP)) < 0.5, 0,
+                    rng.integers(minp, 17, (S, NP)))
+    idx = rng.integers(0, W, (S, NP))
+    byte = rng.integers(0, lit, (S, NP))
+    psz = rng.integers(0, 16, (S, NP))
+    pix = rng.integers(0, W, (S, NP))
+    t_all = np.arange(NP)
+    chain = minp + 1 + t_all % (10 - minp)  # minp + 1 .. 9, then again
+    for seam in range(tile, NP, tile):
+        sl = slice(seam - 40, seam + 40)
+        size[:, sl] = minp
+        psz[:, sl] = chain[sl]
+        pix[:, sl] = _probe_off_head(t_all[sl], W)
+
+    def lead_in(s, t):  # literals up to t, so the walk lands on t
+        size[s, t - 24 : t + 1] = 0
+        psz[s, t - 24 : t + 1] = 0
+
+    def defer_at(s, t, n):  # a deferral at t to a probe of n bytes
+        lead_in(s, t)
+        size[s, t] = minp
+        psz[s, t] = n
+        pix[s, t] = _probe_off_head(t, W)
+
+    mid = tile // 2 + 37
+    if literal < 8:
+        defer_at(1, mid, minp + 1)
+        byte[1, mid] = 0xC3 | lit
+        lead_in(2, tile + mid)
+        byte[2, tile + mid] = 0xF1 | lit
+    for t, n in ((mid, 300), (tile + mid, 4000), (2 * tile + mid, 65535)):
+        defer_at(3, t, n)
+    npos = np.full(S, NP)
+    npos[4] = NP - 1000
+    defer_at(4, npos[4] - 16, minp + 1)
+    npos[5] = 15
+    P = (size << 23) | (idx << 8) | byte
+    Q = (psz << 15) | pix
+    return P.astype(np.int32), Q.astype(np.int32), npos.astype(np.int32)
+
+
+def hazard_predict_planes(seed: int, S: int, NP: int, window: int,
+                          literal: int, tile: int = 4096):
+    """Seeded random greedy walker planes (pk = idx16 | ln << 15 | run << 20,
+    pp = pidx | plen << 15, int32 arrays) and lengths npos, with the hazards
+    of the tile-parallel replay: runs of 255 equal bytes (RLE advances of
+    241) across every ``tile`` seam; in row 1 no entry at all (every length
+    below minp); short matches beaten by a probe away from the write head
+    (lazy deferrals) in row 2; row 3 stops mid-tile; row 4 has npos < 16.
+    S >= 5."""
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    minp = compute_min_pattern_size(window, literal)
+    ln = np.where(rng.random((S, NP)) < 0.5, rng.integers(0, minp, (S, NP)),
+                  rng.integers(minp, 17, (S, NP)))
+    run = np.where(rng.random((S, NP)) < 0.8, 0, rng.integers(0, 256, (S, NP)))
+    idx = rng.integers(0, 1 << 15, (S, NP))
+    plen = rng.integers(0, 16, (S, NP))
+    pidx = rng.integers(0, W, (S, NP))
+    for seam in range(tile, NP, tile):
+        run[:, seam - 300 : seam + 20] = 255
+    ln[1] = rng.integers(0, minp, NP)
+    t_all = np.arange(NP)
+    short = rng.random(NP) < 0.5
+    ln[2, short] = rng.integers(minp, 9, int(short.sum()))
+    run[2, short] = 0
+    plen[2, short] = 15
+    pidx[2, short] = _probe_off_head(t_all[short], W)
+    npos = np.full(S, NP)
+    npos[3] = NP - tile // 2 - 123
+    npos[4] = 12
+    pk = idx | (ln << 15) | (run << 20)
+    pp = pidx | (plen << 15)
+    return pk.astype(np.int32), pp.astype(np.int32), npos.astype(np.int32)
+
+
 @pytest.mark.parametrize("window", [8, 11, 15])
 def test_b1_kernel_equals_plain(cuda, window):
     lext = compute_min_pattern_size(window, 8) + 131
@@ -217,7 +313,7 @@ def test_b5_kernel_equals_plain(cuda, window, cap, probe):
         assert torch.equal(g.cpu(), w)
 
 
-def test_b6_kernel_equals_plain(cuda):
+def _b6_first_tables():
     rng = np.random.default_rng(2)
     S, NP = 3, 4096
     size = rng.integers(0, 17, (S, NP))
@@ -228,15 +324,47 @@ def test_b6_kernel_equals_plain(cuda):
     packed[2, 2480:2520] = 0x41  # literals, then one 0x80+ byte: literal 7
     packed[2, 2500] = 0xC3       # cannot hold it (ERR_EXCESS)
     probe[2, 2480:2520] = 0
-    packed = torch.from_numpy(packed.astype(np.int32))
-    probe = torch.from_numpy(probe.astype(np.int32))
-    npos = torch.tensor([4096, 2000, 4000], dtype=torch.int32)
-    kw = dict(window=10, literal=7, max_out=NP + NP // 8 + 64)
-    want = commit_v1_lazy_plain(packed, probe, npos, **kw)
-    got = commit_v1_lazy(packed.to(cuda), probe.to(cuda), npos.to(cuda), **kw)
+    npos = np.array([4096, 2000, 4000])
+    return packed, probe, npos
+
+
+@pytest.mark.parametrize("case", [
+    "first", "hazards w10 l8", "hazards w10 l7", "hazards w11 l5",
+    "max_out clipped", "max_out clipped, not a multiple of 4"])
+def test_b6_kernel_equals_plain(cuda, case):
+    if case == "first":
+        window, literal = 10, 7
+        P, Q, npos = _b6_first_tables()
+        NP = P.shape[1]
+    else:
+        window, literal = {"hazards w10 l7": (10, 7),
+                           "hazards w11 l5": (11, 5)}.get(case, (10, 8))
+        NP = 3 * 4096 + 512  # tiles of the kernel's 4096 positions, a rest
+        P, Q, npos = hazard_lazy_tables(window * 10 + literal, 6, NP, window,
+                                        literal)
+    P, Q = (torch.from_numpy(x.astype(np.int32)) for x in (P, Q))
+    npos = torch.from_numpy(npos.astype(np.int32))
+    max_out = {"max_out clipped": 400,
+               "max_out clipped, not a multiple of 4": 401}.get(
+                   case, NP + NP // 8 + 64)
+    kw = dict(window=window, literal=literal, max_out=max_out)
+    want = commit_v1_lazy_plain(P, Q, npos, **kw)
+    before = commit_v1_lazy.launches
+    got = commit_v1_lazy(P.to(cuda), Q.to(cuda), npos.to(cuda), **kw)
+    assert commit_v1_lazy.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert want[1][:, 6].tolist() == [0, 0, 1]
+    st = want[1]
+    if case == "first":
+        assert st[:, 6].tolist() == [0, 0, 1]
+        return
+    assert st[3, 0] > NP       # a deferred size of 65535 jumped past the end
+    assert st[4, 4] >= 0       # the walk stopped with its cache set
+    assert st[5, 0] == 0       # npos < 16: no walk
+    if literal < 8:            # an excess literal, deferred and not
+        assert st[1:3, 6].tolist() == [1, 1] and st[1, 4] >= 0
+    if case.startswith("max_out"):
+        assert (st[:, 1] > max_out).any()
 
 
 def _b3_text_fields():
@@ -491,10 +619,18 @@ def _greedy_planes(cuda, window, literal, lazy, seed):
     return pk, pp, npos, tabs
 
 
+@pytest.mark.parametrize("planes", ["text", "hazards"])
 @pytest.mark.parametrize("window,literal,lazy", [
     (10, 8, False), (10, 8, True), (15, 8, False), (14, 6, True)])
-def test_b7_kernel_equals_plain(cuda, window, literal, lazy):
-    pk, pp, npos, _tabs = _greedy_planes(cuda, window, literal, lazy, window)
+def test_b7_kernel_equals_plain(cuda, window, literal, lazy, planes):
+    if planes == "text":
+        pk, pp, npos, _tabs = _greedy_planes(cuda, window, literal, lazy,
+                                             window)
+    else:  # tiles of the kernel's 4096 positions, and a rest
+        pk, pp, npos = (torch.from_numpy(x).to(cuda)
+                        for x in hazard_predict_planes(
+                            window + lazy, 5, 3 * 4096 + 512, window,
+                            literal))
     kw = dict(NP=pk.shape[1], window=window, literal=literal, lazy=lazy)
     before = greedy_predict_batch.launches
     bm, ent, st = greedy_predict_batch(pk, pp, npos, **kw)
@@ -503,10 +639,14 @@ def test_b7_kernel_equals_plain(cuda, window, literal, lazy):
                                           else pp.cpu(), npos.cpu(), **kw)
     assert torch.equal(bm.cpu(), pbm)
     assert torch.equal(st.cpu(), pst)
-    for s in range(pk.shape[0]):
-        ne = int(pst[s, 0])
-        assert ne > 0
-        assert torch.equal(ent[s, :ne].cpu(), pent[s, :ne])
+    ne = pst[:, 0].tolist()
+    for s, n in enumerate(ne):
+        assert torch.equal(ent[s, :n].cpu(), pent[s, :n])
+    if planes == "text":
+        assert min(ne) > 0
+    else:  # a row without entries, and one with npos < 16
+        assert ne[1] == 0 and ne[4] == 0 and int(pst[4, 1]) == 0
+        assert min(ne[0], ne[2], ne[3]) > 0
 
 
 @pytest.mark.parametrize("lazy", [False, True])

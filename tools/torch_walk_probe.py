@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time kernels B4 and B3 of the PyTorch/CUDA port beside the chain floors
-of their walks, on one NVIDIA card.
+"""Time kernels B4, B3, B6 and B7 of the PyTorch/CUDA port beside the chain
+floors of their walks, on one NVIDIA card.
 
     python3 tools/torch_walk_probe.py [--no-variants]
 
 Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
 shards, window 10, literal 8.  B4 decodes the main path's container, B3
-commits the main path's planned fields.  ``csrc/walk_probe.cu`` walks the
-same chains in the first port's skeleton and does nothing else; a kernel's
-time minus its probe's is what it spends on top of its chain.  B4 is also
+commits the main path's planned fields, B6 walks the v1 lazy path's packed
+tables and B7 (lazy and not) the greedy paths' packed planes.
+``csrc/walk_probe.cu`` walks the same chains in the first port's skeleton
+(one thread a shard) and does nothing else; a kernel's time minus its
+probe's is what it spends on top of its chain.  B4 is also
 timed in variants built from ``csrc/decode_commit.cu`` with parts of its
 commit warp cut out (VARIANTS), to split its time between the chain and the
 commit; a variant's output is not checked (``--no-variants`` skips them,
@@ -155,10 +157,58 @@ def main() -> int:
     if int(out[:, 0].sum()) != steps:
         raise RuntimeError("the fields chain probe counted other steps")
     res["steps"] = steps
-    for k in ("b4", "b3"):  # a shard's walk: its steps are the total / S
-        n = (tokens if k == "b4" else steps) / S
-        res[f"{k}_ns_per_step"] = res[f"{k}_ms"] * 1e6 / n
-        res[f"{k}_chain_ns_per_step"] = res[f"{k}_chain_ms"] * 1e6 / n
+    del A, B, _p, dh, rc
+
+    # B6 and B7 on the raw shards' tables, as phase 4 makes them
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.ops.encode_commit import S_T, commit_v1_lazy
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.greedy_predict import P_T, greedy_predict_batch
+    from tamp_tpu_torch.ops.match_v1 import v1_tables
+
+    minp = compute_min_pattern_size(window, literal)
+    raw = np.zeros((S, DEFAULT_SHARD_SIZE), np.uint8)
+    for i, x in enumerate(shards):
+        raw[i, : x.shape[0]] = x
+    raw_d = torch.from_numpy(raw).to(dev)
+    nraw_d = torch.tensor([x.shape[0] for x in shards], dtype=torch.int32,
+                          device=dev)
+    flen, fidx, plen, pidx = v1_tables(raw_d, nraw_d, d, window_bits=window,
+                                       cap=v1_cap(window, literal), probe=True)
+    P = (flen << 23) | (fidx << 8) | raw_d.to(torch.int32)
+    Q = (plen << 15) | pidx
+    del flen, fidx, plen, pidx
+    NR = P.shape[1]
+    res["b6_ms"], (_o, st) = ms_of(lambda: commit_v1_lazy(
+        P, Q, nraw_d, window=window, literal=literal,
+        max_out=NR + NR // 8 + 64))
+    res["b6_chain_ms"], _ = ms_of(lambda: _build.launch(
+        "walk_probe", "tpt_probe_lazy_chain", dev, (P, Q, nraw_d, out),
+        (S, NR, window, literal, minp)))
+    if not torch.equal(out[:, 1], st[:, S_T]):
+        raise RuntimeError("the lazy chain probe stopped elsewhere than B6")
+    res["b6_steps"] = int(out[:, 0].sum())
+    del P, Q, _o, st
+    for lazy in (False, True):
+        k = "b7_lazy" if lazy else "b7"
+        pk, pp = cs.b7_inputs(raw_d, nraw_d, d, window=window, lazy=lazy)
+        res[f"{k}_ms"], (_bm, _e, st) = ms_of(lambda: greedy_predict_batch(
+            pk, pp, nraw_d, NP=NR, window=window, literal=literal,
+            lazy=lazy))
+        res[f"{k}_chain_ms"], _ = ms_of(lambda: _build.launch(
+            "walk_probe", "tpt_probe_greedy_chain", dev,
+            (pk, pp if lazy else pk, nraw_d, out),
+            (S, NR, window, minp, int(lazy))))
+        if not torch.equal(out[:, 1], st[:, P_T]):
+            raise RuntimeError(f"the greedy chain probe stopped elsewhere "
+                               f"than B7 (lazy={lazy})")
+        res[f"{k}_steps"] = int(out[:, 0].sum())
+        del pk, pp, _bm, _e, st
+    for k in ("b4", "b3", "b6", "b7", "b7_lazy"):
+        # a shard's walk: its steps are the total / S
+        n = {"b4": tokens, "b3": steps}.get(k) or res[f"{k}_steps"]
+        res[f"{k}_ns_per_step"] = res[f"{k}_ms"] * 1e6 * S / n
+        res[f"{k}_chain_ns_per_step"] = res[f"{k}_chain_ms"] * 1e6 * S / n
     for k, v in res.items():
         print(f"{k}: {v}")
     print(json.dumps(res), flush=True)
