@@ -4,24 +4,46 @@
 // B8 replaces the TPU kernel tamp_tpu/ops/token_chase_pallas.py::_kernel
 // (via token_table_chase).  Per shard, the orbit of the per-bit jump array
 // nxt (S, NBP) from bit 0 is the list of real token starts: c = 0, then
-// c = nxt[c] while c < NBP.  A bit whose nxt is NBP is an incomplete
-// trailing token: it is dropped and the chase ends there.  Output: the
-// starts in order, compact, in starts (S, T_max) (the wrapper zero-fills the
-// rest), and their count T (S,).  A hop that does not advance ends the
-// chase as well (the parse never makes one; the guard keeps malformed
-// input from spinning).
+// c = nxt[c] while c < NBP.  A bit whose nxt is NBP or more is an
+// incomplete trailing token: it is dropped and the chase ends there.  A hop
+// that does not advance (nxt[c] <= c) ends the chase as well (the parse
+// never makes one; the guard keeps malformed input from spinning).
+// Output: the starts in order, compact, in starts (S, T_max) (slots at or
+// past T_max dropped; the wrapper zero-fills the rest), and their count
+// clipped to T_max in T (S,).
 //
-// What bounds B8 on this card: the dependence chain of the chase (each hop
-// is one load whose address is the previous load's value), not bytes: one
-// thread chases a shard, so the kernel uses S SMs.
+// What bounds B8 on this card: as one chase a shard (the first port), its
+// dependence chain, each hop one load whose address is the previous load's
+// value, on 8 of 132 SMs.  But the next start depends only on the word at
+// c, so c -> nxt[c] is a function on bit positions and the chase resolves
+// in parallel as B3's and B7's walks do; what is left is bytes (the plane
+// read once by the maps, each visited tile's words once more by the pack,
+// the starts written once) and a few operations a hop.
 //
-// Design: one block per shard.  Warp 0's lane 0 chases; warps 1..7 stage
-// the next 16 KiB tile of nxt into the other half of a double buffer in
-// shared memory while the chaser walks the current one, so each hop is a
-// shared-memory load.  Starts go straight to the output row.  The TPU
-// kernel's per-tile SMEM rows and the scatter that compacts them answer the
-// TPU's SMEM tiles and are not carried over: the chaser appends to one
-// compact row.
+// Design: three launches on the caller's stream over tiles of CT bits:
+//   1. chase_maps_kernel: per tile, the tile's words staged in shared
+//      memory, one lane for each of its first SPAN bits walks the chain
+//      from there to its exit, the first position at or past the tile's
+//      end, counting the starts on the way.  A token is at most 35 bits
+//      (ops/decode_wavefront.py: BLOCK_BITS, ENTRY_SPAN), so a chain enters
+//      a tile at one of its first SPAN bits and only those maps are kept.
+//      A map word is its exit code | count << 8: the exit's offset past the
+//      tile end (< SPAN), X_STOP (the chain stopped in the tile), or X_ERR
+//      (a hop landed SPAN or more bits past the tile end: no parse makes
+//      that, and the map cannot carry it).
+//   2. chase_entries_kernel: per shard, one lookup a tile, over maps staged
+//      in shared memory ENT_CHUNK tiles at a time, gives each visited tile
+//      its entry bit and its output offset (the prefix of the counts); the
+//      visited tiles are a prefix of the row, because an exit lands in the
+//      next tile.  It writes T, the number of visited tiles, and an error
+//      flag when the chase met X_ERR (the wrapper raises).
+//   3. chase_pack_kernel: every visited tile stages its words from its
+//      entry on and walks its chain from its entry, writing its starts from
+//      its offset, in order.
+// The wrapper (ops/token_chase.token_table_chase) allocates the workspace
+// with torch.  The TPU kernel's 512-bit SMEM tiles, per-tile output rows
+// and the scatter that compacts them answer the TPU's SMEM and are not
+// carried over.
 //
 // X1 replaces the serial lax.while_loop `tr_body` of
 // tamp_tpu/ops/decode_wavefront.py::_wavefront_finish.  Over the truncating
@@ -39,52 +61,104 @@
 
 namespace {
 
-constexpr int CH_THREADS = 256;
-constexpr int CH_TILE = 4096;  // nxt words per staged tile
+constexpr int CT = 4096;         // bits of nxt a tile
+constexpr int SPAN = 64;         // entry bits of a tile that keep a map
+constexpr int X_STOP = SPAN;     // map exit codes past the offsets
+constexpr int X_ERR = SPAN + 1;
+constexpr int MAP_THREADS = 128;
+constexpr int ENT_THREADS = 256;
+constexpr int ENT_CHUNK = 64;    // tiles whose maps are staged at once
+constexpr int PACK_THREADS = 128;
 
-__global__ void __launch_bounds__(CH_THREADS)
-token_chase_kernel(const int32_t* __restrict__ nxt,
-                   int32_t* __restrict__ starts, int32_t* __restrict__ T,
-                   int NBP, int T_max) {
-  __shared__ int32_t tiles[2][CH_TILE];
-  const int s = blockIdx.x;
+__global__ void __launch_bounds__(MAP_THREADS)
+chase_maps_kernel(const int32_t* __restrict__ nxt, int32_t* __restrict__ maps,
+                  int NBP, int n_tiles) {
+  __shared__ int32_t tile[CT];
+  const int s = blockIdx.y, k = blockIdx.x, base = k * CT;
+  const int end = min(base + CT, NBP);
   const int32_t* row = nxt + (size_t)s * NBP;
-  int32_t* srow = starts + (size_t)s * T_max;
-  const int n_tiles = (NBP + CH_TILE - 1) / CH_TILE;
-
-  for (int i = threadIdx.x; i < CH_TILE && i < NBP; i += CH_THREADS)
-    tiles[0][i] = row[i];
+  for (int i = threadIdx.x; i < end - base; i += MAP_THREADS)
+    tile[i] = row[base + i];
   __syncthreads();
+  if (threadIdx.x >= SPAN) return;
+  int c = base + threadIdx.x, cnt = 0, x = X_STOP;
+  // an entry at or past NBP is never taken: the hop there stops first
+  while (c < end) {
+    const int n = tile[c - base];
+    if (n >= NBP || n <= c) break;  // stop: x stays X_STOP
+    ++cnt;
+    c = n;
+    // only a tile that ends before NBP can be left
+    if (c >= end) x = c - end < SPAN ? c - end : X_ERR;
+  }
+  maps[((size_t)s * n_tiles + k) * SPAN + threadIdx.x] = x | cnt << 8;
+}
 
-  int c = 0, k = 0;  // chaser state (meaningful in thread 0 only)
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int cur = tile & 1;
-    if (threadIdx.x >= 32 && tile + 1 < n_tiles) {
-      const int base = (tile + 1) * CH_TILE;
-      int32_t* dst = tiles[cur ^ 1];
-      for (int i = threadIdx.x - 32; i < CH_TILE && base + i < NBP;
-           i += CH_THREADS - 32)
-        dst[i] = row[base + i];
-    }
+__global__ void __launch_bounds__(ENT_THREADS)
+chase_entries_kernel(const int32_t* __restrict__ maps,
+                     int32_t* __restrict__ ent, int32_t* __restrict__ T,
+                     int32_t* __restrict__ info, int n_tiles, int T_max) {
+  __shared__ int32_t m[ENT_CHUNK * SPAN];
+  __shared__ int stopped;
+  const int s = blockIdx.x;
+  const int32_t* m_row = maps + (size_t)s * n_tiles * SPAN;
+  int32_t* e_row = ent + (size_t)s * 2 * n_tiles;  // entry bits, offsets
+  int k = 0, e = 0, total = 0, err = 0;  // meaningful in thread 0
+  if (threadIdx.x == 0) stopped = 0;
+  for (int k0 = 0; k0 < n_tiles; k0 += ENT_CHUNK) {
+    const int nk = min(ENT_CHUNK, n_tiles - k0);
+    for (int i = threadIdx.x; i < nk * SPAN; i += ENT_THREADS)
+      m[i] = m_row[(size_t)k0 * SPAN + i];
+    __syncthreads();
     if (threadIdx.x == 0) {
-      const int base = tile * CH_TILE;
-      const int end = min(base + CH_TILE, NBP);
-      const int32_t* src = tiles[cur];
-      while (c < end) {
-        const int n = src[c - base];
-        if (n >= NBP || n <= c) {  // incomplete trailing token: drop, stop
-          c = NBP;
-          break;
+      for (; k < k0 + nk && !stopped; ++k) {
+        e_row[k] = e;
+        e_row[n_tiles + k] = total;
+        const int v = m[(k - k0) * SPAN + e];
+        total += v >> 8;
+        e = v & 255;
+        if (e >= X_STOP) {
+          stopped = 1;
+          err = e == X_ERR;
         }
-        if (k < T_max) srow[k] = c;
-        ++k;
-        c = n;
       }
     }
-    // barrier (the next tile is staged) and the chaser's verdict in one
-    if (__syncthreads_or(threadIdx.x == 0 && c >= NBP)) break;
+    __syncthreads();  // the verdict, and m is free to be overwritten
+    if (stopped) break;
   }
-  if (threadIdx.x == 0) T[s] = min(k, T_max);
+  if (threadIdx.x == 0) {
+    T[s] = min(total, T_max);
+    info[2 * s] = k;  // tiles visited
+    info[2 * s + 1] = err;
+  }
+}
+
+__global__ void __launch_bounds__(PACK_THREADS)
+chase_pack_kernel(const int32_t* __restrict__ nxt,
+                  const int32_t* __restrict__ ent,
+                  const int32_t* __restrict__ info,
+                  int32_t* __restrict__ starts, int NBP, int n_tiles,
+                  int T_max) {
+  __shared__ int32_t tile[CT];
+  const int s = blockIdx.y, k = blockIdx.x, base = k * CT;
+  if (k >= info[2 * s]) return;  // not visited
+  const int32_t* e_row = ent + (size_t)s * 2 * n_tiles;
+  const int e = e_row[k];
+  int o = e_row[n_tiles + k];
+  if (o >= T_max) return;  // every start of this tile is dropped
+  const int end = min(base + CT, NBP);
+  const int32_t* row = nxt + (size_t)s * NBP;
+  for (int i = e + threadIdx.x; i < end - base; i += PACK_THREADS)
+    tile[i] = row[base + i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int32_t* srow = starts + (size_t)s * T_max;
+  for (int c = base + e; c < end && o < T_max;) {
+    const int n = tile[c - base];
+    if (n >= NBP || n <= c) break;
+    srow[o++] = c;
+    c = n;
+  }
 }
 
 __global__ void trunc_deficits_kernel(const int32_t* __restrict__ seg_c,
@@ -111,10 +185,28 @@ __global__ void trunc_deficits_kernel(const int32_t* __restrict__ seg_c,
 
 }  // namespace
 
-extern "C" int tpt_token_chase(const void* nxt, void* starts, void* T, int S,
-                               int NBP, int T_max, void* stream) {
-  token_chase_kernel<<<S, CH_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)nxt, (int32_t*)starts, (int32_t*)T, NBP, T_max);
+// maps (S, n_tiles, SPAN), ent (S, 2, n_tiles) and info (S, 2) int32 are
+// the wrapper's workspace; info[s] = (tiles visited, error flag)
+extern "C" int tpt_token_chase(const void* nxt, void* starts, void* T,
+                               void* maps, void* ent, void* info, int S,
+                               int NBP, int T_max, int n_tiles,
+                               void* stream) {
+  if (n_tiles != (NBP + CT - 1) / CT) return (int)cudaErrorInvalidValue;
+  if (S == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_tiles > 0)
+    chase_maps_kernel<<<dim3(n_tiles, S), MAP_THREADS, 0, st>>>(
+        (const int32_t*)nxt, (int32_t*)maps, NBP, n_tiles);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  chase_entries_kernel<<<S, ENT_THREADS, 0, st>>>(
+      (const int32_t*)maps, (int32_t*)ent, (int32_t*)T, (int32_t*)info,
+      n_tiles, T_max);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (n_tiles > 0)
+    chase_pack_kernel<<<dim3(n_tiles, S), PACK_THREADS, 0, st>>>(
+        (const int32_t*)nxt, (const int32_t*)ent, (const int32_t*)info,
+        (int32_t*)starts, NBP, n_tiles, T_max);
   return (int)cudaGetLastError();
 }
 

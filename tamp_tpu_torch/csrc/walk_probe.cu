@@ -1,6 +1,6 @@
-// Chain-floor probes for the serial walks of kernels B4, B3, B6 and B7 (a
-// measurement tool, not a kernel of any path; tools/torch_walk_probe.py
-// builds and times it).
+// Chain-floor probes for the serial walks of kernels B4, B3, B6, B7 and B8,
+// and the parts of the match-table scan of B5 (a measurement tool, not a
+// kernel of any path; tools/torch_walk_probe.py builds and times it).
 //
 // Each probe walks the same chain as its kernel, in the first port's
 // skeleton (one block per shard, thread 0 walks a shared-memory tile while
@@ -16,9 +16,26 @@
 //     with its lazy cache (the deferral decision and the excess-literal
 //     stop included, no bits);
 //   - probe_greedy_chain: B7's hop over the packed plane (and the probe
-//     plane when lazy), no bitmap and no entries.
+//     plane when lazy), no bitmap and no entries;
+//   - probe_chase_chain: B8's hop c = nxt[c] until a hop reaches NBP or does
+//     not advance, storing no start.
 // Outputs per shard: steps and checksum (B4, B3), steps and the stop t
-// (B6, B7).
+// (B6, B7), hops and the stop c (B8).
+//
+// probe_read_plane reads an int32 plane once, coalesced (16 B a thread),
+// folding it into one word a block: the bytes any design that looks at
+// every bit of B8's nxt plane must read.
+//
+// probe_tables runs the first port's B5 skeleton (one block per 256
+// positions, a thread a position over the slab C[t0 .. t0 + 256 + W + 16)
+// staged in shared memory) with parts cut out, writing the same planes:
+//   mode 0: the staging and the stores alone (each plane gets a byte of the
+//           slab, so the staging stays);
+//   mode 1: the scan of every slot with first-byte compares only: the
+//           lowest slot whose first byte matches scores len 1, no extension;
+//   mode 2: mode 1, also counting (position, slot) pairs of the main family
+//           whose first byte matches and whose first two bytes match (the
+//           glue included) into counts[0], counts[1] (64-bit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,6 +260,131 @@ probe_greedy_chain(const int32_t* __restrict__ pk,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+probe_chase_chain(const int32_t* __restrict__ nxt, int32_t* __restrict__ res,
+                  int NBP) {
+  __shared__ int32_t tiles[2][TILE];
+  const int s = blockIdx.x;
+  const int32_t* row = nxt + (size_t)s * NBP;
+  const int n_tiles = (NBP + TILE - 1) / TILE;
+  for (int i = threadIdx.x; i < TILE && i < NBP; i += THREADS)
+    tiles[0][i] = row[i];
+  __syncthreads();
+  int c = 0, n = 0;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int cur = tile & 1;
+    if (threadIdx.x >= 32 && tile + 1 < n_tiles) {
+      const int base = (tile + 1) * TILE;
+      for (int i = threadIdx.x - 32; i < TILE && base + i < NBP;
+           i += THREADS - 32)
+        tiles[cur ^ 1][i] = row[base + i];
+    }
+    if (threadIdx.x == 0) {
+      const int base = tile * TILE;
+      const int end = min(base + TILE, NBP);
+      while (c < end) {
+        const int h = tiles[cur][c - base];
+        if (h >= NBP || h <= c) {
+          c = -c - 1;  // stopped at c
+          break;
+        }
+        ++n;
+        c = h;
+      }
+    }
+    if (__syncthreads_or(threadIdx.x == 0 && c < 0)) break;
+  }
+  if (threadIdx.x == 0) {
+    res[2 * s] = n;
+    res[2 * s + 1] = c < 0 ? -c - 1 : c;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_read_plane(const int4* __restrict__ p, size_t n4,
+                 int32_t* __restrict__ res) {
+  int32_t x = 0;
+  for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * THREADS) {
+    const int4 v = p[i];
+    x ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
+  if ((threadIdx.x & 31) == 0) atomicXor(res + blockIdx.x, x);
+}
+
+constexpr int TB5 = 256;  // B5's first port: positions (threads) a block
+
+template <int kMode>
+__global__ void __launch_bounds__(TB5)
+probe_tables(const uint8_t* __restrict__ row0,
+             const int32_t* __restrict__ npos, const uint8_t* __restrict__ dict,
+             int32_t* __restrict__ len_m, int32_t* __restrict__ idx_m,
+             int32_t* __restrict__ len_p, int32_t* __restrict__ idx_p,
+             unsigned long long* __restrict__ counts, int MP, int wbits,
+             int probe) {
+  extern __shared__ uint8_t slab[];
+  const int W = 1 << wbits;
+  const int s = blockIdx.y;
+  const int t0 = blockIdx.x * TB5;
+  const int slab_len = TB5 + W + 16;
+  const uint8_t* row = row0 + (size_t)s * MP;
+  for (int i = threadIdx.x; i < slab_len; i += TB5) {
+    const int c = t0 + i;
+    uint8_t v = 0;
+    if (c < W) {
+      v = dict[c];
+    } else if (c - W < MP) {
+      v = row[c - W];
+    }
+    slab[i] = v;
+  }
+  __syncthreads();
+  const int tl = threadIdx.x;
+  const int t = t0 + tl;
+  const int head = tl + W;
+  const int tau = t & (W - 1);
+  const int left = t < MP ? npos[s] - t : 0;
+  int best_m = W - 1, best_p = W - 1;
+  unsigned long long n1 = 0, n2 = 0;
+  if (kMode == 0) {
+    best_m = slab[head];
+    best_p = slab[tl];
+  } else if (left > 0) {
+    const uint8_t c0 = slab[head], c1 = slab[head + 1];
+    for (int j = 0; j < W; ++j) {
+      const uint8_t v = slab[tl + j];
+      const int sc = (1 << wbits) + (W - 1 - ((tau + j) & (W - 1)));
+      if (v == c0) {
+        best_m = sc > best_m ? sc : best_m;
+        if (kMode == 2) {
+          ++n1;
+          n2 += slab[j == W - 1 ? tl : tl + j + 1] == c1;
+        }
+      }
+      if (probe && left > 1 && v == c1) best_p = sc > best_p ? sc : best_p;
+    }
+  }
+  if (kMode == 2) {
+    for (int o = 16; o > 0; o >>= 1) {
+      n1 += __shfl_xor_sync(0xFFFFFFFFu, n1, o);
+      n2 += __shfl_xor_sync(0xFFFFFFFFu, n2, o);
+    }
+    if ((tl & 31) == 0) {
+      atomicAdd(counts, n1);
+      atomicAdd(counts + 1, n2);
+    }
+  }
+  if (t >= MP) return;
+  const size_t o = (size_t)s * MP + t;
+  len_m[o] = best_m >> wbits;
+  idx_m[o] = (W - 1) - (best_m & (W - 1));
+  if (probe) {
+    len_p[o] = best_p >> wbits;
+    idx_p[o] = (W - 1) - (best_p & (W - 1));
+  }
+}
+
 }  // namespace
 
 extern "C" int tpt_probe_lazy_chain(const void* P, const void* Q,
@@ -279,5 +421,40 @@ extern "C" int tpt_probe_fields_chain(const void* A, const void* B,
   probe_fields_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)A, (const int32_t*)B, (const int32_t*)npos,
       (int32_t*)res, NP);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_probe_chase_chain(const void* nxt, void* res, int S,
+                                     int NBP, void* stream) {
+  probe_chase_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)nxt, (int32_t*)res, NBP);
+  return (int)cudaGetLastError();
+}
+
+// res: `blocks` zeroed int32 words; n_words a multiple of 4
+extern "C" int tpt_probe_read_plane(const void* p, void* res, int n_words,
+                                    int blocks, void* stream) {
+  probe_read_plane<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int4*)p, (size_t)n_words / 4, (int32_t*)res);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_probe_tables(const void* data, const void* npos,
+                                const void* dict, void* len_m, void* idx_m,
+                                void* len_p, void* idx_p, void* counts, int S,
+                                int MP, int wbits, int probe, int mode,
+                                void* stream) {
+  const size_t smem = (size_t)TB5 + (1 << wbits) + 16;
+  auto kern = probe_tables<0>;
+  if (mode == 1) kern = probe_tables<1>;
+  if (mode == 2) kern = probe_tables<2>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((MP + TB5 - 1) / TB5, S);
+  kern<<<grid, TB5, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int32_t*)npos, (const uint8_t*)dict,
+      (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_p, (int32_t*)idx_p,
+      (unsigned long long*)counts, MP, wbits, probe);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,8 @@ from ..ops.encode_fused import encode_v1_fused
 from .commit import ring_find_longest, ring_model_snapshot
 from .encode import bits_to_bytes, build_header, model_history
 
-__all__ = ["encode_v1_device_commit", "pad_shards", "pull_body_bytes"]
+__all__ = ["encode_v1_device_commit", "finish_streams", "pad_shards",
+           "pull_body_bytes"]
 
 
 def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
@@ -144,9 +145,19 @@ def encode_v1_device_commit(shards, *, window: int = 10, literal: int = 8,
     if (state[:, S_ERR] != 0).any():
         raise ExcessBitsError
     bodies = pull_body_bytes(out, state)
+    return finish_streams(datas, histories, state, bodies, window=window,
+                          literal=literal, lazy_matching=lazy_matching,
+                          custom=dictionary is not None)
 
-    (hv, _hn), = build_header(window, literal, dictionary is not None, False,
-                              False)
+
+def finish_streams(datas, histories, state: np.ndarray, bodies, *,
+                   window: int, literal: int, lazy_matching: bool,
+                   custom: bool) -> list[bytes]:
+    """The host ring tail: each shard's stream from its header, the
+    kernel's body bytes and the fields of its last < 16 bytes stitched
+    behind the kernel's bit remainder (``state``: the commit's state rows
+    on the host; ``histories``: the model histories)."""
+    (hv, _hn), = build_header(window, literal, custom, False, False)
     results: list[bytes] = []
     for i, data in enumerate(datas):
         st = state[i]

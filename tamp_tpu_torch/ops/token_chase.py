@@ -5,10 +5,16 @@ the real token starts of each shard are the orbit of the per-bit jump
 array ``nxt`` (S, NBP) int32 (ops/decode_wavefront.py's parse) from bit 0.
 A bit whose ``nxt`` is NBP is an incomplete trailing token: it is dropped
 and the chase ends.  Output: ``starts`` (S, T_max) int32, the starts in
-order and zero past them, and ``T`` (S,) int32, their count; the same
-contract as ``decode_wavefront._token_table``.  The CUDA kernel is
-``csrc/decode_wavefront.cu``; it writes the compact table directly, so the
-TPU kernel's per-tile rows and their compaction have no counterpart here.
+order and zero past them (slots at or past ``T_max`` dropped), and ``T`` (S,)
+int32, their count clipped to ``T_max``; the contract of
+``decode_wavefront._token_table`` wherever ``T_max`` holds every start.  A
+hop that does not advance ends the chase too.  The CUDA kernel is
+``csrc/decode_wavefront.cu``: exit maps over tiles of ``TILE`` bits, one
+lookup a tile for the entries, then every visited tile packs its own
+starts.  A map keeps the first ``SPAN`` entry bits of its tile, which
+every plane the parse makes respects (a token is at most 35 bits); on a
+plane whose chase hops ``SPAN`` or more bits past a tile's end the kernel
+sets a flag and the wrapper raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ import torch
 
 from . import _build
 
-__all__ = ["token_table_chase", "token_table_chase_plain"]
+__all__ = ["token_table_chase", "token_table_chase_plain", "TILE", "SPAN"]
+
+TILE = 4096  # bits of nxt a tile of the kernel (csrc/decode_wavefront.cu CT)
+SPAN = 64    # entry bits of a tile that keep an exit map
 
 
 def token_table_chase_plain(nxt: torch.Tensor, NBP: int, T_max: int):
@@ -55,11 +64,22 @@ def token_table_chase(nxt: torch.Tensor, NBP: int, T_max: int):
         raise ValueError(f"unsupported device {nxt.device}")
     nxt = nxt.contiguous()
     S = nxt.shape[0]
-    starts = torch.zeros((S, T_max), dtype=torch.int32, device=nxt.device)
-    T = torch.empty(S, dtype=torch.int32, device=nxt.device)
-    _build.launch("decode_wavefront", "tpt_token_chase", nxt.device,
-                  (nxt, starts, T), (S, NBP, T_max))
+    dev = nxt.device
+    n_tiles = -(-NBP // TILE)
+    starts = torch.zeros((S, T_max), dtype=torch.int32, device=dev)
+    T = torch.empty(S, dtype=torch.int32, device=dev)
+    # the kernel's workspace: each tile's exit maps, each visited tile's
+    # entry bit and output offset, and per shard (tiles visited, error)
+    ws = (torch.empty((S, n_tiles, SPAN), dtype=torch.int32, device=dev),
+          torch.empty((S, 2, n_tiles), dtype=torch.int32, device=dev),
+          torch.empty((S, 2), dtype=torch.int32, device=dev))
+    _build.launch("decode_wavefront", "tpt_token_chase", dev,
+                  (nxt, starts, T, *ws), (S, NBP, T_max, n_tiles))
     token_table_chase.launches += 1
+    if S and bool(ws[2][:, 1].any()):
+        raise RuntimeError(
+            f"token_table_chase: the chase hops {SPAN} or more bits past a "
+            f"{TILE}-bit tile's end, which no parse makes")
     return starts, T
 
 

@@ -267,6 +267,94 @@ def hazard_predict_planes(seed: int, S: int, NP: int, window: int,
     return pk.astype(np.int32), pp.astype(np.int32), npos.astype(np.int32)
 
 
+def hazard_nxt(seed: int, S: int, NBP: int, *, min_hop: int = 1,
+               tile: int = 4096, long_hop: bool = False):
+    """Seeded random per-bit jump planes (S, NBP) int32 with the hazards of
+    the tile-parallel chase: off the orbit every bit hops ``min_hop``..34
+    bits; on the orbit, wherever a 512-bit seam is in reach, the hop
+    crosses it by 0..33 bits, and in row 0 it lands exactly on the first
+    bit of every ``tile``.  The orbit ends with an incomplete token (nxt ==
+    NBP) in the last tile (rows 0, 5 and on), in the first tile (row 1) and
+    mid-row (row 2); row 3 has a hop that does not advance mid-row and row
+    4 no token at all.  With ``long_hop`` the orbit of row 5 hops 100 bits
+    past the end of its first tile, which no parse makes (the kernel's maps
+    keep 64 entry bits).  S >= 6."""
+    rng = np.random.default_rng(seed)
+    b = np.arange(NBP)
+    nxt = np.minimum(b + rng.integers(min_hop, 35, (S, NBP)), NBP)
+    for r in range(S):
+        c, far = 0, long_hop and r == 5
+        while True:
+            seam = (c // 512 + 1) * 512
+            if far and seam % tile == 0 and seam - c <= 34:
+                n, far = seam + 100, False
+            elif min_hop <= seam - c <= 34:
+                n = seam if r == 0 and seam % tile == 0 else \
+                    seam + int(rng.integers(0, 35 - (seam - c)))
+            else:
+                n = c + int(rng.integers(min_hop, 35))
+            if n >= NBP:
+                nxt[r, c] = NBP
+                break
+            nxt[r, c] = n
+            c = n
+    for r, at in ((1, tile // 2), (2, NBP // 2), (3, NBP // 3)):
+        c = 0
+        while c < at and nxt[r, c] < NBP:
+            c = int(nxt[r, c])
+        nxt[r, c] = NBP if r < 3 else c - int(rng.integers(0, 6))
+    nxt[4, 0] = NBP
+    return nxt.astype(np.int32)
+
+
+def _de_bruijn_pairs(k: int) -> np.ndarray:
+    """A sequence over 0..k-1 of length k * k + 1 holding every ordered
+    pair once (an Euler path through the pairs)."""
+    seq, used = [0], set()
+    while len(seq) < k * k + 1:
+        a = seq[-1]
+        nb = next((x for x in range(k - 1, -1, -1) if (a, x) not in used),
+                  None)
+        if nb is None:
+            break
+        used.add((a, nb))
+        seq.append(nb)
+    return np.asarray(seq)
+
+
+def hazard_rows(seed: int, S: int, NP: int, window: int):
+    """Seeded random raw rows (S, NP) uint8 and lengths npos with the
+    hazards of the filtered match tables: row 0 all-equal bytes (runs to
+    the cap, the glue at the head); rows 1-3 periods W - 1, W and W + 1
+    (the glue diagonals); row 4 a 15- and a 16-byte match to one target
+    (tied at cap 15, not at 16); row 5 bytes whose every pair occurs once,
+    so most positions match one byte and no more; row 6 text with a
+    probe match planted at tau = W - 1 and npos not a multiple of the
+    256-position block; row 7 npos < 17.  S >= 8."""
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    words = [rng.integers(97, 104, rng.integers(2, 7)).astype(np.uint8)
+             for _ in range(40)]
+    text = np.concatenate([np.append(words[int(i)], 32)
+                           for i in rng.integers(0, 40, NP)])[:NP]
+    data = np.tile(text, (S, 1))
+    data[0] = 0x20
+    for r, period in ((1, W - 1), (2, W), (3, W + 1)):
+        data[r] = np.resize(rng.integers(97, 101, period), NP)
+    x = rng.integers(128, 256, 16)
+    filler = rng.integers(32, 64, 200)
+    tie = np.concatenate([x[:15], [1], filler[:24], x, filler[24:84], x,
+                          filler[84:]])[:NP]
+    data[4, : tie.shape[0]] = tie
+    data[5] = np.resize(128 + _de_bruijn_pairs(64), NP)
+    if NP > W + 16:
+        data[6, W : W + 12] = data[6, W - 200 : W - 188]
+    npos = np.full(S, NP)
+    npos[6] = NP - 37
+    npos[7] = 12
+    return data.astype(np.uint8), npos.astype(np.int32)
+
+
 @pytest.mark.parametrize("window", [8, 11, 15])
 def test_b1_kernel_equals_plain(cuda, window):
     lext = compute_min_pattern_size(window, 8) + 131
@@ -296,14 +384,29 @@ def test_b2_kernel_equals_plain(cuda, window):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("probe", [False, True])
-@pytest.mark.parametrize("cap", [15, 16])
-@pytest.mark.parametrize("window", [8, 11, 15])
-def test_b5_kernel_equals_plain(cuda, window, cap, probe):
-    rng = np.random.default_rng(window * 2 + cap)
-    data = torch.from_numpy(rng.integers(97, 100, (2, 4096)).astype(np.uint8))
-    data[0, 1000:1300] = 7  # a run: glue zones
-    npos = torch.tensor([4096, 1499], dtype=torch.int32)
+# text at every window; the hazard rows (W + 600 positions) at windows 8,
+# 10 and 12 in every cap and probe; at 15, where the plain version takes
+# minutes for all eight rows, rows 1, 3 and 6 (the glue periods W - 1 and
+# W + 1, the probe at tau = W - 1) at cap 15 with the probe
+_B5_CASES = [(w, c, p, "text") for w in (8, 10, 11, 12, 15)
+             for c in (15, 16) for p in (False, True)] + [
+    (w, c, p, "hazards") for w in (8, 10, 12) for c in (15, 16)
+    for p in (False, True)] + [(15, 15, True, "hazards")]
+
+
+@pytest.mark.parametrize("window,cap,probe,rows", _B5_CASES)
+def test_b5_kernel_equals_plain(cuda, window, cap, probe, rows):
+    if rows == "text":
+        rng = np.random.default_rng(window * 2 + cap)
+        data = torch.from_numpy(rng.integers(97, 100, (2, 4096))
+                                .astype(np.uint8))
+        data[0, 1000:1300] = 7  # a run: glue zones
+        npos = torch.tensor([4096, 1499], dtype=torch.int32)
+    else:  # past W, so positions with tau = W - 1 are scored
+        data, npos = hazard_rows(window + cap, 8, (1 << window) + 600,
+                                 window)
+        rows = [1, 3, 6] if window == 15 else range(8)
+        data, npos = torch.from_numpy(data[rows]), torch.from_numpy(npos[rows])
     d = torch.from_numpy(dictionary_array(1 << window))
     kw = dict(window_bits=window, cap=cap, probe=probe)
     want = v1_tables_plain(data, npos, d, **kw)
@@ -515,19 +618,48 @@ def _parse(cuda, streams):
                             extended=True, device=cuda)
 
 
-def test_b8_kernel_equals_plain(cuda):
-    blob = compress_sharded(_text(40000, 6), shard_size=16384)
-    nxt, _packed = _parse(cuda, _parse_frame(blob)[2])
+@pytest.mark.parametrize("case", ["text", "hazards", "hazards, hops of 9+",
+                                  "hazards, T_max clipped"])
+def test_b8_kernel_equals_plain(cuda, case):
+    if case == "text":
+        blob = compress_sharded(_text(40000, 6), shard_size=16384)
+        nxt, _packed = _parse(cuda, _parse_frame(blob)[2])
+    else:  # NBP a multiple of 512, not of the kernel's 4096-bit tile
+        nxt = torch.from_numpy(hazard_nxt(
+            len(case), 7, 3 * 4096 + 512,
+            min_hop=9 if "9+" in case else 1)).to(cuda)
     NBP = nxt.shape[1]
-    T_max = NBP // 9 + 2
+    T_max = 150 if "clipped" in case else NBP // 9 + 2
     before = token_table_chase.launches
     got = token_table_chase(nxt, NBP, T_max)
     assert token_table_chase.launches == before + 1
     want = token_table_chase_plain(nxt.cpu(), NBP, T_max)
-    xla = dw._token_table(nxt, NBP, 8, T_max)
-    for g, w, x in zip(got, want, xla):
+    for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-        assert torch.equal(x.cpu(), w)
+    if case in ("text", "hazards, hops of 9+"):
+        # the xla table's range: hops of 9 bits or more, every hop
+        # advancing (not hazard row 3)
+        rows = [r for r in range(nxt.shape[0]) if case == "text" or r != 3]
+        xla = dw._token_table(nxt[rows], NBP, 8, T_max)
+        for x, w in zip(xla, want):
+            assert torch.equal(x.cpu(), w[rows])
+
+
+def test_b8_kernel_raises_on_a_hop_past_its_map(cuda):
+    # row 5 hops 100 bits past a tile's end: the plain version follows it,
+    # the kernel's maps keep 64 entry bits, so the wrapper must raise and
+    # never return a table
+    NBP = 3 * 4096 + 512
+    nxt = torch.from_numpy(hazard_nxt(5, 6, NBP, long_hop=True)).to(cuda)
+    _s, T = token_table_chase_plain(nxt.cpu(), NBP, NBP)
+    assert T[5] > 4096 // 34
+    with pytest.raises(RuntimeError, match="past"):
+        token_table_chase(nxt, NBP, NBP)
+    ok = nxt.clone()
+    ok[5] = torch.from_numpy(hazard_nxt(5, 6, NBP)[5])
+    got = token_table_chase(ok, NBP, NBP)
+    for g, w in zip(got, token_table_chase_plain(ok.cpu(), NBP, NBP)):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_x1_kernel_equals_plain(cuda):

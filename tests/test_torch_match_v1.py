@@ -1,6 +1,8 @@
 """Kernel B5's plain version (tamp_tpu_torch.ops.match_v1) against the JAX
 package: the NumPy oracle ``engine/search_np.match_tables`` and the MXU
-Pallas kernel in interpret mode.  Integer tables: equality is exact."""
+Pallas kernel in interpret mode, on text and on the seeded hazard rows that
+the card tests hold the Hopper kernel to (tests/test_torch_cuda.py makes
+them).  Integer tables: equality is exact."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from tamp_tpu.engine.search_np import match_tables
 from tamp_tpu.ops.match_pallas import match_tables_pallas
 from tamp_tpu_torch.ops.encode_fused import v1_cap
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
+from test_torch_cuda import hazard_rows
 
 
 def _text(n: int, seed: int, lmask: int = 255) -> np.ndarray:
@@ -113,3 +116,52 @@ def test_b5_plain_matches_pallas(window, literal):
                                                             pal.idx15)
     for g, w in zip(got, (flen, fidx, pal.probe_len, pal.probe_idx)):
         np.testing.assert_array_equal(g, np.asarray(w).astype(np.int32))
+
+
+def _hazard_port(window, NP, cap):
+    data, npos = hazard_rows(window * 3 + cap, 8, NP, window)
+    d = torch.from_numpy(dictionary_array(1 << window, literal=8))
+    outs = v1_tables_plain(torch.from_numpy(data), torch.from_numpy(npos), d,
+                           window_bits=window, cap=cap, probe=True)
+    return data, npos, [o.numpy() for o in outs]
+
+
+@pytest.mark.parametrize("cap", [15, 16])
+@pytest.mark.parametrize("window,NP", [(8, 700), (10, 1400)])
+def test_b5_plain_matches_oracle_on_hazard_rows(window, NP, cap):
+    # all-equal bytes below the oracle's chunk_rows (ROADMAP C), the glue
+    # periods, the 15/16 tie, one-byte-only candidates, npos off the block
+    # and below 17, a probe at tau = W - 1
+    data, npos, outs = _hazard_port(window, NP, cap)
+    for r in range(data.shape[0]):
+        n = int(npos[r])
+        t = match_tables(data[r, :n], dictionary_array(1 << window,
+                                                         literal=8),
+                         window, compute_probe=True)
+        want = ((t.len15, t.idx15) if cap == 15 else (t.len16, t.idx16)) \
+            + (t.probe_len, t.probe_idx)
+        for g, w in zip(outs, want):
+            np.testing.assert_array_equal(g[r, :n], w.astype(np.int32))
+            assert not g[r, n:].any()
+    # the tie: cap 15 takes the lower slot (the 15-byte match), cap 16 the
+    # 16-byte one
+    assert outs[0][4, 116] == cap and outs[1][4, 116] == (0 if cap == 15
+                                                          else 40)
+    # one byte and no more at most positions of row 5
+    assert (outs[0][5, 300:] == 1).mean() > 0.9
+
+
+@pytest.mark.parametrize("row", range(8))
+def test_b5_plain_matches_pallas_on_hazard_rows(row):
+    window, NP = 8, 700
+    for cap in (15, 16):
+        data, npos, outs = _hazard_port(window, NP, cap)
+        n = int(npos[row])
+        pal = match_tables_pallas(data[row, :n], dictionary_array(
+            1 << window, literal=8), window, compute_probe=True,
+            tables=(str(cap),), interpret=True)
+        want = ((pal.len15, pal.idx15) if cap == 15
+                else (pal.len16, pal.idx16)) + (pal.probe_len, pal.probe_idx)
+        for g, w in zip(outs, want):
+            np.testing.assert_array_equal(g[row, :n],
+                                          np.asarray(w).astype(np.int32))

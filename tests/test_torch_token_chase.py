@@ -1,8 +1,10 @@
 """The port's token tables (ops/decode_wavefront._token_table, the xla
 mode's, and ops/token_chase.token_table_chase_plain, kernel B8's plain
 version) against the JAX package's ``_token_table`` and its Pallas
-``token_table_chase`` in interpret mode, on the same per-bit jump planes.
-Exact equality."""
+``token_table_chase`` in interpret mode, on the same per-bit jump planes:
+the parse's, and the seeded hazard planes that the card tests hold the
+Hopper kernel to (tests/test_torch_cuda.py makes them).  Exact
+equality."""
 
 import io
 
@@ -17,8 +19,9 @@ from tamp_tpu.ops import decode_wavefront as jwf
 from tamp_tpu.ops.token_chase_pallas import token_table_chase as jchase
 from tamp_tpu_torch.ops import decode_wavefront as twf
 from tamp_tpu_torch.ops.token_chase import (
-    token_table_chase, token_table_chase_plain,
+    TILE, token_table_chase, token_table_chase_plain,
 )
+from test_torch_cuda import hazard_nxt
 
 
 def _payloads(window, literal, extended):
@@ -110,3 +113,49 @@ def test_chase_wrapper_checks_its_input():
         token_table_chase(torch.zeros((2, 512), dtype=torch.int64), 512, 60)
     with pytest.raises(ValueError):
         token_table_chase(torch.zeros((2, 512), dtype=torch.int32), 1024, 60)
+
+
+@pytest.mark.parametrize("long_hop", [False, True])
+@pytest.mark.parametrize("clip", [False, True])
+def test_chase_plain_matches_jax_on_hazard_planes(clip, long_hop):
+    # hops of 9-34 bits (both JAX tables assume at least 1 + literal), NBP
+    # a multiple of 512 but not of the kernel's tile; row 3 (a hop that
+    # does not advance) is left out: the JAX chase has no such guard and
+    # would not end.  The long-hop plane, which the card's kernel refuses,
+    # is one the plain version and JAX agree on.  With ``clip`` T_max is
+    # below the token count: JAX drops the same slots but reports the
+    # unclipped count.
+    NBP = 3 * TILE + 512
+    nxt = hazard_nxt(17 + long_hop, 6, NBP, min_hop=9,
+                     long_hop=long_hop)[[0, 1, 2, 4, 5]]
+    T_max = 200 if clip else NBP // 9 + 2
+    starts, T = token_table_chase_plain(torch.from_numpy(nxt), NBP, T_max)
+    s_pal, t_pal = jchase(jnp.asarray(nxt), NBP, T_max, interpret=True)
+    s_ref, t_ref = jax.vmap(
+        lambda n, i: jwf._token_table(n, i, NBP, 8, T_max))(
+        jnp.asarray(nxt), jnp.asarray(nxt == NBP))
+    for s_j, t_j in ((s_pal, t_pal), (s_ref, t_ref)):
+        np.testing.assert_array_equal(starts.numpy(), np.asarray(s_j))
+        np.testing.assert_array_equal(T.numpy(),
+                                      np.minimum(np.asarray(t_j), T_max))
+    assert T[3] == 0 and (T[[0, 2, 4]] == T_max).all() == clip
+
+
+def test_chase_plain_stops_where_the_hazard_planes_end():
+    # every hazard row with hops of 1-34 bits: the starts are the orbit
+    # from bit 0 up to the bit whose hop reaches NBP (rows 0, 1, 2, 5) or
+    # does not advance (row 3), which is no start; row 4 has none
+    NBP = 3 * TILE + 512
+    nxt = hazard_nxt(23, 6, NBP)
+    starts, T = token_table_chase_plain(torch.from_numpy(nxt), NBP, NBP)
+    assert T[4] == 0
+    stops = {}
+    for r in (0, 1, 2, 3, 5):
+        row = starts[r, : int(T[r])].numpy()
+        assert row[0] == 0 and (nxt[r, row[:-1]] == row[1:]).all()
+        stops[r] = stop = nxt[r, row[-1]]
+        assert (nxt[r, stop] <= stop) if r == 3 else (nxt[r, stop] == NBP)
+        assert not starts[r, int(T[r]):].any()
+    assert stops[1] < TILE <= 3 * TILE < stops[0]
+    assert NBP // 2 <= stops[2] < NBP // 2 + 34
+    assert NBP // 3 <= stops[3] < NBP // 3 + 34

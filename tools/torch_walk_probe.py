@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
-"""Time kernels B4, B3, B6 and B7 of the PyTorch/CUDA port beside the chain
-floors of their walks, on one NVIDIA card.
+"""Time kernels B4, B3, B6, B7, B8 and B5 of the PyTorch/CUDA port beside
+the chain floors of their walks and the parts of their work, on one NVIDIA
+card.
 
     python3 tools/torch_walk_probe.py [--no-variants]
 
 Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
 shards, window 10, literal 8.  B4 decodes the main path's container, B3
 commits the main path's planned fields, B6 walks the v1 lazy path's packed
-tables and B7 (lazy and not) the greedy paths' packed planes.
+tables and B7 (lazy and not) the greedy paths' packed planes; B8 chases
+the main path's per-bit parse and B5 makes the v1 tables of the raw
+shards (cap 15, without and with the probe family).
 ``csrc/walk_probe.cu`` walks the same chains in the first port's skeleton
 (one thread a shard) and does nothing else; a kernel's time minus its
-probe's is what it spends on top of its chain.  B4 is also
+probe's is what it spends on top of its chain.  B8 is also timed beside a
+coalesced read of its whole ``nxt`` plane and the xla mode's tensor-op
+token table (``b8_read_ms``, ``b8_xla_ms``, with ``b8_tokens`` and
+``b8_nbp``).  B5 is timed beside its first port's skeleton with parts cut
+out: the slab staging and the stores alone (``b5_stage_ms``) and the scan
+with first-byte compares only (``b5_first_byte_ms``), each also with the
+probe family (``b5_probe_*``), and the share of (position, slot) pairs of
+the main family whose first byte, and whose first two bytes, match
+(``b5_share_1``, ``b5_share_2``).  B4 is also
 timed in variants built from ``csrc/decode_commit.cu`` with parts of its
 commit warp cut out (VARIANTS), to split its time between the chain and the
 commit; a variant's output is not checked (``--no-variants`` skips them,
@@ -138,6 +149,36 @@ def main() -> int:
     res["tokens"] = tokens
     del pk
 
+    # B8 on the main path's per-bit parse, as phase 4 makes it
+    from tamp_tpu_torch.ops.token_chase import token_table_chase
+    from tamp_tpu_torch.parallel.shard import _parse_frame
+
+    pieces = _parse_frame(blob)[2]
+    nxt, _packed = dw.payload_parse([p[1:] for p in pieces], window=window,
+                                    literal=literal, extended=True,
+                                    device=dev)
+    del _packed
+    S, NBP = nxt.shape
+    T_max = NBP // (1 + literal) + 2
+    res["b8_ms"], (_st, T) = ms_of(lambda: token_table_chase(nxt, NBP,
+                                                             T_max))
+    res["b8_tokens"], res["b8_nbp"] = int(T.sum()), NBP
+    res["b8_chain_ms"], _ = ms_of(lambda: _build.launch(
+        "walk_probe", "tpt_probe_chase_chain", dev, (nxt, out), (S, NBP)))
+    if int(out[:, 0].sum()) != res["b8_tokens"]:
+        raise RuntimeError("the chase chain probe counted other tokens")
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    fold = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    res["b8_read_ms"], _ = ms_of(lambda: _build.launch(
+        "walk_probe", "tpt_probe_read_plane", dev, (nxt, fold),
+        (S * NBP, blocks)))
+    res["b8_read_bytes"] = 4 * S * NBP
+    res["b8_xla_ms"], (xs, xT) = ms_of(lambda: dw._token_table(
+        nxt, NBP, literal, T_max))
+    if not (torch.equal(xs, _st) and torch.equal(xT, T)):
+        raise RuntimeError("the xla token table differs from B8's")
+    del nxt, _st, T, xs, xT
+
     shards = [np.frombuffer(data[i : i + DEFAULT_SHARD_SIZE], np.uint8)
               for i in range(0, len(data), DEFAULT_SHARD_SIZE)]
     _p, dh, rc, npos = prepare_batch(shards, window=window)
@@ -175,6 +216,29 @@ def main() -> int:
                           device=dev)
     flen, fidx, plen, pidx = v1_tables(raw_d, nraw_d, d, window_bits=window,
                                        cap=v1_cap(window, literal), probe=True)
+    b5_kw = dict(window_bits=window, cap=v1_cap(window, literal))
+    res["b5_ms"], _ = ms_of(lambda: v1_tables(raw_d, nraw_d, d, **b5_kw))
+    res["b5_probe_ms"], _ = ms_of(lambda: v1_tables(raw_d, nraw_d, d,
+                                                    probe=True, **b5_kw))
+    planes = [torch.empty((S, DEFAULT_SHARD_SIZE), dtype=torch.int32,
+                          device=dev) for _ in range(4)]
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    for probe in (0, 1):
+        for mode, key in ((0, "stage"), (1, "first_byte")):
+            name = f"b5_{'probe_' if probe else ''}{key}_ms"
+            res[name], _ = ms_of(lambda: _build.launch(
+                "walk_probe", "tpt_probe_tables", dev,
+                (raw_d, nraw_d, d, *planes, counts),
+                (S, DEFAULT_SHARD_SIZE, window, probe, mode)))
+    counts.zero_()
+    _build.launch("walk_probe", "tpt_probe_tables", dev,
+                  (raw_d, nraw_d, d, *planes, counts),
+                  (S, DEFAULT_SHARD_SIZE, window, 0, 2))
+    pairs = int(nraw_d.sum()) * W
+    res["b5_pairs"] = pairs
+    res["b5_share_1"] = int(counts[0]) / pairs
+    res["b5_share_2"] = int(counts[1]) / pairs
+    del planes, counts
     P = (flen << 23) | (fidx << 8) | raw_d.to(torch.int32)
     Q = (plen << 15) | pidx
     del flen, fidx, plen, pidx
