@@ -9,7 +9,11 @@ Phases (any failure raises, and the script exits non-zero):
    committer from ``csrc/``;
 2. each kernel against its plain PyTorch version on the same inputs, at a
    reduced size (2 shards x 64 KiB), exactly: B1 and B2 at windows
-   8/10/12/15, B3 at windows 10 and 14 plus an excess-bits row, B4, B8, X1
+   8/10/12/15, and on seeded hazard rows of the long family (repeats of 17
+   to LEXT + 20 bytes, the two families at different slots, a tie of long
+   matches, periods that put the glue inside a long run, npos off the
+   block and below LEXT) at windows 8/10/12/15 and w12 l5 (LEXT 134), B3
+   at windows 10 and 14 plus an excess-bits row, B4, B8, X1
    and X2 on an extended stream, a window-15 stream, a double-FLUSH
    ``more`` stream, a v1 stream, an out-of-bounds, an overflowing and a
    corrupt stream (error codes included; the chase and xla tables equal,
@@ -49,7 +53,9 @@ Phases (any failure raises, and the script exits non-zero):
    events, median of 3 after a warm-up), the ratio, and the card's
    container equal to the plain versions' on a small input.  For the main
    path also the time of each stage of the encode and the decode, and the
-   device's busy and idle share in each (torch.profiler).  For the v1
+   device's busy and idle share in each (torch.profiler); for the extended
+   lazy path the stages of the encode (B2 in place of B1) and its idle
+   share.  For the v1
    paths, lazy and not, a stage split of the encode (B5, the fused device
    call, the pulls, the host ring tail, the frame).  For the greedy
    paths: the container equal to the table-less committer's (the card-side
@@ -65,11 +71,10 @@ Phases (any failure raises, and the script exits non-zero):
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
-   word operation per 32 slots of each target, and beside it the first
-   port's count of one operation a slot); B5 with the probe family has a
-   row of its own; the walks' rows (B3, B4, B6, B7) also carry their walk
-   steps (``steps``: planned-field steps, tokens, lazy-walk tokens, replay
-   steps).
+   word operation per 32 slots of each target); B5 with the probe family
+   has a row of its own; the walks' rows (B3, B4, B6, B7) also carry their
+   walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
+   replay steps).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -592,6 +597,62 @@ def hazard_rows(seed: int, S: int, NP: int, window: int):
     return data.astype(np.uint8), npos.astype(np.int32)
 
 
+def _plant(row, dst, src, n):
+    """Copy row[src : src + n] to row[dst : dst + n] byte by byte (an
+    overlapping copy repeats the period dst - src) and break the run after
+    it."""
+    for k in range(n):
+        row[dst + k] = row[src + k]
+    row[dst + n] = row[src + n] ^ 0x40
+
+
+def hazard_rows_ext(seed: int, S: int, NP: int, window: int,
+                    lext: int = 133):
+    """Seeded random model-history rows (S, NP) uint8 and lengths npos with
+    the hazards of the long family (runs to ``lext``) on top of
+    :func:`hazard_rows`' rows 0-7: rows 8-11 random bytes with a repeat of
+    17 and 40, of lext - 1, of lext, and of lext + 20 bytes; row 12 a
+    target at NP - 150 whose 16-byte match sits at a lower ring slot than
+    its 40-byte one (the families pick different slots); row 13 two equal
+    50-byte matches to one target (a tie that ring order settles); rows
+    14-15 periods W - 100 and W - lext + 1 (the glue inside a long run);
+    row 16 period 64, which divides W, so every candidate's run crosses the
+    head, with npos off the 256-position block; row 17 all-equal bytes with
+    npos < lext.  S >= 18, NP >= W + 300.  tests/test_torch_cuda.py holds a
+    copy."""
+    import numpy as np
+
+    W = 1 << window
+    data, npos = hazard_rows(seed, S, NP, window)
+    rng = np.random.default_rng(seed + 1)
+    for r in range(8, 14):
+        data[r] = rng.integers(32, 127, NP)
+    _plant(data[8], NP - 260, NP - 260 - 100, 17)
+    _plant(data[8], NP - 200, NP - 200 - (W - 30), 40)
+    _plant(data[9], NP - 300, NP - 300 - 150, lext - 1)
+    _plant(data[10], NP - 300, NP - 300 - (W - 1), lext)
+    _plant(data[11], NP - 250, NP - 250 - 160, lext + 20)
+    dst = NP - 150
+    # slots (ring index p mod W) of the 16- and the 40-byte source
+    lo, hi = dst - W + 1, dst - 41
+    pb = next(p for p in range(hi, lo, -1) if W // 2 <= p % W <= W - 41)
+    pa = next(p for p in range(lo, hi) if p % W < pb % W - 20
+              and (p + 17 < pb or p > pb + 41))
+    _plant(data[12], dst, pb, 40)
+    _plant(data[12], pa, dst, 16)
+    pa = next(p for p in range(lo, hi) if p % W < W - 51)
+    pb = next(p for p in range(dst - 51, lo, -1) if p % W < W - 51 and
+              p > pa + 51)
+    _plant(data[13], pa, dst, 50)
+    _plant(data[13], pb, dst, 50)
+    for r, period in ((14, W - 100), (15, W - lext + 1), (16, 64)):
+        data[r] = np.resize(rng.integers(32, 127, period), NP)
+    data[17] = 0x41
+    npos[16] = NP - 101
+    npos[17] = lext - 3
+    return data, npos
+
+
 def phase_hazards(dev, report):
     """Phase 2, the walks' hazards: B4 on seeded hazard streams, B3 on
     seeded hazard fields, B6 on seeded lazy tables, B7 on seeded walker
@@ -791,7 +852,8 @@ def phase_kernels_small(dev, report):
     )
     from tamp_tpu_torch.ops.encode_fused import v1_cap
     from tamp_tpu_torch.ops.match_ext import (
-        ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
+        ext_tables, ext_tables_plain, ext_tables_probe,
+        ext_tables_probe_plain,
     )
     from tamp_tpu_torch.ops.token_chase import (
         token_table_chase, token_table_chase_plain,
@@ -834,6 +896,26 @@ def phase_kernels_small(dev, report):
         report(f"B2 w{window} 2x64KiB: kernel vs plain max_abs_err={err}")
         if err:
             fail(f"B2 differs from its plain version at window {window}")
+
+    # B1 and B2 on the long family's hazard rows (18 rows of W + 600
+    # positions; W + 300 at w15), w12 also at literal 5 (LEXT 134)
+    for window, literal in ((8, 8), (10, 8), (12, 8), (12, 5), (15, 8)):
+        W = 1 << window
+        lext = compute_min_pattern_size(window, literal) + 131
+        dh, npos = (torch.from_numpy(x).to(dev) for x in hazard_rows_ext(
+            window, 18, W + (300 if window == 15 else 600), window, lext))
+        d = torch.from_numpy(dictionary_array(W, literal)).to(dev)
+        kw = dict(window_bits=window, LEXT=lext)
+        plain = ext_tables_probe_plain(dh, npos, d, **kw)
+        for name, got in (("B1", ext_tables(dh, npos, d, **kw)),
+                          ("B2", ext_tables_probe(dh, npos, d, **kw))):
+            sync(dev)
+            err = max_abs_err(zip(got, plain))
+            report(f"{name} hazard rows w{window} l{literal} (LEXT {lext}): "
+                   f"kernel vs plain max_abs_err={err}")
+            if err:
+                fail(f"{name} differs from its plain version on the hazard "
+                     f"rows, w{window} l{literal}")
 
     def v1_batch(datas, window):
         data = torch.from_numpy(np.stack(datas)).to(dev)
@@ -1222,10 +1304,13 @@ def phase_decode_modes(dev, report, data, blobs, shard_size: int,
     return launches, rates
 
 
-def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
-    """Where the main path's time goes: each stage of one encode and one
-    decode, host clock around work that ends in a synchronize, median of 3
-    after a warm-up."""
+def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
+                    lazy: bool = False):
+    """Where an extended encode's time goes (the main path's, or with
+    ``lazy`` the extended lazy one's, kernel B2 in place of B1), and for the
+    main path one decode's: each stage, host clock around work that ends in
+    a synchronize, median of 3 after a warm-up; the encode's framed streams
+    equal to the round trip's container (``blob``)."""
     import numpy as np
     import torch
 
@@ -1237,8 +1322,8 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.ops.encode_commit import commit_fields
-    from tamp_tpu_torch.ops.match_ext import ext_tables
-    from tamp_tpu_torch.parallel.shard import _parse_frame
+    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
+    from tamp_tpu_torch.parallel.shard import _pack_frame, _parse_frame
 
     window, literal = 10, 8
     W = 1 << window
@@ -1246,6 +1331,14 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
     shards = [np.frombuffer(data[i : i + shard_size], np.uint8)
               for i in range(0, len(data), shard_size)]
     stages: dict[str, list[float]] = {}
+    pre, kern = ("lazy enc", "B2") if lazy else ("enc", "B1")
+    tables = f"{pre} " + ("B2 ext_tables_probe alone" if lazy
+                          else "B1 ext_tables alone")
+    fields = (f"{pre} planned fields ({kern} + region planes + field "
+              "planner)")
+    stage_names = [f"{pre} host prep (plan, model, chunk counts)",
+                   f"{pre} host->device", fields, f"{pre} B3 commit_fields"]
+    whole = f"{pre} whole call (prep .. tail, for the rest)"
 
     def timed(name, fn):
         sync(dev)
@@ -1256,25 +1349,28 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
         return out
 
     for _ in range(4):
-        _p, dh, rc, npos = timed("enc host prep (plan, model, chunk counts)",
+        _p, dh, rc, npos = timed(stage_names[0],
                                  lambda: prepare_batch(shards, window=window))
-        dh_d, rc_d, npos_d, dict_d = timed("enc host->device", lambda: (
+        dh_d, rc_d, npos_d, dict_d = timed(stage_names[1], lambda: (
             torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev),
             torch.from_numpy(npos).to(dev),
             torch.from_numpy(dictionary_array(W, literal)).to(dev)))
-        timed("enc B1 ext_tables alone", lambda: ext_tables(
+        timed(tables, lambda: (ext_tables_probe if lazy else ext_tables)(
             dh_d, npos_d, dict_d, window_bits=window, LEXT=lext))
-        tabs, A, B = timed(
-            "enc planned fields (B1 + region planes + field planner)",
-            lambda: ext_fields(dh_d, rc_d, npos_d, dict_d, window=window,
-                               literal=literal))
+        tabs, A, B = timed(fields, lambda: ext_fields(
+            dh_d, rc_d, npos_d, dict_d, window=window, literal=literal,
+            lazy=lazy))
         NP = dh.shape[1]
-        timed("enc B3 commit_fields", lambda: commit_fields(
+        timed(stage_names[3], lambda: commit_fields(
             A, B, npos_d, max_out=NP + NP // 8 + 64, idx_bits=0))
         del A, B, tabs
-        timed("enc whole call (prep .. tail, for the rest)",
-              lambda: encode_ext_device_commit(shards, window=window,
-                                               literal=literal, device=dev))
+        streams = timed(whole, lambda: encode_ext_device_commit(
+            shards, window=window, literal=literal, lazy_matching=lazy,
+            device=dev))
+        framed = timed(f"{pre} frame", lambda: _pack_frame(
+            streams, len(data), shard_size))
+        if lazy:
+            continue
 
         _raw, _ss, pieces = _parse_frame(blob)
         payloads = timed("dec host frame", lambda: [p[1:] for p in pieces])
@@ -1292,8 +1388,16 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str):
             max_out=dw._pow2_bucket(shard_size, 1024)))
         timed("dec device->host", lambda: out[:, : int(lens.max())].cpu())
         del pk, out
-    for name, ts in stages.items():
-        report(f"  {name}: {statistics.median(ts[1:]):.2f} ms [{card}]")
+    if framed != blob:
+        fail(f"{pre}: the staged encode differs from the round trip's")
+    med = {k: statistics.median(v[1:]) for k, v in stages.items()}
+    for name, ms in med.items():
+        report(f"  {name}: {ms:.2f} ms [{card}]")
+    report(f"  {pre} region planes + field planner (fields - {kern}): "
+           f"{med[fields] - med[tables]:.2f} ms [{card}]")
+    report(f"  {pre} device->host + tail walk (whole call - prep - h2d - "
+           f"fields - B3): {med[whole] - sum(med[n] for n in stage_names):.2f}"
+           f" ms [{card}]")
 
 
 def phase_v1_split(dev, report, data, blob, shard_size: int, card: str,
@@ -1452,8 +1556,9 @@ def phase_greedy(dev, report, data, blob, shard_size: int, card: str,
 def phase_profile(report, data, blob, shard_size: int, card: str):
     """Device busy and idle share of one encode and one decode, from a
     torch.profiler trace: the device activity (kernels and copies) summed
-    over the wall time of the call; the decode also in mode chase, and the
-    greedy encodes (without and with lazy matching)."""
+    over the wall time of the call; the encode also with lazy matching, the
+    decode also in mode chase, and the greedy encodes (without and with
+    lazy matching)."""
     import os
 
     import torch
@@ -1473,6 +1578,8 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
 
     for name, fn in (
             ("encode", lambda: compress_sharded(data, shard_size=shard_size)),
+            ("extended lazy encode", lambda: compress_sharded(
+                data, shard_size=shard_size, lazy_matching=True)),
             ("decode", lambda: decompress_sharded_device(blob)),
             ("decode (chase)", chase),
             ("greedy encode", lambda: compress_sharded(
@@ -1579,8 +1686,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     kernels = []
 
     # the tables' least work: every position's target (two for B2 and B5
-    # with the probe) against its W slots, 32 slots a word operation; the
-    # first port's count, one operation a slot, is kept as old_ops
+    # with the probe) against its W slots, 32 slots a word operation
     n_dh = int(npos.astype(np.int64).sum())
     slot_words = -(-W // 32)
 
@@ -1596,7 +1702,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         launches=launches["extended"]["ext_tables"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * NP + W + 4 * S + 4 * 4 * S * NP,
-        ops=n_dh * slot_words, old_ops=n_dh * W))
+        ops=n_dh * slot_words))
     del tabs, ptabs
 
     # B2: B1's work plus the probe family's target
@@ -1611,7 +1717,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         launches=launches["extended lazy"]["ext_tables_probe"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * NP + W + 4 * S + 6 * 4 * S * NP,
-        ops=2 * n_dh * slot_words, old_ops=2 * n_dh * W))
+        ops=2 * n_dh * slot_words))
     del tabs, ptabs
 
     # B3: the planned fields of this batch (the main path's commit input)
@@ -1677,7 +1783,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         launches=launches["v1"]["v1_tables"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * shard_size + W + 4 * S + 2 * 4 * S * shard_size,
-        ops=n_raw * slot_words, old_ops=n_raw * W))
+        ops=n_raw * slot_words))
     del tabs, ptabs
     # the v1 lazy path's call: the probe family's target as well
     pms, ptabs = cuda_ms(lambda: v1_tables_plain(raw_d, nraw_d, dict1,
@@ -1691,7 +1797,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         launches=launches["v1 lazy"]["v1_tables"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * shard_size + W + 4 * S + 4 * 4 * S * shard_size,
-        ops=2 * n_raw * slot_words, old_ops=2 * n_raw * W))
+        ops=2 * n_raw * slot_words))
     del ptabs
 
     # B6: the lazy v1 walk over this batch's packed tables
@@ -1847,16 +1953,13 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         t_ops = k.pop("ops") / ops_per_s * 1e3
         k["bound_ms"] = max(t_bytes, t_ops)
         k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        old = (f", first port's bound "
-               f"{max(t_bytes, k.pop('old_ops') / ops_per_s * 1e3):.4f} ms"
-               if "old_ops" in k else "")
         k["library_ms"] = None  # no single PyTorch call computes these
         k["equal_plain"] = k["max_abs_err"] == 0
         # the walks: steps (tokens for B4), and ns a step of a shard
         steps = (f", {k['steps']} steps, {k['ms'] * 1e6 * S / k['steps']:.1f}"
                  " ns a step a shard" if "steps" in k else "")
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
-               f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}{old}), "
+               f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
                f"launches {k['launches']}, max_abs_err {k['max_abs_err']}"
                f"{steps} [{card}]")
         if not k["equal_plain"]:
@@ -1912,6 +2015,9 @@ def main() -> int:
                             DEFAULT_SHARD_SIZE, card)
             phase_profile(report, data, blobs[name], DEFAULT_SHARD_SIZE,
                           card)
+        if name == "extended lazy":
+            phase_breakdown(dev, report, data, blobs[name],
+                            DEFAULT_SHARD_SIZE, card, lazy=True)
         if name.startswith("v1"):
             phase_v1_split(dev, report, data, blobs[name], DEFAULT_SHARD_SIZE,
                            card, lazy="lazy" in name)

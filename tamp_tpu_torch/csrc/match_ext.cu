@@ -1,4 +1,5 @@
-// Kernels B1, B2 and B5: match tables of the window model, one source.
+// Kernels B1, B2 and B5: match tables of the window model, one source and
+// one kernel template.
 //
 // Replaces three TPU kernels that compute one definition
 // (tamp_tpu/engine/search_np.py match_tables / match_tables_ext) in three
@@ -14,56 +15,55 @@
 // linear buffer at W - x; a candidate just behind the write head (delta =
 // W - j bytes from it) continues past the head with the oldest ring bytes
 // (the glue diagonals of engine/search_np.py).  Families:
-//   main   target row[t:], runs to `lrun`, scored at cap `cap_main`
-//          (B1/B2: 16 on the model history; B5: min(16, minp + 13), which
-//          is 15 or 16, on the raw shard);
-//   long   (B1/B2) the same runs scored at cap `lrun` (LEXT);
-//   probe  (B2, and B5 with probe) target row[t+1:] against the ring at t,
-//          cap 15: the lazy-matching probe.  The literal at t is not yet
-//          written, so slot j = 0 still holds C[t] and the source walk,
-//          including its wrap at the write head, is the main family's.
+//   main   target row[t:], runs to 16, scored at cap `cap_main` (B1/B2: 16
+//          on the model history; B5: min(16, minp + 13), which is 15 or
+//          16, on the raw shard);
+//   long   (B1/B2, kLong) the same target and runs to `lrun` (LEXT =
+//          minp + 131), scored uncapped;
+//   probe  (B2, and B5 with probe; kProbe) target row[t+1:] against the
+//          ring at t, cap 15: the lazy-matching probe.  The literal at t is
+//          not yet written, so slot j = 0 still holds C[t] and the source
+//          walk, including its wrap at the write head, is the main family's.
 // The cap enters the score before the arg-max: at cap 15 a slot with 16
 // equal bytes ties with an earlier slot with 15.
 //
-// B1 and B2 (tables_kernel): one block per (shard, chunk of TB positions),
-// one thread per position.  The block stages the slab C[t0 .. t0 + TB + W +
-// lrun) that its positions read (sources and targets both lie in C) in
-// shared memory, then each thread walks all W candidates in slot order,
-// once per target, byte by byte.  A candidate whose first byte differs
-// scores len 0, which never beats the len-0 score of slot 0 (W - 1), so
-// only first-byte matches are extended.  The glue is a source wrap: when
-// the source index reaches the write head (C index t + W) it continues at
-// C[t]; the linear-buffer cap keeps that wrap from happening where the
-// format forbids it.  What bounds it: the W byte compares of each position
-// and the extension of every first-byte match, an integer-ALU and
-// shared-memory load rate, not a memory rate.
+// One block per (shard, chunk of TB positions), one thread per position.
+// The block stages the slab C[t0 .. t0 + TB + W + pad) that its positions
+// read (sources and targets both lie in C) in shared memory, and with it
+// the slab's eight bit planes (plane b, word k: bit b of slab bytes 32k ..
+// 32k + 31, by __ballot_sync).  The slots of a 32-byte word whose byte
+// equals a value v are then the AND of the eight planes, each complemented
+// where v's bit is 0: eight word operations for 32 slots, where a byte scan
+// would compare every slot.  A thread scans its window word by word in ring
+// order from slot 0 (the slab indices whose C index is at or past the next
+// multiple of W first, then the rest from t), keeps as survivors the slots
+// whose first two bytes match (the slots of c0 AND those of c1 one slab
+// byte on), and extends only those, 16 bytes at once by word compares of
+// funnel-shifted slab words.  One pass serves every family: the probe's
+// first target byte c1 is the main family's second, and the long family
+// shares the main family's target, survivors and 16-byte compare, going on
+// 16 bytes a step only where all 16 match.  The slot just behind the head
+// is a survivor on its first byte alone, since its second source byte is
+// the glue's C[t].  A candidate that matches one byte and no more scores
+// len 1, so the lowest such slot (the first first-byte match in ring
+// order) is kept beside the survivors.  Because the scan runs in ring
+// order, a later slot wins only if strictly longer: a family is done at
+// its first candidate of the longest length its target allows, the long
+// family also once a slot's cap W - x (which falls along the ring) no
+// longer exceeds its best, and a warp stops when all its threads are.
 //
-// B5 (v1_tables_kernel) filters the candidates 32 slots a word before it
-// extends any.  What bounds the first port's scan was the candidates, not
-// bytes: on text about one slot in 27 matches the first byte, and a warp
-// extended a first-byte match at nearly every slot.  Here the block stages
-// the same slab, and with it the slab's eight bit planes (plane b, word k:
-// bit b of slab bytes 32k .. 32k + 31, by __ballot_sync).  The slots of a
-// 32-byte word whose byte equals a value v are then the AND of the eight
-// planes, each complemented where v's bit is 0: eight word operations for
-// 32 slots.  A thread scans its window word by word in ring order from
-// slot 0 (the slab indices whose C index is at or past the next multiple
-// of W first, then the rest from t), keeps as survivors the slots whose
-// first two bytes match (the slots of c0 AND those of c1 one slab byte on),
-// and extends only those, 16 bytes at once by word compares of funnel-
-// shifted slab words (byte by byte where the glue can occur, within 16
-// bytes of the head).  One pass serves both families: the probe's first
-// target byte c1 is the main family's second.  The slot just behind the
-// head is a survivor on its first byte alone, since its second source byte
-// is the glue's C[t].  A candidate that matches one byte and no more scores
-// len 1, so the lowest such slot (the first first-byte match in ring order)
-// is kept beside the survivors.  Because the scan runs in ring order, a
-// family is done at its first candidate of the longest length its target
-// allows, and a warp stops when all its threads are.  What bounds it now:
-// the filter's word operations, about 8 a value and word (three values with
-// the probe), and the survivors' extensions, which depend on the data.
-// Simple by design: the TPU kernels' MXU one-hot and band-space layouts
-// answer the TPU's matmul and roll costs and are not carried over.
+// The glue: the main and probe families (at most 16 bytes) compare byte by
+// byte within 16 bytes of the head.  The long family's runs reach LEXT
+// bytes, so a survivor within LEXT of the head compares two linear runs by
+// the same word compares: slab [i, head), then from tl (C[t], the oldest
+// byte) on.  The slab's pad covers the long target's loads: a multiple of
+// 32 past LEXT + 20 (32 without the long family).
+//
+// What bounds it: the filter's word operations, about 8 a value and word
+// (three values with the probe), and the survivors' extensions, which
+// depend on the data.  Simple by design: the TPU kernels' SWAR quarter-lane
+// rolls and MXU one-hot and band-space layouts answer the TPU's matmul and
+// roll costs and are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,93 +72,12 @@ namespace {
 
 constexpr int TB = 256;     // positions (threads) per block
 constexpr int PROBE_CAP = 15;
-constexpr int V1_RUN = 16;  // B5's longest run (the 16-byte look-ahead)
-constexpr int V1_PAD = 32;  // slab bytes past TB + W: targets and loads
+constexpr int V1_RUN = 16;  // the main family's longest run
+constexpr int V1_PAD = 32;  // slab bytes past TB + W without the long family
 
-// Best packed score over the W slots for the target at slab index `tgt`
-// with `lim` target bytes usable; `cap_fam` is the family cap.  With kTwo,
-// the same runs are also scored uncapped into `best2`.
-template <bool kTwo>
-__device__ __forceinline__ void scan(const uint8_t* slab, int tl, int head,
-                                     int tgt, int tau, int W, int wbits,
-                                     int lim, int cap_fam, int& best,
-                                     int& best2) {
-  const uint8_t c0 = slab[tgt];
-  for (int j = 0; j < W; ++j) {
-    if (slab[tl + j] != c0) continue;
-    const int x = (tau + j) & (W - 1);
-    const int cap = W - x;
-    const int l = lim < cap ? lim : cap;
-    int k = 1;
-    int src = tl + j + 1;
-    if (src == head) src = tl;  // glue: past the head, the oldest bytes
-    while (k < l && slab[src] == slab[tgt + k]) {
-      ++k;
-      if (++src == head) src = tl;
-    }
-    const int s = ((k < cap_fam ? k : cap_fam) << wbits) + cap - 1;
-    best = s > best ? s : best;
-    if (kTwo) {
-      const int s2 = (k << wbits) + cap - 1;
-      best2 = s2 > best2 ? s2 : best2;
-    }
-  }
-}
-
-template <bool kProbe>
-__global__ void __launch_bounds__(TB)
-tables_kernel(const uint8_t* __restrict__ row0,
-              const int32_t* __restrict__ npos,
-              const uint8_t* __restrict__ dict,
-              int32_t* __restrict__ len_m, int32_t* __restrict__ idx_m,
-              int32_t* __restrict__ len_l, int32_t* __restrict__ idx_l,
-              int32_t* __restrict__ len_p, int32_t* __restrict__ idx_p,
-              int MP, int wbits, int lrun, int cap_main) {
-  extern __shared__ uint8_t slab[];
-  const int W = 1 << wbits;
-  const int s = blockIdx.y;
-  const int t0 = blockIdx.x * TB;
-  const int slab_len = TB + W + lrun;
-  const uint8_t* row = row0 + (size_t)s * MP;
-  for (int i = threadIdx.x; i < slab_len; i += TB) {
-    const int c = t0 + i;  // index into C = dict || row
-    uint8_t v = 0;
-    if (c < W) {
-      v = dict[c];
-    } else if (c - W < MP) {
-      v = row[c - W];
-    }
-    slab[i] = v;
-  }
-  __syncthreads();
-
-  const int tl = threadIdx.x;
-  const int t = t0 + tl;
-  if (t >= MP) return;
-  const int tau = t & (W - 1);
-  const int head = tl + W;  // slab index of the target's first byte
-  int best_m = W - 1;       // len 0 at slot 0
-  int best_l = W - 1;
-  const int left = npos[s] - t;  // target bytes before npos
-  if (left > 0) {
-    scan<true>(slab, tl, head, head, tau, W, wbits,
-                left < lrun ? left : lrun, cap_main, best_m, best_l);
-  }
-  const size_t o = (size_t)s * MP + t;
-  len_m[o] = best_m >> wbits;
-  idx_m[o] = (W - 1) - (best_m & (W - 1));
-  len_l[o] = best_l >> wbits;
-  idx_l[o] = (W - 1) - (best_l & (W - 1));
-  if (kProbe) {
-    int best_p = W - 1, unused = 0;
-    if (left > 1) {
-      scan<false>(slab, tl, head, head + 1, tau, W, wbits,
-                  left - 1 < PROBE_CAP ? left - 1 : PROBE_CAP, PROBE_CAP,
-                  best_p, unused);
-    }
-    len_p[o] = best_p >> wbits;
-    idx_p[o] = (W - 1) - (best_p & (W - 1));
-  }
+// slab bytes past TB + W: the targets and their 16-byte loads
+__host__ __device__ constexpr int slab_pad(bool long_family, int lrun) {
+  return long_family ? (lrun + 20 + 31) / 32 * 32 : V1_PAD;
 }
 
 // The eight bit planes of slab word k match byte value v: bit i of the
@@ -194,6 +113,28 @@ __device__ __forceinline__ void load16(const uint32_t* s32, int i,
   for (int q = 0; q < 5; ++q) w[q] = s32[a + q];
 #pragma unroll
   for (int q = 0; q < 4; ++q) o[q] = __funnelshift_r(w[q], w[q + 1], sh);
+}
+
+// index of the first byte where two 16-byte strings differ (16: none)
+__device__ __forceinline__ int diff16(const uint32_t (&a)[4],
+                                      const uint32_t (&b)[4]) {
+  const uint64_t lo = ((uint64_t)(a[1] ^ b[1]) << 32) | (a[0] ^ b[0]);
+  const uint64_t hi = ((uint64_t)(a[3] ^ b[3]) << 32) | (a[2] ^ b[2]);
+  return lo ? (__ffsll((long long)lo) - 1) >> 3
+            : (hi ? 8 + ((__ffsll((long long)hi) - 1) >> 3) : 16);
+}
+
+// leading equal bytes of slab[a ..] and slab[b ..], at most n
+__device__ __forceinline__ int common(const uint32_t* s32, int a, int b,
+                                      int n) {
+  for (int len = 0; len < n; len += 16) {
+    uint32_t x[4], y[4];
+    load16(s32, a + len, x);
+    load16(s32, b + len, y);
+    const int m = diff16(x, y);
+    if (m < 16) return min(len + m, n);
+  }
+  return n;
 }
 
 // bits of slab word k whose index lies in [lo, hi)
@@ -254,11 +195,7 @@ __device__ __forceinline__ void fam_word(Fam& f, const uint8_t* slab, int k,
     if (head - i >= l) {  // no glue within l bytes: word compares
       uint32_t s[4];
       load16(s32, i, s);
-      const uint64_t lo = ((uint64_t)(s[1] ^ f.T[1]) << 32) | (s[0] ^ f.T[0]);
-      const uint64_t hi = ((uint64_t)(s[3] ^ f.T[3]) << 32) | (s[2] ^ f.T[2]);
-      len = lo ? (__ffsll((long long)lo) - 1) >> 3
-               : (hi ? 8 + ((__ffsll((long long)hi) - 1) >> 3) : 16);
-      len = min(len, l);
+      len = min(diff16(s, f.T), l);
     } else {  // the glue: past the head, the oldest bytes
       len = 0;
       int src = i;
@@ -277,24 +214,92 @@ __device__ __forceinline__ void fam_word(Fam& f, const uint8_t* slab, int k,
   }
 }
 
-__device__ __forceinline__ int fam_score(const Fam& f, int t0, int W,
+// The long family of one position: the main family's target (Fam::T,
+// Fam::tgt) and first one-byte match (Fam::one), runs to lrun, uncapped.
+struct Long {
+  int lim;   // target bytes usable: min(npos - t, lrun)
+  int best;  // packed score
+  bool done;
+};
+
+// The main family `f` (cap 16) and the long family `g` over slab word k at
+// once: one 16-byte compare a survivor serves both, and only a survivor
+// whose 16 bytes all match goes on, 16 bytes a step.  Slots come in ring
+// order, so their caps W - x fall: once a slot's min(lim, W - x) does not
+// exceed the long family's best, no later slot beats either family.  A
+// done long family implies a done main family.
+__device__ __forceinline__ void ext_word(Fam& f, Long& g, const uint8_t* slab,
+                                         int k, uint32_t one, uint32_t sv,
+                                         int tl, int head, int t0, int W,
                                          int wbits) {
-  if (f.one < 0) return f.best;
-  const int s1 = (1 << wbits) + (W - 1 - ((t0 + f.one) & (W - 1)));
-  return s1 > f.best ? s1 : f.best;
+  if (g.done) return;
+  if (f.one < 0 && one) {
+    f.one = 32 * k + __ffs(one) - 1;
+    if (f.lmax <= 1) {  // one target byte: no survivor can beat it
+      f.done = g.done = true;
+      return;
+    }
+  }
+  if (f.lmax <= 1) return;
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(slab);
+  while (sv) {
+    const int i = 32 * k + __ffs(sv) - 1;
+    sv &= sv - 1;
+    const int capx = W - ((t0 + i) & (W - 1));
+    const int l = min(g.lim, capx);
+    if (l <= (g.best >> wbits)) {
+      f.done = g.done = true;
+      return;
+    }
+    int len;
+    const int d = head - i;  // source bytes before the head
+    if (d >= l) {
+      uint32_t s[4];
+      load16(s32, i, s);
+      len = diff16(s, f.T);
+      if (len == 16 && l > 16)
+        len += common(s32, i + 16, f.tgt + 16, l - 16);
+      len = min(len, l);
+    } else {  // the glue: slab [i, head), then the oldest bytes from tl
+      len = common(s32, i, f.tgt, d);
+      if (len == d) len += common(s32, tl, f.tgt + d, l - d);
+    }
+    const int sc = (len << wbits) + capx - 1;
+    g.best = sc > g.best ? sc : g.best;
+    if (!f.done) {
+      const int eff = min(min(len, f.lim), f.cap);
+      const int sm = (eff << wbits) + capx - 1;
+      f.best = sm > f.best ? sm : f.best;
+      f.done = eff == f.lmax;
+    }
+    if (len == g.lim) {
+      f.done = g.done = true;
+      return;
+    }
+  }
 }
 
-template <bool kProbe>
+// a family's packed score with its first one-byte match (slab index `one`,
+// -1: none) taken in
+__device__ __forceinline__ int with_one(int best, int one, int t0, int W,
+                                        int wbits) {
+  if (one < 0) return best;
+  const int s1 = (1 << wbits) + (W - 1 - ((t0 + one) & (W - 1)));
+  return s1 > best ? s1 : best;
+}
+
+template <bool kProbe, bool kLong>
 __global__ void __launch_bounds__(TB)
-v1_tables_kernel(const uint8_t* __restrict__ row0,
-                 const int32_t* __restrict__ npos,
-                 const uint8_t* __restrict__ dict,
-                 int32_t* __restrict__ len_m, int32_t* __restrict__ idx_m,
-                 int32_t* __restrict__ len_p, int32_t* __restrict__ idx_p,
-                 int MP, int wbits, int cap_main) {
+tables_kernel(const uint8_t* __restrict__ row0,
+              const int32_t* __restrict__ npos,
+              const uint8_t* __restrict__ dict,
+              int32_t* __restrict__ len_m, int32_t* __restrict__ idx_m,
+              int32_t* __restrict__ len_l, int32_t* __restrict__ idx_l,
+              int32_t* __restrict__ len_p, int32_t* __restrict__ idx_p,
+              int MP, int wbits, int cap_main, int lrun) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int W = 1 << wbits;
-  const int slab_len = TB + W + V1_PAD;  // a multiple of 32
+  const int slab_len = TB + W + slab_pad(kLong, lrun);  // a multiple of 32
   uint8_t* slab = smem;
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem + slab_len);
   const int s = blockIdx.y;
@@ -327,6 +332,10 @@ v1_tables_kernel(const uint8_t* __restrict__ row0,
   fam_init(fm, slab, head, min(left, V1_RUN), cap_main, W);
   fam_init(fp, slab, head + 1, kProbe ? min(left - 1, PROBE_CAP) : 0,
            PROBE_CAP, W);
+  Long gl;
+  gl.lim = kLong ? min(left, lrun) : 0;
+  gl.best = W - 1;
+  gl.done = gl.lim <= 0;
   uint32_t nv0[8], nv1[8], nv2[8];
   value_masks(slab[head], nv0);
   value_masks(slab[head + 1], nv1);
@@ -349,7 +358,8 @@ v1_tables_kernel(const uint8_t* __restrict__ row0,
     load_planes(planes, k, P);
     uint32_t m1 = match_word(P, nv1), m2 = kProbe ? match_word(P, nv2) : 0;
     for (; k <= seg_k[g][1]; ++k) {
-      if (!__any_sync(0xFFFFFFFFu, !(fm.done && (!kProbe || fp.done))))
+      if (!__any_sync(0xFFFFFFFFu, !(fm.done && (!kProbe || fp.done) &&
+                                     (!kLong || gl.done))))
         break;
       load_planes(planes, k + 1, Pn);
       const uint32_t m0 = match_word(P, nv0);
@@ -359,7 +369,10 @@ v1_tables_kernel(const uint8_t* __restrict__ row0,
       // survivors: first two bytes equal (the glue slot: its first byte)
       uint32_t sv = m0 & __funnelshift_r(m1, m1n, 1);
       sv = ((sv & ~glue) | (m0 & glue)) & win;
-      fam_word(fm, slab, k, m0 & win, sv, tl, head, t0, W, wbits);
+      if (kLong)
+        ext_word(fm, gl, slab, k, m0 & win, sv, tl, head, t0, W, wbits);
+      else
+        fam_word(fm, slab, k, m0 & win, sv, tl, head, t0, W, wbits);
       if (kProbe) {
         const uint32_t m2n = match_word(Pn, nv2);
         uint32_t pv = m1 & __funnelshift_r(m2, m2n, 1);
@@ -374,57 +387,39 @@ v1_tables_kernel(const uint8_t* __restrict__ row0,
   }
   if (t >= MP) return;
   const size_t o = (size_t)s * MP + t;
-  const int bm = fam_score(fm, t0, W, wbits);
+  const int bm = with_one(fm.best, fm.one, t0, W, wbits);
   len_m[o] = bm >> wbits;
   idx_m[o] = (W - 1) - (bm & (W - 1));
+  if (kLong) {
+    const int bl = with_one(gl.best, fm.one, t0, W, wbits);
+    len_l[o] = bl >> wbits;
+    idx_l[o] = (W - 1) - (bl & (W - 1));
+  }
   if (kProbe) {
-    const int bp = fam_score(fp, t0, W, wbits);
+    const int bp = with_one(fp.best, fp.one, t0, W, wbits);
     len_p[o] = bp >> wbits;
     idx_p[o] = (W - 1) - (bp & (W - 1));
   }
 }
 
-template <bool kProbe>
-int launch_ext(const void* row, const void* npos, const void* dict,
-               void* len_m, void* idx_m, void* len_l, void* idx_l,
-               void* len_p, void* idx_p, int S, int MP, int wbits, int lrun,
-               void* stream) {
-  const int W = 1 << wbits;
-  const size_t smem = (size_t)TB + W + lrun;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tables_kernel<kProbe>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (S == 0 || MP == 0) return 0;
-  dim3 grid((MP + TB - 1) / TB, S);
-  tables_kernel<kProbe><<<grid, TB, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)row, (const int32_t*)npos, (const uint8_t*)dict,
-      (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_l, (int32_t*)idx_l,
-      (int32_t*)len_p, (int32_t*)idx_p, MP, wbits, lrun, 16);
-  return (int)cudaGetLastError();
-}
-
-template <bool kProbe>
-int launch_v1(const void* row, const void* npos, const void* dict,
-              void* len_m, void* idx_m, void* len_p, void* idx_p, int S,
-              int MP, int wbits, int cap, void* stream) {
-  const int W = 1 << wbits;
-  const int slab_len = TB + W + V1_PAD;
+template <bool kProbe, bool kLong>
+int launch(const void* row, const void* npos, const void* dict, void* len_m,
+           void* idx_m, void* len_l, void* idx_l, void* len_p, void* idx_p,
+           int S, int MP, int wbits, int cap, int lrun, void* stream) {
+  const int slab_len = TB + (1 << wbits) + slab_pad(kLong, lrun);
   const size_t smem = (size_t)slab_len + slab_len;  // bytes, bit planes
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        v1_tables_kernel<kProbe>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        tables_kernel<kProbe, kLong>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (S == 0 || MP == 0) return 0;
   dim3 grid((MP + TB - 1) / TB, S);
-  v1_tables_kernel<kProbe><<<grid, TB, smem, (cudaStream_t)stream>>>(
+  tables_kernel<kProbe, kLong><<<grid, TB, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)row, (const int32_t*)npos, (const uint8_t*)dict,
-      (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_p, (int32_t*)idx_p, MP,
-      wbits, cap);
+      (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_l, (int32_t*)idx_l,
+      (int32_t*)len_p, (int32_t*)idx_p, MP, wbits, cap, lrun);
   return (int)cudaGetLastError();
 }
 
@@ -435,8 +430,8 @@ extern "C" int tpt_ext_tables(const void* dh, const void* npos,
                               const void* dict, void* len16, void* idx16,
                               void* lenx, void* idxx, int S, int MP,
                               int wbits, int lext, void* stream) {
-  return launch_ext<false>(dh, npos, dict, len16, idx16, lenx, idxx, nullptr,
-                       nullptr, S, MP, wbits, lext, stream);
+  return launch<false, true>(dh, npos, dict, len16, idx16, lenx, idxx,
+                             nullptr, nullptr, S, MP, wbits, 16, lext, stream);
 }
 
 // B2: B1's four planes plus the probe family (plen, pidx).
@@ -445,8 +440,8 @@ extern "C" int tpt_ext_tables_probe(const void* dh, const void* npos,
                                     void* idx16, void* lenx, void* idxx,
                                     void* plen, void* pidx, int S, int MP,
                                     int wbits, int lext, void* stream) {
-  return launch_ext<true>(dh, npos, dict, len16, idx16, lenx, idxx, plen, pidx,
-                      S, MP, wbits, lext, stream);
+  return launch<true, true>(dh, npos, dict, len16, idx16, lenx, idxx, plen,
+                            pidx, S, MP, wbits, 16, lext, stream);
 }
 
 // B5: the v1 tables (flen, fidx) at cap 15 or 16 on the raw shard, runs to
@@ -456,8 +451,9 @@ extern "C" int tpt_v1_tables(const void* data, const void* npos,
                              void* plen, void* pidx, int S, int MP, int wbits,
                              int cap, int probe, void* stream) {
   if (probe)
-    return launch_v1<true>(data, npos, dict, flen, fidx, plen, pidx, S, MP,
-                           wbits, cap, stream);
-  return launch_v1<false>(data, npos, dict, flen, fidx, nullptr, nullptr, S,
-                          MP, wbits, cap, stream);
+    return launch<true, false>(data, npos, dict, flen, fidx, nullptr, nullptr,
+                               plen, pidx, S, MP, wbits, cap, V1_RUN, stream);
+  return launch<false, false>(data, npos, dict, flen, fidx, nullptr, nullptr,
+                              nullptr, nullptr, S, MP, wbits, cap, V1_RUN,
+                              stream);
 }

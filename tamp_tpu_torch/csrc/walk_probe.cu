@@ -26,16 +26,20 @@
 // folding it into one word a block: the bytes any design that looks at
 // every bit of B8's nxt plane must read.
 //
-// probe_tables runs the first port's B5 skeleton (one block per 256
-// positions, a thread a position over the slab C[t0 .. t0 + 256 + W + 16)
-// staged in shared memory) with parts cut out, writing the same planes:
+// probe_tables runs the first port's table skeleton (one block per 256
+// positions, a thread a position over the slab C[t0 .. t0 + 256 + W + lrun)
+// staged in shared memory; lrun is 16 for B5's raw shards, LEXT for B1's
+// and B2's model history) with parts cut out, writing the same planes:
 //   mode 0: the staging and the stores alone (each plane gets a byte of the
 //           slab, so the staging stays);
 //   mode 1: the scan of every slot with first-byte compares only: the
 //           lowest slot whose first byte matches scores len 1, no extension;
 //   mode 2: mode 1, also counting (position, slot) pairs of the main family
 //           whose first byte matches and whose first two bytes match (the
-//           glue included) into counts[0], counts[1] (64-bit).
+//           glue included) into counts[0], counts[1], and extending each
+//           two-byte match byte by byte (the glue included) up to
+//           min(npos - t, lrun, W - x): the pairs that reach 16 bytes into
+//           counts[2] and their lengths past 16 into counts[3] (64-bit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -322,12 +326,12 @@ probe_tables(const uint8_t* __restrict__ row0,
              int32_t* __restrict__ len_m, int32_t* __restrict__ idx_m,
              int32_t* __restrict__ len_p, int32_t* __restrict__ idx_p,
              unsigned long long* __restrict__ counts, int MP, int wbits,
-             int probe) {
+             int probe, int lrun) {
   extern __shared__ uint8_t slab[];
   const int W = 1 << wbits;
   const int s = blockIdx.y;
   const int t0 = blockIdx.x * TB5;
-  const int slab_len = TB5 + W + 16;
+  const int slab_len = TB5 + W + lrun;
   const uint8_t* row = row0 + (size_t)s * MP;
   for (int i = threadIdx.x; i < slab_len; i += TB5) {
     const int c = t0 + i;
@@ -346,7 +350,7 @@ probe_tables(const uint8_t* __restrict__ row0,
   const int tau = t & (W - 1);
   const int left = t < MP ? npos[s] - t : 0;
   int best_m = W - 1, best_p = W - 1;
-  unsigned long long n1 = 0, n2 = 0;
+  unsigned long long n1 = 0, n2 = 0, n16 = 0, past = 0;
   if (kMode == 0) {
     best_m = slab[head];
     best_p = slab[tl];
@@ -359,7 +363,21 @@ probe_tables(const uint8_t* __restrict__ row0,
         best_m = sc > best_m ? sc : best_m;
         if (kMode == 2) {
           ++n1;
-          n2 += slab[j == W - 1 ? tl : tl + j + 1] == c1;
+          int src = j == W - 1 ? tl : tl + j + 1;
+          if (slab[src] == c1) {
+            ++n2;
+            const int l = min(min(left, lrun), W - ((tau + j) & (W - 1)));
+            int k = 2;
+            if (++src == head) src = tl;
+            while (k < l && slab[src] == slab[head + k]) {
+              ++k;
+              if (++src == head) src = tl;
+            }
+            if (k >= 16) {
+              ++n16;
+              past += k - 16;
+            }
+          }
         }
       }
       if (probe && left > 1 && v == c1) best_p = sc > best_p ? sc : best_p;
@@ -369,10 +387,14 @@ probe_tables(const uint8_t* __restrict__ row0,
     for (int o = 16; o > 0; o >>= 1) {
       n1 += __shfl_xor_sync(0xFFFFFFFFu, n1, o);
       n2 += __shfl_xor_sync(0xFFFFFFFFu, n2, o);
+      n16 += __shfl_xor_sync(0xFFFFFFFFu, n16, o);
+      past += __shfl_xor_sync(0xFFFFFFFFu, past, o);
     }
     if ((tl & 31) == 0) {
       atomicAdd(counts, n1);
       atomicAdd(counts + 1, n2);
+      atomicAdd(counts + 2, n16);
+      atomicAdd(counts + 3, past);
     }
   }
   if (t >= MP) return;
@@ -443,8 +465,8 @@ extern "C" int tpt_probe_tables(const void* data, const void* npos,
                                 const void* dict, void* len_m, void* idx_m,
                                 void* len_p, void* idx_p, void* counts, int S,
                                 int MP, int wbits, int probe, int mode,
-                                void* stream) {
-  const size_t smem = (size_t)TB5 + (1 << wbits) + 16;
+                                int lrun, void* stream) {
+  const size_t smem = (size_t)TB5 + (1 << wbits) + lrun;
   auto kern = probe_tables<0>;
   if (mode == 1) kern = probe_tables<1>;
   if (mode == 2) kern = probe_tables<2>;
@@ -455,6 +477,6 @@ extern "C" int tpt_probe_tables(const void* data, const void* npos,
   kern<<<grid, TB5, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, (const int32_t*)npos, (const uint8_t*)dict,
       (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_p, (int32_t*)idx_p,
-      (unsigned long long*)counts, MP, wbits, probe);
+      (unsigned long long*)counts, MP, wbits, probe, lrun);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,10 @@ and ``LEXT``, lowest ring slot among the longest.  B2 adds ``(plen,
 pidx)``: target ``dh[s, t+1:]`` against the ring at t, cap 15 (see
 ops/match_v1.py).  Positions >= npos hold len 0, index 0.  The semantics
 oracles are ``engine/search_np.match_tables_ext`` and ``match_tables`` of
-the JAX package; the CUDA kernels are in ``csrc/match_ext.cu``.
+the JAX package.  On the card B1 and B2 are instantiations of the one
+filtered table kernel of ``csrc/match_ext.cu`` that also serves B5: B5's
+bit-plane filter and main family, and a long family that goes on past 16
+bytes only where a survivor's 16 bytes all match.
 """
 
 from __future__ import annotations

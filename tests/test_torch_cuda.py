@@ -355,27 +355,100 @@ def hazard_rows(seed: int, S: int, NP: int, window: int):
     return data.astype(np.uint8), npos.astype(np.int32)
 
 
-@pytest.mark.parametrize("window", [8, 11, 15])
-def test_b1_kernel_equals_plain(cuda, window):
-    lext = compute_min_pattern_size(window, 8) + 131
-    rng = np.random.default_rng(window)
-    dh = torch.from_numpy(rng.integers(97, 101, (2, 4096)).astype(np.uint8))
-    npos = torch.tensor([4096, 1500], dtype=torch.int32)
-    d = torch.from_numpy(dictionary_array(1 << window))
+def _plant(row, dst, src, n):
+    """Copy row[src : src + n] to row[dst : dst + n] byte by byte (an
+    overlapping copy repeats the period dst - src) and break the run after
+    it."""
+    for k in range(n):
+        row[dst + k] = row[src + k]
+    row[dst + n] = row[src + n] ^ 0x40
+
+
+def hazard_rows_ext(seed: int, S: int, NP: int, window: int,
+                    lext: int = 133):
+    """Seeded random model-history rows (S, NP) uint8 and lengths npos with
+    the hazards of the long family (runs to ``lext``) on top of
+    :func:`hazard_rows`' rows 0-7: rows 8-11 random bytes with a repeat of
+    17 and 40, of lext - 1, of lext, and of lext + 20 bytes; row 12 a
+    target at NP - 150 whose 16-byte match sits at a lower ring slot than
+    its 40-byte one (the families pick different slots); row 13 two equal
+    50-byte matches to one target (a tie that ring order settles); rows
+    14-15 periods W - 100 and W - lext + 1 (the glue inside a long run);
+    row 16 period 64, which divides W, so every candidate's run crosses the
+    head, with npos off the 256-position block; row 17 all-equal bytes with
+    npos < lext.  S >= 18, NP >= W + 300.  chip_smoke.py holds a copy."""
+    W = 1 << window
+    data, npos = hazard_rows(seed, S, NP, window)
+    rng = np.random.default_rng(seed + 1)
+    for r in range(8, 14):
+        data[r] = rng.integers(32, 127, NP)
+    _plant(data[8], NP - 260, NP - 260 - 100, 17)
+    _plant(data[8], NP - 200, NP - 200 - (W - 30), 40)
+    _plant(data[9], NP - 300, NP - 300 - 150, lext - 1)
+    _plant(data[10], NP - 300, NP - 300 - (W - 1), lext)
+    _plant(data[11], NP - 250, NP - 250 - 160, lext + 20)
+    dst = NP - 150
+    # slots (ring index p mod W) of the 16- and the 40-byte source
+    lo, hi = dst - W + 1, dst - 41
+    pb = next(p for p in range(hi, lo, -1) if W // 2 <= p % W <= W - 41)
+    pa = next(p for p in range(lo, hi) if p % W < pb % W - 20
+              and (p + 17 < pb or p > pb + 41))
+    _plant(data[12], dst, pb, 40)
+    _plant(data[12], pa, dst, 16)
+    pa = next(p for p in range(lo, hi) if p % W < W - 51)
+    pb = next(p for p in range(dst - 51, lo, -1) if p % W < W - 51 and
+              p > pa + 51)
+    _plant(data[13], pa, dst, 50)
+    _plant(data[13], pb, dst, 50)
+    for r, period in ((14, W - 100), (15, W - lext + 1), (16, 64)):
+        data[r] = np.resize(rng.integers(32, 127, period), NP)
+    data[17] = 0x41
+    npos[16] = NP - 101
+    npos[17] = lext - 3
+    return data, npos
+
+
+# text at windows 8, 11 and 15; the hazard rows of hazard_rows_ext (W + 600
+# positions) at windows 8, 10 and 12, and 12 also at literal 5 (LEXT 134);
+# at 15, where the plain version takes minutes, rows 11, 14 and 15 (the
+# longest repeat, the glue periods) of W + 300 positions
+_EXT_CASES = [(w, 8, "text") for w in (8, 11, 15)] + [
+    (w, lit, "hazards") for w, lit in ((8, 8), (10, 8), (12, 8), (12, 5),
+                                       (15, 8))]
+
+
+def _ext_case(window, literal, rows, seed, n1):
+    """(dh, npos, dict, LEXT) of a B1 or B2 case; ``n1``: the second text
+    row's npos."""
+    W = 1 << window
+    lext = compute_min_pattern_size(window, literal) + 131
+    if rows == "text":
+        rng = np.random.default_rng(seed)
+        dh = rng.integers(97, 101, (2, 4096)).astype(np.uint8)
+        npos = np.asarray([4096, n1], np.int32)
+    else:
+        dh, npos = hazard_rows_ext(seed, 18, W + (300 if window == 15
+                                                   else 600), window, lext)
+        if window == 15:
+            dh, npos = dh[[11, 14, 15]], npos[[11, 14, 15]]
+    d = torch.from_numpy(dictionary_array(W, literal))
+    return torch.from_numpy(dh), torch.from_numpy(npos), d, lext
+
+
+@pytest.mark.parametrize("window,literal,rows", _EXT_CASES)
+def test_b1_kernel_equals_plain(cuda, window, literal, rows):
+    dh, npos, d, lext = _ext_case(window, literal, rows, window, 1500)
     want = ext_tables_plain(dh, npos, d, window_bits=window, LEXT=lext)
     got = ext_tables(dh.to(cuda), npos.to(cuda), d.to(cuda),
                      window_bits=window, LEXT=lext)
+    assert len(got) == 4
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("window", [8, 11, 15])
-def test_b2_kernel_equals_plain(cuda, window):
-    lext = compute_min_pattern_size(window, 8) + 131
-    rng = np.random.default_rng(window + 1)
-    dh = torch.from_numpy(rng.integers(97, 101, (2, 4096)).astype(np.uint8))
-    npos = torch.tensor([4096, 1501], dtype=torch.int32)
-    d = torch.from_numpy(dictionary_array(1 << window))
+@pytest.mark.parametrize("window,literal,rows", _EXT_CASES)
+def test_b2_kernel_equals_plain(cuda, window, literal, rows):
+    dh, npos, d, lext = _ext_case(window, literal, rows, window + 1, 1501)
     want = ext_tables_probe_plain(dh, npos, d, window_bits=window, LEXT=lext)
     got = ext_tables_probe(dh.to(cuda), npos.to(cuda), d.to(cuda),
                            window_bits=window, LEXT=lext)

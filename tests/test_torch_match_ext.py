@@ -1,7 +1,9 @@
 """Kernels B1's and B2's plain versions (tamp_tpu_torch.ops.match_ext)
 against the JAX package: the quarter-lane and byte Pallas kernels in
-interpret mode and the NumPy oracles of engine/search_np.  Integer tables:
-equality is exact."""
+interpret mode and the NumPy oracles of engine/search_np, on text and on the
+seeded hazard rows that the card tests hold the Hopper kernels to
+(tests/test_torch_cuda.py makes them).  Integer tables: equality is
+exact."""
 
 import numpy as np
 import pytest
@@ -11,8 +13,9 @@ from tamp_tpu.dictionary import dictionary_array
 from tamp_tpu.engine.search_np import match_tables, match_tables_ext
 from tamp_tpu.ops.match_ext_pallas import ext_tables_pallas_host
 from tamp_tpu_torch.ops.match_ext import (
-    ext_tables, ext_tables_plain, ext_tables_probe,
+    ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
 )
+from test_torch_cuda import hazard_rows_ext
 
 
 def _text(n: int, seed: int) -> np.ndarray:
@@ -141,3 +144,67 @@ def test_b2_plain_probe_matches_pallas_and_oracle(window, n, pallas):
                                      interpret=True)
         for g, w in zip(got, pal):
             np.testing.assert_array_equal(g, w)
+
+
+def _hazard_ext(window):
+    # NP = W + 600 stays below both oracles' chunk_rows (ROADMAP C), so
+    # they run unchunked
+    W = 1 << window
+    data, npos = hazard_rows_ext(window * 5, 18, W + 600, window)
+    return data, npos, dictionary_array(W, literal=8)
+
+
+@pytest.mark.parametrize("probe", [False, True])
+@pytest.mark.parametrize("window", [8, 10])
+def test_b1_b2_plain_match_oracle_on_hazard_rows(window, probe):
+    # the long family's hazard rows (repeats of 17 to LEXT + 20 bytes, the
+    # two families at different slots, a tie of long matches, the glue
+    # inside long runs, npos off the block and below LEXT) beside B5's
+    maxpat = 133
+    data, npos, d = _hazard_ext(window)
+    fn = ext_tables_probe_plain if probe else ext_tables_plain
+    outs = [o.numpy() for o in fn(
+        torch.from_numpy(data), torch.from_numpy(npos), torch.from_numpy(d),
+        window_bits=window, LEXT=maxpat)]
+    for r in range(data.shape[0]):
+        n = int(npos[r])
+        t16 = match_tables(data[r, :n], d, window, compute_probe=probe)
+        lxo, ixo = match_tables_ext(data[r, :n], d, window, maxpat)
+        want = [t16.len16, t16.idx16, lxo, ixo]
+        if probe:
+            want += [t16.probe_len, t16.probe_idx]
+        assert len(outs) == len(want)
+        for g, w in zip(outs, want):
+            np.testing.assert_array_equal(g[r, :n], w.astype(np.int32))
+            assert not g[r, n:].any()
+    dst = data.shape[1] - 150
+    # row 12: cap 16 takes the 16-byte match, LEXT the 40-byte one at a
+    # higher slot; row 13: two 50-byte matches, one slot
+    assert outs[0][12, dst] == 16 and outs[2][12, dst] == 40
+    assert outs[1][12, dst] < outs[3][12, dst]
+    assert outs[2][13, dst] == 50
+    # the LEXT repeat and the periods reach LEXT (at w8 the linear buffer
+    # cuts rows 9 and 11 short); row 17 (npos < LEXT) does not
+    for r in (10, 14, 15, 16):
+        assert outs[2][r].max() == maxpat
+    assert 0 < outs[2][17].max() < maxpat
+
+
+@pytest.mark.parametrize("row", range(18))
+def test_b1_b2_plain_match_pallas_on_hazard_rows(row):
+    window, maxpat = 8, 133
+    data, npos, d = _hazard_ext(window)
+    n = int(npos[row])
+    got = ext_tables_probe_plain(
+        torch.from_numpy(data[row : row + 1, :n].copy()),
+        torch.tensor([n], dtype=torch.int32), torch.from_numpy(d),
+        window_bits=window, LEXT=maxpat)
+    got = [g[0].numpy() for g in got]
+    swar = ext_tables_pallas_host(data[row, :n], d, window, maxpat, T=512,
+                                  interpret=True, swar=True)
+    byte = ext_tables_pallas_host(data[row, :n], d, window, maxpat,
+                                  probe=True, interpret=True)
+    for g, w in zip(got[:4], swar):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got, byte):
+        np.testing.assert_array_equal(g, w)

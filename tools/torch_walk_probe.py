@@ -3,7 +3,7 @@
 the chain floors of their walks and the parts of their work, on one NVIDIA
 card.
 
-    python3 tools/torch_walk_probe.py [--no-variants]
+    python3 tools/torch_walk_probe.py [--no-variants] [--tables]
 
 Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
 shards, window 10, literal 8.  B4 decodes the main path's container, B3
@@ -21,7 +21,16 @@ out: the slab staging and the stores alone (``b5_stage_ms``) and the scan
 with first-byte compares only (``b5_first_byte_ms``), each also with the
 probe family (``b5_probe_*``), and the share of (position, slot) pairs of
 the main family whose first byte, and whose first two bytes, match
-(``b5_share_1``, ``b5_share_2``).  B4 is also
+(``b5_share_1``, ``b5_share_2``).  B1 and B2 are timed on the model
+history of the same shards (``engine/pipeline_ext.prepare_batch``, as phase
+4 makes it, LEXT = 133) beside the same skeleton's parts run there
+(``b1_stage_ms``, ``b1_first_byte_ms``, and with the probe family
+``b2_stage_ms``, ``b2_first_byte_ms``), with the shares of (position,
+slot) pairs matching one byte, two bytes and 16 bytes or more, runs capped
+at min(npos - t, LEXT, W - x) (``b1_share_1``, ``b1_share_2``,
+``b1_share_16``), and the mean length past 16 of those reaching 16
+(``b1_mean_past_16``); ``--tables`` runs these B1, B2 and B5 parts alone.
+B4 is also
 timed in variants built from ``csrc/decode_commit.cu`` with parts of its
 commit warp cut out (VARIANTS), to split its time between the chain and the
 commit; a variant's output is not checked (``--no-variants`` skips them,
@@ -98,6 +107,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-variants", action="store_true",
                     help="time B4 and B3 and the chain floors only")
+    ap.add_argument("--tables", action="store_true",
+                    help="time the match tables B1, B2 and B5 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_walk_probe: no CUDA device", file=sys.stderr)
@@ -121,9 +132,16 @@ def main() -> int:
     window, literal = 10, 8
     W = 1 << window
     data = cs.corpus(8 * DEFAULT_SHARD_SIZE)
-    blob = compress_sharded(data, shard_size=DEFAULT_SHARD_SIZE, device=dev)
     d = torch.from_numpy(dictionary_array(W, literal)).to(dev)
     res = {"card": cs.smi()}
+    shards = [np.frombuffer(data[i : i + DEFAULT_SHARD_SIZE], np.uint8)
+              for i in range(0, len(data), DEFAULT_SHARD_SIZE)]
+    _p, dh, rc, npos = prepare_batch(shards, window=window)
+    ext_table_parts(res, dev, dh, npos, d, window, literal)
+    if args.tables:
+        v1_table_parts(res, dev, *raw_rows(shards, dev), d, window, literal)
+        return finish(res)
+    blob = compress_sharded(data, shard_size=DEFAULT_SHARD_SIZE, device=dev)
 
     pk, tokens = cs.stream_tokens(dev, blob, window, literal, True)
     S, NBP = pk.shape
@@ -179,9 +197,6 @@ def main() -> int:
         raise RuntimeError("the xla token table differs from B8's")
     del nxt, _st, T, xs, xT
 
-    shards = [np.frombuffer(data[i : i + DEFAULT_SHARD_SIZE], np.uint8)
-              for i in range(0, len(data), DEFAULT_SHARD_SIZE)]
-    _p, dh, rc, npos = prepare_batch(shards, window=window)
     NP = dh.shape[1]
     npos_d = torch.from_numpy(npos).to(dev)
     _t, A, B = ext_fields(torch.from_numpy(dh).to(dev),
@@ -208,37 +223,10 @@ def main() -> int:
     from tamp_tpu_torch.ops.match_v1 import v1_tables
 
     minp = compute_min_pattern_size(window, literal)
-    raw = np.zeros((S, DEFAULT_SHARD_SIZE), np.uint8)
-    for i, x in enumerate(shards):
-        raw[i, : x.shape[0]] = x
-    raw_d = torch.from_numpy(raw).to(dev)
-    nraw_d = torch.tensor([x.shape[0] for x in shards], dtype=torch.int32,
-                          device=dev)
+    raw_d, nraw_d = raw_rows(shards, dev)
     flen, fidx, plen, pidx = v1_tables(raw_d, nraw_d, d, window_bits=window,
                                        cap=v1_cap(window, literal), probe=True)
-    b5_kw = dict(window_bits=window, cap=v1_cap(window, literal))
-    res["b5_ms"], _ = ms_of(lambda: v1_tables(raw_d, nraw_d, d, **b5_kw))
-    res["b5_probe_ms"], _ = ms_of(lambda: v1_tables(raw_d, nraw_d, d,
-                                                    probe=True, **b5_kw))
-    planes = [torch.empty((S, DEFAULT_SHARD_SIZE), dtype=torch.int32,
-                          device=dev) for _ in range(4)]
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    for probe in (0, 1):
-        for mode, key in ((0, "stage"), (1, "first_byte")):
-            name = f"b5_{'probe_' if probe else ''}{key}_ms"
-            res[name], _ = ms_of(lambda: _build.launch(
-                "walk_probe", "tpt_probe_tables", dev,
-                (raw_d, nraw_d, d, *planes, counts),
-                (S, DEFAULT_SHARD_SIZE, window, probe, mode)))
-    counts.zero_()
-    _build.launch("walk_probe", "tpt_probe_tables", dev,
-                  (raw_d, nraw_d, d, *planes, counts),
-                  (S, DEFAULT_SHARD_SIZE, window, 0, 2))
-    pairs = int(nraw_d.sum()) * W
-    res["b5_pairs"] = pairs
-    res["b5_share_1"] = int(counts[0]) / pairs
-    res["b5_share_2"] = int(counts[1]) / pairs
-    del planes, counts
+    v1_table_parts(res, dev, raw_d, nraw_d, d, window, literal)
     P = (flen << 23) | (fidx << 8) | raw_d.to(torch.int32)
     Q = (plen << 15) | pidx
     del flen, fidx, plen, pidx
@@ -273,10 +261,107 @@ def main() -> int:
         n = {"b4": tokens, "b3": steps}.get(k) or res[f"{k}_steps"]
         res[f"{k}_ns_per_step"] = res[f"{k}_ms"] * 1e6 * S / n
         res[f"{k}_chain_ns_per_step"] = res[f"{k}_chain_ms"] * 1e6 * S / n
+    return finish(res)
+
+
+def finish(res) -> int:
     for k, v in res.items():
         print(f"{k}: {v}")
     print(json.dumps(res), flush=True)
     return 0
+
+
+def table_parts(res, key, dev, rows, npos_d, d, window, lrun, probe):
+    """The first port's table skeleton with parts cut out (probe_tables of
+    csrc/walk_probe.cu) on ``rows``: ``{key}_stage_ms`` and
+    ``{key}_first_byte_ms``, and without the probe family the counts of
+    (position, slot) pairs matching 1, 2 and 16 bytes (runs capped at
+    ``lrun``) and the lengths past 16."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.ops import _build
+
+    S, MP = rows.shape
+    planes = [torch.empty((S, MP), dtype=torch.int32, device=dev)
+              for _ in range(4)]
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    for mode, part in ((0, "stage"), (1, "first_byte")):
+        res[f"{key}_{part}_ms"], _ = cs.cuda_ms(lambda: _build.launch(
+            "walk_probe", "tpt_probe_tables", dev,
+            (rows, npos_d, d, *planes, counts),
+            (S, MP, window, int(probe), mode, lrun)), reps=5)
+    if probe:
+        return None
+    _build.launch("walk_probe", "tpt_probe_tables", dev,
+                  (rows, npos_d, d, *planes, counts),
+                  (S, MP, window, 0, 2, lrun))
+    return [int(c) for c in counts.tolist()]
+
+
+def ext_table_parts(res, dev, dh, npos, d, window, literal):
+    """B1 and B2 on the model history ``dh`` (S, NP) beside the skeleton's
+    parts there, and the shares of pairs matching 1, 2 and 16 bytes."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
+
+    lext = compute_min_pattern_size(window, literal) + 131
+    dh_d = torch.from_numpy(dh).to(dev)
+    npos_d = torch.from_numpy(npos).to(dev)
+    kw = dict(window_bits=window, LEXT=lext)
+    res["b1_ms"], _ = cs.cuda_ms(lambda: ext_tables(dh_d, npos_d, d, **kw),
+                                 reps=5)
+    res["b2_ms"], _ = cs.cuda_ms(lambda: ext_tables_probe(dh_d, npos_d, d,
+                                                          **kw), reps=5)
+    res["b1_npos"], res["b1_np"] = int(npos.sum()), dh.shape[1]
+    n1, n2, n16, past = table_parts(res, "b1", dev, dh_d, npos_d, d, window,
+                                    lext, False)
+    table_parts(res, "b2", dev, dh_d, npos_d, d, window, lext, True)
+    pairs = int(npos.astype("int64").sum()) << window
+    res["b1_pairs"] = pairs
+    res["b1_share_1"], res["b1_share_2"] = n1 / pairs, n2 / pairs
+    res["b1_share_16"] = n16 / pairs
+    res["b1_mean_past_16"] = past / max(n16, 1)
+
+
+def raw_rows(shards, dev):
+    """The raw shards as (S, shard size) uint8 rows on ``dev`` and their
+    (S,) int32 lengths."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.parallel.shard import DEFAULT_SHARD_SIZE
+
+    raw = np.zeros((len(shards), DEFAULT_SHARD_SIZE), np.uint8)
+    for i, x in enumerate(shards):
+        raw[i, : x.shape[0]] = x
+    return (torch.from_numpy(raw).to(dev),
+            torch.tensor([x.shape[0] for x in shards], dtype=torch.int32,
+                         device=dev))
+
+
+def v1_table_parts(res, dev, raw_d, nraw_d, d, window, literal):
+    """B5 on the raw shards (rows ``raw_d``, lengths ``nraw_d``), without
+    and with the probe, beside the skeleton's parts there, and the shares
+    of pairs matching 1 and 2 bytes."""
+    import chip_smoke as cs
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_v1 import v1_tables
+
+    b5_kw = dict(window_bits=window, cap=v1_cap(window, literal))
+    res["b5_ms"], _ = cs.cuda_ms(lambda: v1_tables(raw_d, nraw_d, d,
+                                                   **b5_kw), reps=5)
+    res["b5_probe_ms"], _ = cs.cuda_ms(lambda: v1_tables(
+        raw_d, nraw_d, d, probe=True, **b5_kw), reps=5)
+    n1, n2, _n16, _past = table_parts(res, "b5", dev, raw_d, nraw_d, d,
+                                      window, 16, False)
+    table_parts(res, "b5_probe", dev, raw_d, nraw_d, d, window, 16, True)
+    pairs = int(nraw_d.sum()) << window
+    res["b5_pairs"] = pairs
+    res["b5_share_1"], res["b5_share_2"] = n1 / pairs, n2 / pairs
 
 
 if __name__ == "__main__":
