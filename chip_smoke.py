@@ -41,13 +41,20 @@ Phases (any failure raises, and the script exits non-zero):
    below the count, NBP not a multiple of the tile) and on one with a hop
    past its maps, which it must refuse, and B5 on seeded hazard rows at
    windows 8/10/12/15 (all-equal bytes, glue periods, a 15/16 tie,
-   one-byte-only candidates, npos off the block and below 17);
-3. six round trips at full size: 8 x 1 MiB shards of a seeded random-word
+   one-byte-only candidates, npos off the block and below 17); then X3
+   and X4 (the optimal DPs) on seeded hazard shards at w8 l8, w10 l8, w11
+   l6 and w12 l8 (text of 1 to 2048 + 133 bytes around the blocks and the
+   lookback K, all-equal bytes, a long periodic stretch at the cap and the
+   ring-end room caps, forced-RLE chunk splits of 241 and 240, an
+   unencodable literal at l6) and on 4 x 64 KiB of the corpus;
+3. eight round trips at full size: 8 x 1 MiB shards of a seeded random-word
    text with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded`` and ``decompress_sharded_device``: the main path
    (``engine="device-commit"``, extended, no lazy matching), then extended
-   with lazy matching, v1, v1 with lazy matching, and
-   ``engine="device-greedy"`` without and with lazy matching.  For each:
+   with lazy matching, v1, v1 with lazy matching,
+   ``engine="device-greedy"`` without and with lazy matching, and
+   ``engine="device-optimal"`` extended (``optimal``: X4, B4) and v1
+   (``optimal v1``: B5, X3, B3, B4).  For each:
    the kernel launch counts of that one round trip
    (every count set to 0 just before it), encode and decode rates (CUDA
    events, median of 3 after a warm-up), the ratio, and the card's
@@ -61,7 +68,11 @@ Phases (any failure raises, and the script exits non-zero):
    paths: the container equal to the table-less committer's (the card-side
    parity check), a stage breakdown with the bytes pulled per input byte,
    the device's idle share, the dense pull's rate and the table-less
-   threaded committer's rate (the host-only yardstick).  Then the decode
+   threaded committer's rate (the host-only yardstick).  For the optimal
+   paths: the v1 container no larger than the v1 and v1 lazy ones, the
+   extended ratio beside extended lazy's (not checked), a stage split of
+   each encode through its own stage functions and its idle share.  Then
+   the decode
    modes: those four containers and an extended window-15 one of the same
    corpus, each decoded through ``decompress_sharded_device`` with
    ``TAMP_TPU_DECODE`` set to commit, chase and xla, and with
@@ -74,7 +85,9 @@ Phases (any failure raises, and the script exits non-zero):
    word operation per 32 slots of each target); B5 with the probe family
    has a row of its own; the walks' rows (B3, B4, B6, B7) also carry their
    walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
-   replay steps).
+   replay steps); X3 and X4 carry the edges their serial DP relaxes on
+   the path's inputs (``edges``; their operation bound counts an add and
+   a min an edge).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -106,7 +119,12 @@ PATHS = (
      ("v1_tables", "greedy_predict_batch", "commit_decode")),
     ("greedy lazy", {"engine": "device-greedy", "lazy_matching": True},
      ("v1_tables", "greedy_predict_batch", "commit_decode")),
+    ("optimal", {"engine": "device-optimal"},
+     ("opt_ext_choice", "commit_decode")),
+    ("optimal v1", {"engine": "device-optimal", "extended": False},
+     ("v1_tables", "opt_v1_choice", "commit_fields", "commit_decode")),
 )
+OPT_CASES = ((8, 8), (10, 8), (11, 6), (12, 8))  # X3 and X4: window, literal
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -832,6 +850,127 @@ def phase_hazards(dev, report):
                      f"w{window}, cap {cap}, probe={probe}")
 
 
+def hazard_opt_shards(seed: int, window: int, literal: int):
+    """Seeded shards (a list of bytes) aimed at the optimal DPs' hazards
+    (kernels X3 and X4): text of 1, 15, 16, 17, 1023, 1024, 1025, 1024 +
+    134 and 2048 + 133 bytes (sizes straddling the blocks and the lookback
+    K, npos < K), all-equal bytes, a long periodic stretch (matches at the
+    cap; in the extended format ring-end room caps), byte runs whose
+    forced-RLE regions split into chunks of 241 and 240, and below literal
+    8 a byte wider than the literal amid text.  A copy of the generator in
+    tests/test_torch_cuda.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lmask = (1 << literal) - 1
+    words = [bytes(int(x) & lmask for x in rng.integers(97, 123, int(k)))
+             for k in rng.integers(2, 9, 48)]
+    sep = bytes([32 & lmask])
+
+    def text(n):
+        return sep.join(words[int(i)]
+                        for i in rng.integers(0, 48, n // 2 + 2))[:n]
+
+    shards = [text(n) for n in (1, 15, 16, 17, 1023, 1024, 1025, 1024 + 134,
+                                2048 + 133)]
+    shards.append(bytes([int(rng.integers(0, lmask + 1))]) * 1500)
+    period = bytes(int(x) & lmask for x in rng.integers(0, 256, 23))
+    shards.append((period * 100)[: 2000 + int(rng.integers(0, 100))])
+    # run r of value (37 r + 5) & lmask: regions of 242 (chunk 240 + 2), 483
+    # (241 + 240 + 2), 241, 12, 11 (no region) and 243 (241 + 2) bytes
+    shards.append(b"".join(bytes([(37 * r + 5) & lmask]) * c for r, c in
+                           enumerate((243, 484, 242, 13, 12, 244, 1, 2000)))
+                  + text(300))
+    if literal < 8:
+        bad = bytearray(text(900))
+        bad[450] = 0xFF
+        shards.append(bytes(bad))
+    return shards
+
+
+def v1_opt_inputs(shards, window: int, literal: int):
+    """Kernel X3's inputs for shards (numpy): (flen, data, npos), flen the
+    exact tables at cap min(16, minp + 13) of the v1 default window
+    (engine/greedy.host_v1_tables), NP a power of two >= 512."""
+    import numpy as np
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.greedy import host_v1_tables
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+
+    NP = 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
+    S = len(shards)
+    flen = np.zeros((S, NP), np.int32)
+    data = np.zeros((S, NP), np.uint8)
+    d8 = dictionary_array(1 << window, literal=8)
+    for i, x in enumerate(shards):
+        arr = np.frombuffer(x, np.uint8)
+        flen[i, : len(x)] = host_v1_tables(
+            arr, window=window, literal=literal, cap=v1_cap(window, literal),
+            dictionary=d8)[0]
+        data[i, : len(x)] = arr
+    return flen, data, np.asarray([len(x) for x in shards], np.int32)
+
+
+def ext_opt_inputs(shards, window: int, literal: int):
+    """Kernel X4's inputs for shards (numpy), as the optimal extended
+    encode makes them: (packed, data or None, npos, sideband_pos,
+    sideband_cw)."""
+    import numpy as np
+
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        optimal_batch, optimal_prep,
+    )
+
+    datas = [np.frombuffer(x, np.uint8) for x in shards]
+    prep = optimal_prep(datas, window=window, literal=literal)
+    return optimal_batch(datas, prep, literal=literal)
+
+
+def on_device(dev, arrays):
+    import torch
+
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in arrays]
+
+
+def phase_optimal_small(dev, report):
+    """Phase 2, the optimal DPs: kernels X3 and X4 against their plain
+    versions (run on the card) on seeded hazard shards at w8 l8, w10 l8,
+    w11 l6 (with an unencodable literal) and w12 l8, and on 4 x 64 KiB of
+    the corpus at w10 l8, exactly: choice, cost0 and bad."""
+    from tamp_tpu_torch.ops.opt_parse import (
+        opt_v1_choice, opt_v1_choice_plain,
+    )
+    from tamp_tpu_torch.ops.opt_parse_ext import (
+        opt_ext_choice, opt_ext_choice_plain,
+    )
+
+    text = corpus(4 * SMALL, seed=9)
+    for window, literal in OPT_CASES:
+        cases = [("hazards", hazard_opt_shards(window, window, literal))]
+        if (window, literal) == (10, 8):
+            cases.append(("corpus", [text[i : i + SMALL]
+                                     for i in range(0, len(text), SMALL)]))
+        kw = dict(window=window, literal=literal)
+        for what, shards in cases:
+            for name, fn, plain, inputs in (
+                    ("X3", opt_v1_choice, opt_v1_choice_plain,
+                     v1_opt_inputs),
+                    ("X4", opt_ext_choice, opt_ext_choice_plain,
+                     ext_opt_inputs)):
+                args = on_device(dev, inputs(shards, window, literal))
+                got = fn(*args, **kw)
+                sync(dev)
+                err = max_abs_err(zip(got, plain(*args, **kw)))
+                if err:
+                    fail(f"{name} differs from its plain version on the "
+                         f"{what} shards at w{window} l{literal}: "
+                         f"max_abs_err {err}")
+        report(f"X3, X4 at w{window} l{literal}: equal to their plain "
+               f"versions on {' and '.join(c[0] for c in cases)} shards")
+
+
 def phase_kernels_small(dev, report):
     """Phase 2: each kernel against its plain version, reduced size."""
     import numpy as np
@@ -1197,11 +1336,14 @@ def counters():
     from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
     from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
     from tamp_tpu_torch.ops.match_v1 import v1_tables
+    from tamp_tpu_torch.ops.opt_parse import opt_v1_choice
+    from tamp_tpu_torch.ops.opt_parse_ext import opt_ext_choice
     from tamp_tpu_torch.ops.token_chase import token_table_chase
 
     fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
            v1_tables, commit_v1_lazy, token_table_chase, trunc_deficits,
-           serial_decode, greedy_predict_batch)
+           serial_decode, greedy_predict_batch, opt_v1_choice,
+           opt_ext_choice)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -1469,6 +1611,131 @@ def phase_v1_split(dev, report, data, blob, shard_size: int, card: str,
            f"{med[fused] - med[b5]:.2f} ms [{card}]")
 
 
+def phase_optimal(dev, report, data, blobs, ratios, shard_size: int,
+                  card: str):
+    """Phase 3, the optimal encodes: the v1 optimal container no larger
+    than the v1 and v1 lazy device-commit ones (minimum bits over their
+    token family), the extended one's ratio beside extended lazy (other
+    token families: not checked); where each encode's time goes, through
+    the entry points' own stage functions (engine/pipeline.py,
+    engine/pipeline_ext.py; host clock around work that ends in a
+    synchronize, median of 3 after a warm-up), the staged containers
+    equal to the round trips'; and each encode's device idle share."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.engine.encode import model_history
+    from tamp_tpu_torch.engine.pipeline import (
+        optimal_fields_v1, optimal_streams_v1, pad_shards, pull_body_bytes,
+    )
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        optimal_batch, optimal_emit, optimal_prep,
+    )
+    from tamp_tpu_torch.ops.encode_commit import commit_fields
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_v1 import v1_tables
+    from tamp_tpu_torch.ops.opt_parse import INF, opt_v1_choice
+    from tamp_tpu_torch.ops.opt_parse_ext import opt_ext_choice
+    from tamp_tpu_torch.parallel.shard import _pack_frame, compress_sharded
+
+    opt = len(blobs["optimal v1"])
+    if opt > len(blobs["v1"]) or opt > len(blobs["v1 lazy"]):
+        fail(f"optimal v1: container of {opt} bytes is larger than v1's "
+             f"({len(blobs['v1'])}) or v1 lazy's ({len(blobs['v1 lazy'])})")
+    report(f"  optimal v1: ratio {ratios['optimal v1']:.6f} beside v1 "
+           f"{ratios['v1']:.6f} and v1 lazy {ratios['v1 lazy']:.6f}")
+    report(f"  optimal: ratio {ratios['optimal']:.6f} beside extended lazy "
+           f"{ratios['extended lazy']:.6f} and extended "
+           f"{ratios['extended']:.6f} (other token families, not checked)")
+
+    window, literal = 10, 8
+    datas = [np.frombuffer(data[i : i + shard_size], np.uint8)
+             for i in range(0, len(data), shard_size)]
+    kw = dict(window=window, literal=literal)
+
+    def split(name, steps):
+        stages: dict[str, list[float]] = {}
+        for _ in range(4):
+            vals = {}
+            for stage, fn in steps:
+                sync(dev)
+                t = time.perf_counter()
+                vals[stage] = fn(vals)
+                sync(dev)
+                stages.setdefault(stage, []).append(
+                    (time.perf_counter() - t) * 1e3)
+        if vals["frame"] != blobs[name]:
+            fail(f"{name}: the staged encode differs from the round trip's")
+        total = 0.0
+        for stage, times in stages.items():
+            ms = statistics.median(times[1:])
+            total += ms
+            report(f"  {name} encode {stage}: {ms:.2f} ms [{card}]")
+        report(f"  {name} encode, sum of the stages: {total:.2f} ms [{card}]")
+
+    def v1_d2h(v):
+        out, state, cost0 = v["B3 commit_fields (to npos + 15)"]
+        if (cost0.cpu() >= INF).any():
+            fail("optimal v1: a shard of the corpus cannot be coded")
+        st = state.cpu().numpy()
+        return st, pull_body_bytes(out, st)
+
+    split("optimal v1", (
+        ("host prep (pad, window)", lambda v: (
+            pad_shards(datas),
+            model_history(datas[0][:0], window, literal, False, None)[0])),
+        ("host->device", lambda v: on_device(dev, (
+            *v["host prep (pad, window)"][0],
+            v["host prep (pad, window)"][1].copy()))),
+        ("B5 v1_tables", lambda v: v1_tables(
+            *v["host->device"], window_bits=window,
+            cap=v1_cap(window, literal))),
+        ("X3 opt_v1_choice", lambda v: opt_v1_choice(
+            v["B5 v1_tables"][0], *v["host->device"][:2], **kw)),
+        ("fields", lambda v: optimal_fields_v1(
+            v["X3 opt_v1_choice"][0], v["B5 v1_tables"][1],
+            *v["host->device"][:2], **kw)),
+        ("B3 commit_fields (to npos + 15)", lambda v: (*commit_fields(
+            *v["fields"], v["host->device"][1] + 15,
+            max_out=shard_size + shard_size // 8 + 64),
+            torch.where(v["X3 opt_v1_choice"][2], INF,
+                        v["X3 opt_v1_choice"][1]))),
+        ("device->host state rows, cost0 and body bytes", v1_d2h),
+        ("frame", lambda v: _pack_frame(optimal_streams_v1(
+            v["device->host state rows, cost0 and body bytes"][1],
+            v["device->host state rows, cost0 and body bytes"][0], **kw,
+            custom=False), len(data), shard_size)),
+    ))
+
+    def ext_d2h(v):
+        choice, cost0, bad = v["X4 opt_ext_choice"]
+        if bad.any() or (cost0 >= INF).any():
+            fail("optimal: a shard of the corpus cannot be coded")
+        return choice.cpu().numpy()
+
+    split("optimal", (
+        ("host runs + tables (a thread a shard)",
+         lambda v: optimal_prep(datas, **kw)),
+        ("host planes (pad, sideband)", lambda v: optimal_batch(
+            datas, v["host runs + tables (a thread a shard)"],
+            literal=literal)),
+        ("host->device", lambda v: on_device(
+            dev, v["host planes (pad, sideband)"])),
+        ("X4 opt_ext_choice", lambda v: opt_ext_choice(
+            *v["host->device"], **kw)),
+        ("device->host choice plane", ext_d2h),
+        ("walk + emit (a thread a shard)", lambda v: optimal_emit(
+            datas, v["host runs + tables (a thread a shard)"],
+            v["device->host choice plane"], **kw, custom_dict=False)),
+        ("frame", lambda v: _pack_frame(
+            v["walk + emit (a thread a shard)"], len(data), shard_size)),
+    ))
+    for name, ext in (("optimal v1", False), ("optimal", True)):
+        idle_share(report, f"{name} encode", lambda: compress_sharded(
+            data, shard_size=shard_size, engine="device-optimal",
+            extended=ext), card)
+
+
 def phase_greedy(dev, report, data, blob, shard_size: int, card: str,
                  lazy: bool):
     """Phase 3, a greedy path: its container (``blob``) equal to the
@@ -1561,10 +1828,6 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
     lazy matching)."""
     import os
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tamp_tpu_torch.parallel.shard import (
         compress_sharded, decompress_sharded_device,
     )
@@ -1587,24 +1850,37 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
             ("greedy lazy encode", lambda: compress_sharded(
                 data, shard_size=shard_size, engine="device-greedy",
                 lazy_matching=True))):
-        fn()  # warm
+        idle_share(report, name, fn, card)
+
+
+def idle_share(report, name: str, fn, card: str) -> float:
+    """Device busy time and idle share of one call of ``fn`` (after a warm
+    call), from a torch.profiler trace: the device activity (kernels and
+    copies) summed over the call's wall time; reports the five largest
+    device rows and returns the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        rows = [(e.self_device_time_total / 1e3, e.key, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(r[0] for r in rows)
-        if busy <= 0:
-            fail(f"the profiler saw no device activity in the {name}")
-        report(f"  profile {name}: wall {wall:.1f} ms, device busy "
-               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f} [{card}]")
-        for ms, key, count in sorted(rows, reverse=True)[:5]:
-            report(f"    {ms:8.3f} ms x{count} {key[:80]}")
+        wall = (time.perf_counter() - t) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        fail(f"the profiler saw no device activity in the {name}")
+    report(f"  profile {name}: wall {wall:.1f} ms, device busy "
+           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f} [{card}]")
+    for ms, key, count in sorted(rows, reverse=True)[:5]:
+        report(f"    {ms:8.3f} ms x{count} {key[:80]}")
+    return 1 - busy / wall
 
 
 def walk_count(rows, stops, step):
@@ -1672,6 +1948,15 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
     )
     from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        optimal_batch, optimal_prep,
+    )
+    from tamp_tpu_torch.ops.opt_parse import (
+        opt_v1_choice, opt_v1_choice_plain,
+    )
+    from tamp_tpu_torch.ops.opt_parse_ext import (
+        opt_ext_choice, opt_ext_choice_plain,
+    )
 
     window, literal = 10, 8
     W = 1 << window
@@ -1946,6 +2231,61 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         ops=out_bytes))
     del got, plain
 
+    # X3: the optimal v1 path's DP over B5's tables of the raw shards
+    minp = compute_min_pattern_size(window, literal)
+    kw = dict(window=window, literal=literal)
+    flen = v1_tables(raw_d, nraw_d, dict1, window_bits=window,
+                     cap=v1_cap(window, literal))[0]
+    ms, got = cuda_ms(lambda: opt_v1_choice(flen, raw_d, nraw_d, **kw))
+    pms, plain = cuda_ms(lambda: opt_v1_choice_plain(flen, raw_d, nraw_d,
+                                                     **kw), reps=1)
+    # the serial DP relaxes, per in-shard position, the literal edge and
+    # the match sizes minp..min(flen, minp + 13): an add and a min each
+    inside = (torch.arange(shard_size, device=dev)[None, :]
+              < nraw_d[:, None])
+    n_edges = int(torch.where(inside, 1 + torch.clamp_min(torch.clamp_max(
+        flen, minp + 13) - minp + 1, 0), 0).sum())
+    report(f"  X3 inputs: {n_edges} edges over {n_raw} positions [{card}]")
+    kernels.append(dict(
+        name="opt_v1_choice (X3)", route="cuda",
+        source="tamp_tpu_torch/csrc/opt_parse.cu",
+        replaces="tamp_tpu/ops/opt_parse.py:66",
+        launches=launches["optimal v1"]["opt_v1_choice"],
+        max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
+        edges=n_edges,
+        # flen and data read once, the int32 choice plane written once
+        bytes=9 * S * shard_size + 12 * S, ops=2 * n_edges))
+    del flen, got, plain, inside
+
+    # X4: the optimal path's DP over the host prep of the raw shards
+    planes = optimal_batch(shards, optimal_prep(shards, **kw), literal=literal)
+    args = on_device(dev, planes)
+    ms, got = cuda_ms(lambda: opt_ext_choice(*args, **kw))
+    pms, plain = cuda_ms(lambda: opt_ext_choice_plain(*args, **kw), reps=1)
+    pk = args[0]
+    MP, C = pk.shape[1], planes[3].shape[1]
+    room = ((pk >> 8) & 0x7FFF) + 1
+    hi = torch.minimum(torch.minimum(pk & 0xFF, (pk >> 23) & 0xFF),
+                       torch.where(room >= minp + 12, room, minp + 11))
+    hi = torch.clamp_max(hi, minp + 131)
+    inside = torch.arange(MP, device=dev)[None, :] < args[2][:, None]
+    n_edges = int(torch.where(inside, torch.where(
+        pk < 0, 1, 1 + torch.clamp_min(hi - minp + 1, 0)), 0).sum())
+    report(f"  X4 inputs: {n_edges} edges over {n_raw} positions, "
+           f"{int((inside & (pk < 0)).sum())} inside forced-RLE regions, "
+           f"{int((planes[3] < MP).sum())} chunks [{card}]")
+    kernels.append(dict(
+        name="opt_ext_choice (X4)", route="cuda",
+        source="tamp_tpu_torch/csrc/opt_parse.cu",
+        replaces="tamp_tpu/ops/opt_parse_ext.py:57",
+        launches=launches["optimal"]["opt_ext_choice"],
+        max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
+        edges=n_edges,
+        # the packed plane and the sideband read once, the uint8 choice
+        # plane written once
+        bytes=5 * S * MP + 8 * S * C + 12 * S, ops=2 * n_edges))
+    del args, got, plain, pk, room, hi, inside
+
     ops_per_s = int_ops_per_s()  # every kernel's work is integer work
     report(f"  integer peak {ops_per_s / 1e12:.2f} T/s [{card}]")
     for k in kernels:
@@ -1958,6 +2298,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         # the walks: steps (tokens for B4), and ns a step of a shard
         steps = (f", {k['steps']} steps, {k['ms'] * 1e6 * S / k['steps']:.1f}"
                  " ns a step a shard" if "steps" in k else "")
+        if "edges" in k:
+            steps = f", {k['edges']} edges"
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
                f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
                f"launches {k['launches']}, max_abs_err {k['max_abs_err']}"
@@ -1999,6 +2341,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_small(dev, report)
     phase_hazards(dev, report)
+    phase_optimal_small(dev, report)
     report(f"phase 2: kernels equal to their plain versions "
            f"({time.perf_counter() - t0:.1f} s)")
 
@@ -2027,6 +2370,7 @@ def main() -> int:
                    f"{base} {ratios[base]:.6f}")
             phase_greedy(dev, report, data, blobs[name], DEFAULT_SHARD_SIZE,
                          card, lazy="lazy" in name)
+    phase_optimal(dev, report, data, blobs, ratios, DEFAULT_SHARD_SIZE, card)
     for fmt in ("extended", "v1", "greedy"):
         if not ratios[f"{fmt} lazy"] < ratios[fmt]:
             fail(f"{fmt}: lazy matching did not beat the greedy parse on "
@@ -2035,7 +2379,7 @@ def main() -> int:
     from tamp_tpu_torch.parallel.shard import compress_sharded
 
     modes_in = {k: v for k, v in blobs.items()
-                if not k.startswith("greedy")}
+                if not k.startswith(("greedy", "optimal"))}
     modes_in["extended w15"] = compress_sharded(
         data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev)
     report(f"phase 3: extended w15 container encoded in "

@@ -45,6 +45,9 @@ FLUSH_SYMBOL = 14
 RLE_TRAILING_BITS = 4
 EXTENDED_MATCH_TRAILING_BITS = 3
 
+#: At most this many bytes of an RLE run are written into the window.
+RLE_MAX_WINDOW_WRITE = 8
+
 #: XorShift32 seed used for default dictionary initialization
 #: (reference: tamp/__init__.py:37, discovered by tools/find_seed.py).
 DICTIONARY_SEED = 3758097560

@@ -19,6 +19,13 @@
 // So the stream never depends on which entries arrive.  With no tables the
 // committer is the reference greedy encoder itself.
 //
+// Also copied, for the optimal extended encode (engine/pipeline_ext.py):
+// the per-position exact tables of the v1 ring model at any cap, with the
+// khat write counts of forced RLE (tampn_v1_tables, its prefix-property
+// seed kept as it is so that fidx stays the lowest slot among ties), and
+// the walk that expands the card's choice plane into tokens
+// (tampn_opt_ext_walk).
+//
 // Left out of the copy: the planned mode (run plans, model history, forced
 // RLE, one-shot extended emits), divergence avoidance, the streaming
 // handles and the decoders.  The Huffman encode tables are constant data;
@@ -663,6 +670,82 @@ int tpt_greedy_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
   int rc = c.run(bw);
   *out_len = bw.n;
   return rc;
+}
+
+// Exact per-position tables of data[0..n) against the v1 ring model
+// dict || data: flen[t] the longest match (0 below minp) capped at cap,
+// fidx[t] its lowest ring slot.  khat (nullable, n + 1 entries): the model
+// write counts of forced RLE; byte t enters the ring only where
+// khat[t + 1] > khat[t].  dict: the initial window, 1 << window bytes.
+// A copy of tampn_v1_tables without its probe family.
+int tpt_v1_tables(const uint8_t* data, int64_t n, const uint8_t* dict,
+                  int window, int literal, int cap, const uint32_t* khat,
+                  uint8_t* flen, int32_t* fidx) {
+  Committer c;
+  c.W = 1 << window; c.wmask = c.W - 1; c.wbits = window; c.literal = literal;
+  c.minp = min_pattern_size(window, literal);
+  c.maxpat = cap;
+  c.lazy = false;
+  c.data = data; c.N = n;
+  c.full_cap = cap;
+  c.ring.assign(dict, dict + c.W);
+  c.seed_chains();
+  int prev_len = 0, prev_idx = 0;
+  for (int64_t t = 0; t < n; t++) {
+    int tl = (int)((n - t) < cap ? (n - t) : cap);
+    // prefix-property seed: last position's length-L match at slot x gives
+    // a valid length L-1 candidate at slot x+1, unless the intervening
+    // ring write landed inside it
+    int seed_len = prev_len - 1, seed_slot = prev_idx + 1;
+    if (seed_len >= c.minp) {
+      int w_slot = c.pos == 0 ? c.W - 1 : c.pos - 1;  // last written slot
+      if (w_slot >= seed_slot && w_slot < seed_slot + seed_len) seed_len = 0;
+    } else {
+      seed_len = 0;
+    }
+    SearchResult r = c.chain_search(data + t, tl, cap, 0, seed_len, seed_slot);
+    flen[t] = (uint8_t)(r.size < c.minp ? 0 : r.size);
+    fidx[t] = r.idx;
+    prev_len = r.size >= c.minp ? r.size : 0;
+    prev_idx = r.idx;
+    if (!khat || khat[t + 1] > khat[t]) c.ring_push(data[t]);
+  }
+  return 0;
+}
+
+// Expand a per-position choice plane (the card's optimal DP, kernel X4)
+// into (sizes, kinds) tokens: advance by choice outside the forced-RLE
+// regions runs[2k]..runs[2k+1], and cut each region into RLE chunks by
+// the 241/240 rule.  kinds: 0 literal, 1 basic, 2 extended, 3 RLE.
+// Returns 0, or -1 on a choice below 1.  A copy of tampn_opt_ext_walk.
+int tpt_opt_ext_walk(const uint8_t* choice, int64_t n, int minp,
+                     const int64_t* runs, int n_runs, uint8_t* sizes,
+                     uint8_t* kinds, int64_t* n_tokens) {
+  int wi = 0;
+  int64_t t = 0;
+  for (int64_t i = 0; i < n;) {
+    while (wi < n_runs && runs[2 * wi + 1] <= i) wi++;
+    if (wi < n_runs && i >= runs[2 * wi] && i < runs[2 * wi + 1]) {
+      const int64_t b = runs[2 * wi + 1];
+      while (i < b) {
+        int64_t rest = b - i;
+        int count = rest >= 243 ? 241 : (rest == 242 ? 240 : (int)rest);
+        sizes[t] = (uint8_t)count;
+        kinds[t] = 3;
+        t++;
+        i += count;
+      }
+      continue;
+    }
+    int ch = choice[i];
+    if (ch < 1) return -1;
+    sizes[t] = (uint8_t)ch;
+    kinds[t] = ch == 1 ? 0 : (ch <= minp + 11 ? 1 : 2);
+    t++;
+    i += ch;
+  }
+  *n_tokens = t;
+  return 0;
 }
 
 }  // extern "C"

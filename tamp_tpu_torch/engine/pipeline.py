@@ -14,9 +14,16 @@ fused branch, ops/encode_fused.py) and ``_pull_body_bytes``:
      cache.
 
 Output is byte-identical to the JAX package's device-commit v1 encode and
-to the native encoder (``extended=False``).  The optimal v1 encode and the
-``engine="device"`` one-shot functions of the JAX module are not ported
-(ROADMAP.md queue A).
+to the native encoder (``extended=False``).
+
+:func:`encode_v1_device_optimal` is the counterpart of the JAX module's
+``encode_v1_device_optimal`` and its stage ``_opt_v1_stage_impl``: the
+minimum-bit parse on the card (:func:`v1_optimal_stage`: kernel B5's tables
+at cap ``min(16, minp + 13)``, kernel X3's DP, the fields of the chosen
+tokens, kernel B3 walking to the end of each shard), and on the host only
+the header and the bit remainder.  Streams are byte-identical to the JAX
+package's ``encode_v1(parse="optimal")``.  The ``engine="device"``
+one-shot functions of the JAX module are not ported (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -32,12 +39,17 @@ from ..exceptions import ExcessBitsError
 from ..ops.encode_commit import (
     S_ACC, S_AN, S_CIDX, S_CSZ, S_ERR, S_NBYTES, S_T, TILE,
 )
-from ..ops.encode_fused import encode_v1_fused
+from ..ops.encode_commit import commit_fields
+from ..ops.encode_fused import encode_v1_fused, v1_cap
+from ..ops.match_v1 import v1_tables
+from ..ops.opt_parse import INF, opt_v1_choice
 from .commit import ring_find_longest, ring_model_snapshot
 from .encode import bits_to_bytes, build_header, model_history
 
-__all__ = ["encode_v1_device_commit", "finish_streams", "pad_shards",
-           "pull_body_bytes"]
+__all__ = ["encode_v1_device_commit", "encode_v1_device_optimal",
+           "v1_optimal_stage", "optimal_fields_v1", "optimal_streams_v1",
+           "finish_streams",
+           "pad_shards", "pull_body_bytes"]
 
 
 def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
@@ -173,3 +185,108 @@ def finish_streams(datas, histories, state: np.ndarray, bodies, *,
         tail = bits_to_bytes(fields, int(st[S_ACC]), int(st[S_AN]))
         results.append(bytes([hv]) + bodies[i].tobytes() + tail)
     return results
+
+
+def optimal_fields_v1(choice: torch.Tensor, fidx: torch.Tensor,
+                      data: torch.Tensor, npos: torch.Tensor, *, window: int,
+                      literal: int):
+    """(A, B) fields of the optimal v1 tokens at every position: a match of
+    size ``choice`` (huffman(size - minp), then its ring slot ``fidx``) or
+    a literal, two consecutive literals fused into one field of advance 2
+    unless the second lies past the shard (padding positions are free
+    literals, not tokens).  B = ``nb | adv << 6 | err << 14``, err an
+    in-shard literal wider than ``literal`` bits."""
+    minp = compute_min_pattern_size(window, literal)
+    lit_flag = 1 << literal
+    lit_limit = 256 if literal == 8 else lit_flag
+    nbl = literal + 1
+    NP = choice.shape[1]
+    di = data.to(torch.int32)
+    in_shard = (torch.arange(NP, device=choice.device)[None, :]
+                < npos.to(torch.int64)[:, None])
+    is_lit = choice == 1
+    sym = torch.clamp(choice - minp, 0, 13)
+    hsel = torch.tensor(
+        [(HUFFMAN_CODES[sy] << window) | ((HUFFMAN_LENGTHS[sy] + window) << 25)
+         for sy in range(14)], dtype=torch.int32, device=choice.device)[
+        sym.long()]
+    A = torch.where(is_lit, lit_flag | di, (hsel & 0x1FFFFFF) | fidx)
+    nb = torch.where(is_lit, nbl, (hsel >> 25) & 31)
+    err = is_lit & (di >= lit_limit) & in_shard
+    adv = choice
+    nxt_lit = torch.roll(is_lit, -1, 1)
+    nxt_lit[:, -1] = False
+    nxt_in = torch.roll(in_shard, -1, 1)
+    nxt_in[:, -1] = False
+    pair = is_lit & nxt_lit & nxt_in
+    A = torch.where(pair, (A << nbl) | torch.roll(A, -1, 1), A)
+    nb = torch.where(pair, 2 * nbl, nb)
+    adv = torch.where(pair, 2, adv)
+    err = torch.where(pair, err | torch.roll(err, -1, 1), err)
+    return A, (nb | (adv << 6) | (err.to(torch.int32) << 14)).to(torch.int32)
+
+
+def v1_optimal_stage(data: torch.Tensor, npos: torch.Tensor,
+                     dict_arr: torch.Tensor, *, window: int, literal: int,
+                     max_out: int):
+    """The optimal v1 encode's device half for one batch: (bytes (S,
+    max_out) uint8, state (S, 16) int32, cost0 (S,) int32).
+
+    Kernel B5's tables, kernel X3's choice (``cost0`` is INF where a shard
+    has an in-shard position with no valid token, as the native DP
+    raises there even if its walk never visits it), the fields, and
+    kernel B3 on ``npos + 15``: the optimal fields are exact at every
+    position, so the walk runs to the end of each shard."""
+    flen, fidx = v1_tables(data, npos, dict_arr, window_bits=window,
+                           cap=v1_cap(window, literal))
+    choice, cost0, bad = opt_v1_choice(flen, data, npos, window=window,
+                                       literal=literal)
+    cost0 = torch.where(bad, INF, cost0)
+    A, B = optimal_fields_v1(choice, fidx, data, npos, window=window,
+                             literal=literal)
+    out, state = commit_fields(A, B, npos + 15, max_out=max_out)
+    return out, state, cost0
+
+
+def encode_v1_device_optimal(shards, *, window: int = 10, literal: int = 8,
+                             dictionary: bytes | None = None,
+                             device=None) -> list[bytes]:
+    """Optimal (minimum-bit) v1 encode of a batch of shards, one Tamp
+    stream each, byte-identical to the JAX package's
+    ``encode_v1(parse="optimal")``.
+
+    The whole batch is one device stage (:func:`v1_optimal_stage`); the
+    JAX package splits batches of four or more shards in two for the TPU's
+    memory, which the streams do not depend on.  ``dictionary``: a
+    full-window custom dictionary, else the v1 default.  ``device``: None
+    for the CUDA card; ``"cpu"`` runs the plain versions.  Raises
+    ExcessBitsError where a byte fits neither a literal nor a match."""
+    compute_min_pattern_size(window, literal)  # validates the config
+    dev = resolve_device(device)
+    datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
+    if not datas:
+        return []
+    dict_arr, _ = model_history(datas[0][:0], window, literal, False,
+                                dictionary)
+    batch, npos = pad_shards(datas)
+    NP = batch.shape[1]
+    out, state, cost0 = v1_optimal_stage(
+        torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
+        torch.from_numpy(dict_arr.copy()).to(dev), window=window,
+        literal=literal, max_out=NP + NP // 8 + 64)
+    state = state.cpu().numpy()
+    if (state[:, S_ERR] != 0).any() or (cost0.cpu().numpy() >= INF).any():
+        raise ExcessBitsError
+    return optimal_streams_v1(pull_body_bytes(out, state), state,
+                              window=window, literal=literal,
+                              custom=dictionary is not None)
+
+
+def optimal_streams_v1(bodies, state: np.ndarray, *, window: int,
+                       literal: int, custom: bool) -> list[bytes]:
+    """Each shard's optimal v1 stream: the header, the commit's body bytes
+    and its bit remainder (up to 31 bits, ``state`` on the host)."""
+    (hv, _hn), = build_header(window, literal, custom, False, False)
+    return [bytes([hv]) + body.tobytes()
+            + bits_to_bytes((), int(st[S_ACC]), int(st[S_AN]))
+            for body, st in zip(bodies, state)]

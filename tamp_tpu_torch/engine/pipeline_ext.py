@@ -28,6 +28,15 @@ crosses to the device with the model bytes.
 committer (engine/greedy.py) per shard, whose streams are byte-identical
 to the reference greedy encoder.  The card ships the tables sparsely, at
 the token starts kernel B7 predicts (ops/greedy_predict.py), or densely.
+
+:func:`encode_ext_device_optimal` is the counterpart of the JAX package's
+``encode_ext_device_optimal``: per shard on the host the forced-RLE
+regions (engine/encode.opt_ext_runs), the khat-aware cap-maxpat tables
+(engine/greedy.host_v1_tables) and the packed DP plane with its chunk
+sideband (:func:`optimal_prep`); on the card kernel X4's DP; on the host
+the choice walk (engine/greedy.opt_ext_walk) and the bit pack
+(engine/encode.opt_ext_emit).  Streams are byte-identical to the JAX
+package's ``encode_extended_optimal``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..constants import compute_min_pattern_size
+from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from ..device import resolve_device
 from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
@@ -48,11 +57,13 @@ from ..ops.encode_commit import (
 from ..ops.greedy_predict import greedy_predict_batch, pack_predict_plane
 from ..ops.match_ext import ext_tables, ext_tables_probe
 from ..ops.match_v1 import v1_tables
+from ..ops.opt_parse import INF
+from ..ops.opt_parse_ext import opt_ext_choice
 from ..ops.plan_ext import (
     MAX_PLAN_WINDOW, SPLIT_WINDOW, derive_region_arrays, plan_fields_ext,
 )
-from .encode import build_header
-from .greedy import SPARSE_NONE, greedy_compress
+from .encode import build_header, opt_ext_emit, opt_ext_runs
+from .greedy import SPARSE_NONE, greedy_compress, host_v1_tables, opt_ext_walk
 from .pipeline import pad_shards, pull_body_bytes
 from .plan import ext_prep
 from .tail import TAIL_ROWS, ext_tail_bits
@@ -61,7 +72,8 @@ __all__ = ["encode_ext_device_commit", "encode_ext_device_greedy",
            "ext_device_stage", "ext_fields", "prepare_batch",
            "greedy_tables", "greedy_predict_planes", "greedy_sparse_stage",
            "greedy_dense_stage", "pull_sparse", "sparse_tables",
-           "greedy_commits"]
+           "greedy_commits", "encode_ext_device_optimal", "optimal_prep",
+           "optimal_prep_shard", "optimal_batch", "optimal_emit"]
 
 
 def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
@@ -286,18 +298,24 @@ def _dense_tables(planes, n: int, lazy: bool):
     return tuple(tabs)
 
 
+def _per_shard(fn, n: int) -> list:
+    """``[fn(i) for i in range(n)]``, one thread per shard (the host
+    committer, table search and choice walk release the GIL)."""
+    if n <= 1:
+        return [fn(i) for i in range(n)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
+        return list(ex.map(fn, range(n)))
+
+
 def greedy_commits(datas, tables, *, window: int = 10, literal: int = 8,
                    lazy_matching: bool = False, dictionary=None) -> list[bytes]:
     """The host committer on each shard of ``datas`` (uint8 arrays), one
     thread per shard; ``tables(i)`` makes shard i's committer tables in its
     thread (None: the table-less exact search)."""
-    def one(i: int) -> bytes:
-        return greedy_compress(datas[i], window=window, literal=literal,
-                               lazy_matching=lazy_matching,
-                               dictionary=dictionary, tables=tables(i))
-
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
-        return list(ex.map(one, range(len(datas))))
+    return _per_shard(lambda i: greedy_compress(
+        datas[i], window=window, literal=literal,
+        lazy_matching=lazy_matching, dictionary=dictionary,
+        tables=tables(i)), len(datas))
 
 
 def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
@@ -360,3 +378,135 @@ def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
             return sparse_tables(bits[i], ent_h[i], datas[i].shape[0], lazy)
     return greedy_commits(datas, tables, window=window, literal=literal,
                           lazy_matching=lazy, dictionary=dictionary)
+
+
+def optimal_prep(datas, *, window: int, literal: int, dictionary=None):
+    """Host prep of kernel X4's inputs: :func:`optimal_prep_shard` of each
+    shard of ``datas`` (uint8 arrays), one thread per shard."""
+    return _per_shard(lambda i: optimal_prep_shard(
+        datas[i], window=window, literal=literal, dictionary=dictionary),
+        len(datas))
+
+
+def optimal_prep_shard(arr: np.ndarray, *, window: int, literal: int,
+                       dictionary=None):
+    """Host prep of one shard for kernel X4: (packed, fidx, runs, cstarts,
+    ccost).
+
+    ``packed``: (n,) int32 ``flen | (room - 1) << 8 | bound << 23 |
+    interior << 31``: flen the khat-aware cap-maxpat match length, room the
+    ring-end cap ``W - (khat[i] mod W)``, bound the distance to the next
+    forced-region start clipped to 255, interior set inside a region;
+    ``fidx`` the tables' ring slots; ``runs`` the regions; ``cstarts`` and
+    ``ccost`` each RLE chunk's start and token bits."""
+    W = 1 << window
+    n = arr.shape[0]
+    maxpat = compute_min_pattern_size(window, literal) + 131
+    runs, khat, chunks = opt_ext_runs(arr, window)
+    flen, fidx = host_v1_tables(arr, window=window, literal=literal,
+                                cap=maxpat, dictionary=dictionary, khat=khat)
+    wpos = khat[:n] if khat is not None else np.arange(n, dtype=np.uint32)
+    room = (W - (wpos & (W - 1))).astype(np.uint32)
+    bound = np.full(n, 255, np.uint32)
+    interior = np.zeros(n, np.uint32)
+    if runs:
+        starts_a = np.asarray([a for a, _ in runs], np.int64)
+        idx = np.searchsorted(starts_a, np.arange(n), side="right")
+        has = idx < starts_a.shape[0]
+        bound[has] = np.minimum(starts_a[idx[has]] - np.flatnonzero(has),
+                                255)
+        for a, b in runs:
+            interior[a:b] = 1
+    cstarts = np.asarray([c[0] for c in chunks], np.int32)
+    ccost = np.asarray(
+        [HUFFMAN_LENGTHS[12] + HUFFMAN_LENGTHS[(c[1] - 2) >> 4] - 1 + 4
+         for c in chunks], np.int32)
+    packed = (flen.astype(np.uint32) | ((room - 1) << 8) | (bound << 23)
+              | (interior << 31)).view(np.int32)
+    return packed, fidx, runs, cstarts, ccost
+
+
+def optimal_batch(datas, prep, *, literal: int):
+    """The padded planes of kernel X4: (packed (S, MP) int32, data (S, MP)
+    uint8 or None at literal 8, npos (S,), sideband_pos and sideband_cw (S,
+    C) int32), MP a power of two >= 1024, C one >= 128; padding sideband
+    entries sit at distinct positions >= MP."""
+    S = len(datas)
+    maxN = max(d.shape[0] for d in datas)
+    MP = 1 << max(10, (max(maxN, 1) - 1).bit_length())
+    npos = np.asarray([d.shape[0] for d in datas], np.int32)
+    pk = np.zeros((S, MP), np.int32)
+    for i, p in enumerate(prep):
+        pk[i, : p[0].shape[0]] = p[0]
+    db = None
+    if literal < 8:
+        db = np.zeros((S, MP), np.uint8)
+        for i, d in enumerate(datas):
+            db[i, : d.shape[0]] = d
+    kmax = max(p[3].shape[0] for p in prep)
+    C = 1 << max(7, (max(kmax, 1) - 1).bit_length())
+    sb_pos = MP + np.tile(np.arange(C, dtype=np.int32), (S, 1))
+    sb_cw = np.zeros((S, C), np.int32)
+    for i, p in enumerate(prep):
+        k = p[3].shape[0]
+        sb_pos[i, :k] = p[3]
+        sb_cw[i, :k] = p[4]
+    return pk, db, npos, sb_pos, sb_cw
+
+
+def optimal_emit(datas, prep, choice: np.ndarray, *, window: int,
+                 literal: int, custom_dict: bool) -> list[bytes]:
+    """Each shard's stream from the card's choice plane (S, >= n) uint8:
+    the choice walk, then the bit pack, one thread per shard."""
+    minp = compute_min_pattern_size(window, literal)
+
+    def one(i: int) -> bytes:
+        arr = datas[i]
+        _pk, fidx, runs, _cs, _cc = prep[i]
+        sizes, kinds = opt_ext_walk(choice[i, : arr.shape[0]], minp, runs)
+        return opt_ext_emit(arr, sizes, kinds, fidx, window=window,
+                            literal=literal, custom_dict=custom_dict)
+
+    return _per_shard(one, len(datas))
+
+
+def encode_ext_device_optimal(shards, *, window: int = 10, literal: int = 8,
+                              dictionary: bytes | None = None,
+                              device=None) -> list[bytes]:
+    """Optimal (minimum-bit) extended encode with the DP on the card.
+
+    Byte-identical to the JAX package's ``encode_extended_optimal``: the
+    host finds the forced-RLE regions and builds the khat-aware cap-maxpat
+    tables (:func:`optimal_prep`, one thread per shard), the card runs
+    kernel X4 over the whole batch in one call (the JAX package splits
+    batches of four or more shards in two for the TPU's memory; the
+    streams do not depend on it) and sends back the uint8 choice plane,
+    and the host expands it into tokens and packs the bits
+    (:func:`optimal_emit`).  ``dictionary``: a full-window custom
+    dictionary, else the extended format's default.  ``device``: None for
+    the CUDA card; ``"cpu"`` runs the plain version.  Raises
+    ExcessBitsError where a byte fits neither a literal nor a match."""
+    compute_min_pattern_size(window, literal)  # validates the config
+    dev = resolve_device(device)
+    dict_arr = None
+    if dictionary is not None:
+        dict_arr = _window_dict(window, literal, dictionary)
+    datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
+    if not datas:
+        return []
+    prep = optimal_prep(datas, window=window, literal=literal,
+                        dictionary=dict_arr)
+    pk, db, npos, sb_pos, sb_cw = optimal_batch(datas, prep, literal=literal)
+
+    def to_dev(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    choice, cost0, bad = opt_ext_choice(
+        to_dev(pk), to_dev(db), to_dev(npos), to_dev(sb_pos), to_dev(sb_cw),
+        window=window, literal=literal)
+    if bad.any() or (cost0 >= INF).any():
+        raise ExcessBitsError
+    maxN = max(d.shape[0] for d in datas)
+    choice = choice[:, : max(maxN, 1)].cpu().numpy()
+    return optimal_emit(datas, prep, choice, window=window, literal=literal,
+                        custom_dict=dictionary is not None)

@@ -37,7 +37,7 @@ __all__ = ["load", "build_all", "check", "launch", "SOURCES"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
 SOURCES = ("match_ext", "encode_commit", "decode_commit", "decode_wavefront",
-           "decode_serial", "greedy_predict", "greedy_commit")
+           "decode_serial", "greedy_predict", "opt_parse", "greedy_commit")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]

@@ -79,11 +79,29 @@ def compress_sharded(
     ``lazy_matching``.  ``engine="device-greedy"`` (extended only): tables
     on the card, the greedy walk in the host committer; every shard's
     stream is byte-identical to the reference greedy encoder
-    (engine/pipeline_ext.encode_ext_device_greedy).  ``dictionary`` (a
-    full-window custom dictionary) seeds every shard's window; pass the
-    same one to the decode side.  ``device``: None for the CUDA card,
-    ``"cpu"`` for the plain versions."""
-    if engine == "device-greedy":
+    (engine/pipeline_ext.encode_ext_device_greedy).
+    ``engine="device-optimal"``: the minimum-bit parse with its DP on the
+    card, byte-identical to the JAX package's
+    ``compress_sharded(engine="device-optimal")``: extended
+    (engine/pipeline_ext.encode_ext_device_optimal, streams equal to
+    ``encode_extended_optimal``) or v1 (engine/pipeline.
+    encode_v1_device_optimal, streams equal to
+    ``encode_v1(parse="optimal")``); ``lazy_matching`` does not apply.
+    ``engine="device"`` is not ported (NotImplementedError).
+    ``dictionary`` (a full-window custom dictionary) seeds every shard's
+    window; pass the same one to the decode side.  ``device``: None for
+    the CUDA card, ``"cpu"`` for the plain versions."""
+    if engine == "device-optimal":
+        if extended:
+            from ..engine.pipeline_ext import (
+                encode_ext_device_optimal as optimal,
+            )
+        else:
+            from ..engine.pipeline import encode_v1_device_optimal as optimal
+
+        def encode(shards, *, lazy_matching, **kw):
+            return optimal(shards, **kw)
+    elif engine == "device-greedy":
         if not extended:
             raise ValueError("device-greedy is the extended-format mode; "
                              "v1 engine='device-commit' is already "
@@ -91,8 +109,9 @@ def compress_sharded(
         from ..engine.pipeline_ext import encode_ext_device_greedy as encode
     elif engine != "device-commit":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: ROADMAP.md queue A "
-            "('Optimal modes' for device-optimal, item 7 for device)")
+            f"engine={engine!r} is not ported: the port has "
+            "'device-commit', 'device-greedy' and 'device-optimal' "
+            "(engine='device' is ROADMAP.md queue A)")
     elif extended:
         from ..engine.pipeline_ext import encode_ext_device_commit as encode
     else:

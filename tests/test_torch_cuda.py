@@ -21,8 +21,12 @@ from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
 from tamp_tpu_torch.ops import decode_serial as dser
 from tamp_tpu_torch.ops import decode_wavefront as dw
-from tamp_tpu_torch.engine.greedy import SPARSE_NONE, greedy_compress
-from tamp_tpu_torch.engine.pipeline_ext import encode_ext_device_greedy
+from tamp_tpu_torch.engine.greedy import (
+    SPARSE_NONE, greedy_compress, host_v1_tables,
+)
+from tamp_tpu_torch.engine.pipeline_ext import (
+    encode_ext_device_greedy, optimal_batch, optimal_prep,
+)
 from tamp_tpu_torch.ops.greedy_predict import (
     greedy_predict_batch, greedy_predict_plain, pack_predict_plane,
 )
@@ -36,6 +40,11 @@ from tamp_tpu_torch.ops.match_ext import (
     ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
 )
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
+from tamp_tpu_torch.ops.opt_parse import opt_v1_choice, opt_v1_choice_plain
+from tamp_tpu_torch.ops.opt_parse_ext import (
+    opt_ext_choice, opt_ext_choice_plain,
+)
+from tamp_tpu_torch.ops.encode_fused import v1_cap
 from tamp_tpu_torch.parallel.shard import (
     _pack_frame, _parse_frame, compress_sharded, decompress_sharded_device,
 )
@@ -894,3 +903,116 @@ def test_greedy_entry_point_tiny_shards(cuda, pull, lazy):
     assert blob == compress_sharded(tiny, shard_size=16,
                                     engine="device-greedy",
                                     lazy_matching=lazy, device="cpu")
+
+
+def hazard_opt_shards(seed: int, window: int, literal: int):
+    """Seeded shards (a list of bytes) aimed at the optimal DPs' hazards
+    (kernels X3 and X4): text of 1, 15, 16, 17, 1023, 1024, 1025, 1024 +
+    134 and 2048 + 133 bytes (sizes straddling the blocks and the lookback
+    K, npos < K), all-equal bytes, a long periodic stretch (matches at the
+    cap; in the extended format ring-end room caps), byte runs whose
+    forced-RLE regions split into chunks of 241 and 240, and below literal
+    8 a byte wider than the literal amid text."""
+    rng = np.random.default_rng(seed)
+    lmask = (1 << literal) - 1
+    words = [bytes(int(x) & lmask for x in rng.integers(97, 123, int(k)))
+             for k in rng.integers(2, 9, 48)]
+    sep = bytes([32 & lmask])
+
+    def text(n):
+        return sep.join(words[int(i)]
+                        for i in rng.integers(0, 48, n // 2 + 2))[:n]
+
+    shards = [text(n) for n in (1, 15, 16, 17, 1023, 1024, 1025, 1024 + 134,
+                                2048 + 133)]
+    shards.append(bytes([int(rng.integers(0, lmask + 1))]) * 1500)
+    period = bytes(int(x) & lmask for x in rng.integers(0, 256, 23))
+    shards.append((period * 100)[: 2000 + int(rng.integers(0, 100))])
+    # run r of value (37 r + 5) & lmask: regions of 242 (chunk 240 + 2), 483
+    # (241 + 240 + 2), 241, 12, 11 (no region) and 243 (241 + 2) bytes
+    shards.append(b"".join(bytes([(37 * r + 5) & lmask]) * c for r, c in
+                           enumerate((243, 484, 242, 13, 12, 244, 1, 2000)))
+                  + text(300))
+    if literal < 8:
+        bad = bytearray(text(900))
+        bad[450] = 0xFF
+        shards.append(bytes(bad))
+    return shards
+
+
+def v1_opt_inputs(shards, window: int, literal: int):
+    """Kernel X3's inputs for shards (numpy): (flen, data, npos), flen the
+    exact tables at cap min(16, minp + 13) of the v1 default window, NP
+    the v1 encode's padding (a power of two >= 512)."""
+    NP = 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
+    S = len(shards)
+    flen = np.zeros((S, NP), np.int32)
+    data = np.zeros((S, NP), np.uint8)
+    d8 = dictionary_array(1 << window, literal=8)
+    for i, x in enumerate(shards):
+        arr = np.frombuffer(x, np.uint8)
+        flen[i, : len(x)] = host_v1_tables(
+            arr, window=window, literal=literal, cap=v1_cap(window, literal),
+            dictionary=d8)[0]
+        data[i, : len(x)] = arr
+    return flen, data, np.asarray([len(x) for x in shards], np.int32)
+
+
+def ext_opt_inputs(shards, window: int, literal: int, dictionary=None):
+    """Kernel X4's inputs for shards (numpy), as the optimal extended
+    encode makes them: (packed, data or None, npos, sideband_pos,
+    sideband_cw)."""
+    datas = [np.frombuffer(x, np.uint8) for x in shards]
+    prep = optimal_prep(datas, window=window, literal=literal,
+                        dictionary=dictionary)
+    return optimal_batch(datas, prep, literal=literal)
+
+
+def _on(dev, arrays):
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in arrays]
+
+
+_OPT_CASES = [(8, 8), (10, 8), (11, 6), (12, 8)]
+
+
+@pytest.mark.parametrize("rows", ["hazards", "text"])
+@pytest.mark.parametrize("window,literal", _OPT_CASES)
+def test_x3_kernel_equals_plain(cuda, window, literal, rows):
+    shards = (hazard_opt_shards(window, window, literal) if rows == "hazards"
+              else [_text(65536, k)[:65536 - 7 * k] for k in range(4)])
+    args = v1_opt_inputs(shards, window, literal)
+    kw = dict(window=window, literal=literal)
+    want = opt_v1_choice_plain(*_on("cpu", args), **kw)
+    before = opt_v1_choice.launches
+    got = opt_v1_choice(*_on(cuda, args), **kw)
+    assert opt_v1_choice.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("rows", ["hazards", "text"])
+@pytest.mark.parametrize("window,literal", _OPT_CASES)
+def test_x4_kernel_equals_plain(cuda, window, literal, rows):
+    shards = (hazard_opt_shards(window, window, literal) if rows == "hazards"
+              else [_text(65536, k)[:65536 - 7 * k] for k in range(4)])
+    args = ext_opt_inputs(shards, window, literal)
+    kw = dict(window=window, literal=literal)
+    want = opt_ext_choice_plain(*_on(cuda, args), **kw)  # plain, on the card
+    before = opt_ext_choice.launches
+    got = opt_ext_choice(*_on(cuda, args), **kw)
+    assert opt_ext_choice.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_optimal_entry_points_round_trip_and_match_plain(cuda, extended):
+    data = _text(40000, 3) + b"\x07" * 600 + _text(9000, 4)
+    for size in (1 << 14, 1000):
+        blob = compress_sharded(data, shard_size=size, extended=extended,
+                                engine="device-optimal")
+        assert blob == compress_sharded(data, shard_size=size,
+                                        extended=extended,
+                                        engine="device-optimal", device="cpu")
+        assert bytes(decompress_sharded_device(blob)) == data

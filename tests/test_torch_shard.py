@@ -98,8 +98,7 @@ def test_v1_container_custom_dictionary():
 
 
 def test_not_ported_modes_raise():
-    for kw in ({"engine": "device-optimal"}, {"engine": "device"},
-               {"engine": "native"}):
+    for kw in ({"engine": "device"}, {"engine": "native"}):
         with pytest.raises(NotImplementedError):
             tshard.compress_sharded(b"abc", device="cpu", **kw)
     # every decode algorithm is ported: an unknown one is a ValueError, as
