@@ -25,10 +25,11 @@ Phases (any failure raises, and the script exits non-zero):
    encode (sparse and dense pulls, lazy and not) equal to the table-less
    committer, and two streams whose payload fills its bucket exactly in
    every decode mode and the serial algorithm; then the walks' hazards: B4
-   on seeded random hazard streams (matches into the last 1-64 ring bytes,
-   RLE and extended matches at the ring end, FLUSH and double FLUSH,
-   out-of-bounds and overflow mid-stream, a trailing incomplete token) at
-   windows 8, 10 and 15, B3 on seeded random fields (split indices at
+   and X2 on seeded random hazard streams (matches into the last 1-64 ring
+   bytes, RLE and extended matches at the ring end, FLUSH and double FLUSH,
+   out-of-bounds and, for B4, overflow mid-stream, a trailing incomplete
+   token; for X2 also max_out inside a match and inside an RLE of more
+   than 8 bytes) at windows 8, 10 and 15, B3 on seeded random fields (split indices at
    windows 14 and 15, an error field and a zero advance mid-tile, max_out
    clipping, npos < 16), B6 on seeded random lazy tables (deferral chains
    across tile seams, an excess literal deferred and not, deferred sizes up
@@ -87,7 +88,9 @@ Phases (any failure raises, and the script exits non-zero):
    walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
    replay steps); X3 and X4 carry the edges their serial DP relaxes on
    the path's inputs (``edges``; their operation bound counts an add and
-   a min an edge).
+   a min an edge); X4's three launches are timed apart (profiler), and
+   the X2 and X4 rows print their first ports' times (FIRST_PORT_MS)
+   beside.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -125,6 +128,16 @@ PATHS = (
      ("v1_tables", "opt_v1_choice", "commit_fields", "commit_decode")),
 )
 OPT_CASES = ((8, 8), (10, 8), (11, 6), (12, 8))  # X3 and X4: window, literal
+# X4's three launches, by a substring of their kernels' names
+X4_LAUNCHES = {"pass 1": "pass1", "combine": "combine", "pass 2": "pass2"}
+# the phase-4 times of X2's and X4's first ports (this script on the tree
+# before their redesign, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's (on their report lines only: they are not this run's numbers,
+# so the kernels line leaves them out)
+FIRST_PORT_MS = {
+    "serial_decode (X2)": "265.930-266.053",
+    "opt_ext_choice (X4)":
+        "7.060-7.110 (pass 1 4.40, combine 0.87, pass 2 1.26)"}
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -316,7 +329,8 @@ def oob_stream():
 
 
 def hazard_stream(seed: int, window: int, *, more: bool = False,
-                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1):
+                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1,
+                  spans: list | None = None):
     """A seeded random valid extended Tamp stream aimed at B4's hazards:
     literal runs; basic matches into the last 1-64 ring bytes written (so
     many read bytes of the previous few tokens, and many hold the write
@@ -324,7 +338,9 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
     end when they can; on a ``more`` stream FLUSH and double FLUSH tokens.
     ``oob_at``: token index of a match that reads past the window (ERR_OOB),
     which ends the stream.  Returns (stream, decoded length up to the OOB
-    token).  tests/test_torch_cuda.py holds a copy."""
+    token).  ``spans``, if given, gets (kind, output offset, size) of every
+    match, RLE and extended match token.  tests/test_torch_cuda.py holds a
+    copy."""
     import numpy as np
 
     from tamp_tpu_torch.constants import (
@@ -365,6 +381,7 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
         elif r < 0.7:  # basic match, mostly into the last 64 ring bytes
             sym = int(rng.integers(0, 12))
             cnt = wr = sym + minp
+            kind = "match"
             d = int(rng.integers(1, 65 if r < 0.62 else W))
             bw.put(HC[sym], HL[sym])
             bw.put(min((pos - d) % W, W - cnt), window)
@@ -372,6 +389,7 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
             s2, trail = int(rng.integers(0, 15)), int(rng.integers(0, 16))
             cnt = (s2 << RT) + trail + 2
             wr = min(cnt, 8, W - pos)
+            kind = "rle"
             bw.put(HC[RLE_SYMBOL], HL[RLE_SYMBOL])
             bw.put(HC[s2], HL[s2] - 1)
             bw.put(trail, RT)
@@ -381,15 +399,58 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
             if W - pos <= hi and rng.random() < 0.7:
                 cnt = int(rng.integers(max(lo, W - pos), hi + 1))
             wr = min(cnt, W - pos)
+            kind = "ext"
             v = cnt - lo
             d = int(rng.integers(1, 65))
             bw.put(HC[EXTENDED_MATCH_SYMBOL], HL[EXTENDED_MATCH_SYMBOL])
             bw.put(HC[v >> ET], HL[v >> ET] - 1)
             bw.put(v & ((1 << ET) - 1), ET)
             bw.put(min((pos - d) % W, W - cnt), window)
+        if spans is not None and cnt > 1:
+            spans.append((kind, out, cnt))
         pos = (pos + wr) % W
         out += cnt
     return bw.bytes(), out
+
+
+X2_HAZARD_KINDS = (
+    "hazards", "more, double FLUSH", "out of bounds mid-stream",
+    "trailing incomplete token", "max_out inside a match",
+    "max_out inside an RLE of more than 8",
+    "max_out at a multiple of 16 inside a match",
+    "max_out at a multiple of 16 inside an RLE of more than 8")
+
+
+def x2_hazard_streams(window: int, kind: str, n: int = 3):
+    """Seeded hazard streams for kernel X2, the token-serial decoder, and
+    the max_out to decode them to: (streams, decoded lengths, more,
+    max_out).  The "max_out" kinds cut the output inside a match or an
+    extended match of 3+ bytes, or inside an RLE of more than 8 bytes, of
+    the first stream's second half, some at a multiple of 16 (the kernel's
+    16-byte stores).  tests/test_torch_cuda.py holds a copy."""
+    more = kind.startswith("more")
+    spans = []
+    streams, lens = zip(*(hazard_stream(
+        window * 10 + i, window, more=more, n_tokens=1500 + 500 * i,
+        oob_at=900 + 50 * i if kind.startswith("out of") else -1,
+        spans=spans if i == 0 else None) for i in range(n)))
+    max_out = 1 << max(max(lens), 1024).bit_length()
+    if kind.startswith("max_out"):
+        rle = "RLE" in kind
+        at16 = "multiple of 16" in kind
+
+        def cut(o, cnt):  # an output length inside the token
+            return (o // 16 + 1) * 16 if at16 else o + cnt // 2
+
+        _k, o, cnt = next(
+            x for x in spans if x[1] >= min(lens) // 2 and (
+                x[0] == "rle" and x[2] > 8 if rle
+                else x[0] != "rle" and x[2] >= 3)
+            and cut(x[1], x[2]) < x[1] + x[2])
+        max_out = cut(o, cnt)
+    if kind == "trailing incomplete token":
+        streams = [x[:-2] for x in streams]
+    return list(streams), list(lens), more, max_out
 
 
 def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
@@ -672,8 +733,9 @@ def hazard_rows_ext(seed: int, S: int, NP: int, window: int,
 
 
 def phase_hazards(dev, report):
-    """Phase 2, the walks' hazards: B4 on seeded hazard streams, B3 on
-    seeded hazard fields, B6 on seeded lazy tables, B7 on seeded walker
+    """Phase 2, the walks' hazards: B4 and X2 on seeded hazard streams (X2
+    also with max_out inside a match and inside an RLE), B3 on seeded
+    hazard fields, B6 on seeded lazy tables, B7 on seeded walker
     planes, B8 on seeded jump planes (and one it must refuse) and B5 on
     seeded hazard rows, each against its plain version, exactly."""
     import numpy as np
@@ -734,6 +796,41 @@ def phase_hazards(dev, report):
                     and got[1].tolist() != list(lens):
                 fail(f"B4 decoded the w{window} {kind} hazard streams to the "
                      "wrong lengths")
+
+    # X2 on hazard streams, and with max_out inside a match or an RLE
+    from tamp_tpu_torch.ops import decode_serial as dser
+
+    for window in (8, 10, 15):
+        d = torch.from_numpy(dictionary_array(1 << window)).to(dev)
+        for kind in X2_HAZARD_KINDS:
+            streams, lens, more, max_out = x2_hazard_streams(window, kind)
+            skip = 2 if more else 1
+            pieces = [x[skip:] for x in streams]
+            pl = np.zeros((len(pieces), max(map(len, pieces))), np.uint8)
+            for i, p in enumerate(pieces):
+                pl[i, : len(p)] = np.frombuffer(p, np.uint8)
+            pl = torch.from_numpy(pl)
+            nb = torch.tensor([len(p) for p in pieces], dtype=torch.int32)
+            kw = dict(window=window, literal=8, extended=True, more=more,
+                      max_out=max_out)
+            got = dser.serial_decode(pl.to(dev), nb.to(dev), d, d, **kw)
+            plain = dser.serial_decode_plain(pl, nb, d.cpu(), d.cpu(), **kw)
+            sync(dev)
+            err = max_abs_err(zip(got, plain))
+            report(f"X2 hazard stream w{window} {kind} (max_out {max_out}): "
+                   f"kernel vs plain max_abs_err={err} "
+                   f"lens={got[1].tolist()} errs={got[2].tolist()}")
+            if err:
+                fail(f"X2 differs from its plain version on the w{window} "
+                     f"{kind} hazard streams")
+            oob = kind.startswith("out of")
+            if got[2].tolist() != [dser.ERR_OOB if oob else dser.ERR_OK] * 3:
+                fail(f"X2 gave the wrong verdict on the w{window} {kind} "
+                     "hazard streams")
+            if kind != "trailing incomplete token" and got[1].tolist() != [
+                    min(n, max_out) for n in lens]:
+                fail(f"X2 decoded the w{window} {kind} hazard streams to "
+                     "the wrong lengths")
 
     NP = 3 * 4096 + 512
     npos = torch.tensor([NP, NP, NP, NP - 100, 9000, 15], dtype=torch.int32,
@@ -1883,6 +1980,33 @@ def idle_share(report, name: str, fn, card: str) -> float:
     return 1 - busy / wall
 
 
+def launch_split(fn, parts, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` spends in each of its kernels, from a
+    torch.profiler trace of ``reps`` calls after a warm one: ``parts`` maps
+    a label to a substring of the kernel's name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    got = {label: 0.0 for label in parts}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for label, key in parts.items():
+            if key in e.key:
+                got[label] += e.self_device_time_total / 1e3 / reps
+    for label, ms in got.items():
+        if ms <= 0:
+            fail(f"the profiler saw no kernel {parts[label]!r}")
+    return got
+
+
 def walk_count(rows, stops, step):
     """Total steps of serial walks over rows: from 0, jump by
     ``step(row[t])`` while t < stop (a jump <= 0 ends the walk)."""
@@ -2261,6 +2385,9 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     planes = optimal_batch(shards, optimal_prep(shards, **kw), literal=literal)
     args = on_device(dev, planes)
     ms, got = cuda_ms(lambda: opt_ext_choice(*args, **kw))
+    split = launch_split(lambda: opt_ext_choice(*args, **kw), X4_LAUNCHES)
+    report("  X4 launches: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{card}]")
     pms, plain = cuda_ms(lambda: opt_ext_choice_plain(*args, **kw), reps=1)
     pk = args[0]
     MP, C = pk.shape[1], planes[3].shape[1]
@@ -2283,7 +2410,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         edges=n_edges,
         # the packed plane and the sideband read once, the uint8 choice
         # plane written once
-        bytes=5 * S * MP + 8 * S * C + 12 * S, ops=2 * n_edges))
+        bytes=5 * S * MP + 8 * S * C + 12 * S, ops=2 * n_edges,
+        launch_ms=split))
     del args, got, plain, pk, room, hi, inside
 
     ops_per_s = int_ops_per_s()  # every kernel's work is integer work
@@ -2300,6 +2428,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
                  " ns a step a shard" if "steps" in k else "")
         if "edges" in k:
             steps = f", {k['edges']} edges"
+        if k["name"] in FIRST_PORT_MS:
+            steps += f" (first port: {FIRST_PORT_MS[k['name']]} ms)"
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
                f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
                f"launches {k['launches']}, max_abs_err {k['max_abs_err']}"

@@ -2,7 +2,7 @@
 
 Counterpart of ``tamp_tpu/ops/decode_jax.py`` (``decode_shards_device``,
 ``algorithm="serial"`` of the container decode): each shard's stream is
-decoded token by token, one thread per shard, against a window ring.  Its
+decoded token by token, one parse lane per shard, against a window ring.  Its
 contract is ``decode_jax``'s:
 
 - the decode stops before a token once ``max_out`` bytes are out, with no
@@ -36,7 +36,8 @@ from ..device import resolve_device
 from . import _build
 from .decode_wavefront import split_streams
 
-__all__ = ["decode_shards_device", "serial_decode", "serial_decode_plain"]
+__all__ = ["decode_shards_device", "padded_width", "serial_decode",
+           "serial_decode_plain"]
 
 ERR_OK, ERR_OOB = 0, 2
 
@@ -146,6 +147,12 @@ def _decode_one(src: bytes, ring: bytearray, dict_reset: bytes, out,
     return min(o, max_out), err
 
 
+def padded_width(Lp: int) -> int:
+    """The row width, a multiple of 16 of at least ``Lp`` (and 16), that
+    kernel X2 takes: it stages rows with 16-byte bulk copies."""
+    return -(-max(Lp, 1) // 16) * 16
+
+
 def serial_decode_plain(payloads: torch.Tensor, nbytes: torch.Tensor,
                         dict_init: torch.Tensor, dict_reset: torch.Tensor, *,
                         window: int, literal: int, extended: bool,
@@ -197,11 +204,17 @@ def serial_decode(payloads: torch.Tensor, nbytes: torch.Tensor,
         raise ValueError(f"unsupported device {payloads.device}")
     S, Lp = payloads.shape
     dev = payloads.device
+    payloads = payloads.contiguous()
+    if Lp != padded_width(Lp) or payloads.data_ptr() % 16:
+        Lp = padded_width(Lp)
+        padded = torch.zeros((S, Lp), dtype=torch.uint8, device=dev)
+        padded[:, : payloads.shape[1]] = payloads
+        payloads = padded
     out = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
     lens = torch.empty(S, dtype=torch.int32, device=dev)
     errs = torch.empty(S, dtype=torch.int32, device=dev)
     _build.launch("decode_serial", "tpt_serial_decode", dev,
-                  (payloads.contiguous(), nbytes.contiguous(),
+                  (payloads, nbytes.contiguous(),
                    dict_init.contiguous(), dict_reset.contiguous(), out,
                    lens, errs),
                   (S, Lp, window, literal, int(extended), int(more),
@@ -224,7 +237,7 @@ def decode_shards_device(shards, *, dictionary=None, max_out: int,
     (window, literal, extended, more, dict_init, default_dict,
      payloads) = split_streams(shards, dictionary)
     S = len(payloads)
-    Lp = max(1, max(len(p) for p in payloads))
+    Lp = padded_width(max(len(p) for p in payloads))
     blobs = np.zeros((S, Lp), np.uint8)
     for i, p in enumerate(payloads):
         blobs[i, : len(p)] = np.frombuffer(p, np.uint8)

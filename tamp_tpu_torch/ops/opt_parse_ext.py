@@ -43,6 +43,7 @@ __all__ = ["opt_ext_choice", "opt_ext_choice_plain", "chunk_weights",
            "ext_advance_bits", "worst_bits_ext"]
 
 B_EXT = 2048  # positions a block of X4's kernels
+CHUNK_EXT = 256  # X4's blocks are a multiple of its staged chunk
 
 
 def worst_bits_ext(window: int, literal: int) -> int:
@@ -197,13 +198,22 @@ def opt_ext_choice(packed: torch.Tensor, data, npos: torch.Tensor,
     check_shard_size(NP, worst_bits_ext(window, literal))
     B = block_size(NP, B_EXT)
     cw = chunk_weights(sideband_pos, sideband_cw, NP)
+    data = data.contiguous() if literal < 8 else None
+    packed = packed.contiguous()
+    NPk = NP
+    if B % CHUNK_EXT:
+        # a shard below B_EXT: pad it to the kernels' chunk with positions
+        # past npos (free literals), which change no cost or choice before
+        NPk = B = -(-NP // CHUNK_EXT) * CHUNK_EXT
+        pad = (0, NPk - NP)
+        packed, cw = (torch.nn.functional.pad(x, pad) for x in (packed, cw))
+        if data is not None:
+            data = torch.nn.functional.pad(data, pad)
     choice, cost0, bad = launch_dp(
-        "tpt_opt_ext_choice", packed.device, S, NP, B, minp + 131,
-        torch.uint8,
-        (packed.contiguous(), data.contiguous() if literal < 8 else None,
-         npos.contiguous(), cw), window, literal)
+        "tpt_opt_ext_choice", packed.device, S, NPk, B, minp + 131,
+        torch.uint8, (packed, data, npos.contiguous(), cw), window, literal)
     opt_ext_choice.launches += 1
-    return choice, cost0, bad
+    return choice[:, :NP].contiguous(), cost0, bad
 
 
 opt_ext_choice.launches = 0

@@ -86,7 +86,8 @@ class _Bits:
 
 
 def hazard_stream(seed: int, window: int, *, more: bool = False,
-                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1):
+                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1,
+                  spans: list | None = None):
     """A seeded random valid extended Tamp stream aimed at the decode
     commit's hazards: literal runs; basic matches into the last 1-64 ring
     bytes written (so many read bytes of the previous few tokens, and many
@@ -94,7 +95,8 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
     that pass the ring end when they can; on a ``more`` stream FLUSH and
     double FLUSH tokens.  ``oob_at``: token index of a match that reads past
     the window (ERR_OOB), which ends the stream.  Returns (stream, decoded
-    length up to the OOB token)."""
+    length up to the OOB token).  ``spans``, if given, gets (kind, output
+    offset, size) of every match, RLE and extended match token."""
     HC, HL = HUFFMAN_CODES, HUFFMAN_LENGTHS
     ET, RT = EXTENDED_MATCH_TRAILING_BITS, RLE_TRAILING_BITS
     rng = np.random.default_rng(seed)
@@ -127,6 +129,7 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
         elif r < 0.7:  # basic match, mostly into the last 64 ring bytes
             sym = int(rng.integers(0, 12))
             cnt = wr = sym + minp
+            kind = "match"
             d = int(rng.integers(1, 65 if r < 0.62 else W))
             bw.put(HC[sym], HL[sym])
             bw.put(min((pos - d) % W, W - cnt), window)
@@ -134,6 +137,7 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
             s2, trail = int(rng.integers(0, 15)), int(rng.integers(0, 16))
             cnt = (s2 << RT) + trail + 2
             wr = min(cnt, 8, W - pos)
+            kind = "rle"
             bw.put(HC[RLE_SYMBOL], HL[RLE_SYMBOL])
             bw.put(HC[s2], HL[s2] - 1)
             bw.put(trail, RT)
@@ -143,12 +147,15 @@ def hazard_stream(seed: int, window: int, *, more: bool = False,
             if W - pos <= hi and rng.random() < 0.7:
                 cnt = int(rng.integers(max(lo, W - pos), hi + 1))
             wr = min(cnt, W - pos)
+            kind = "ext"
             v = cnt - lo
             d = int(rng.integers(1, 65))
             bw.put(HC[EXTENDED_MATCH_SYMBOL], HL[EXTENDED_MATCH_SYMBOL])
             bw.put(HC[v >> ET], HL[v >> ET] - 1)
             bw.put(v & ((1 << ET) - 1), ET)
             bw.put(min((pos - d) % W, W - cnt), window)
+        if spans is not None and cnt > 1:
+            spans.append((kind, out, cnt))
         pos = (pos + wr) % W
         out += cnt
     return bw.bytes(), out
@@ -787,6 +794,85 @@ def test_x2_kernel_equals_plain(cuda, window):
     assert want[0][0, :5000].numpy().tobytes() == data[:5000]
 
 
+X2_HAZARD_KINDS = (
+    "hazards", "more, double FLUSH", "out of bounds mid-stream",
+    "trailing incomplete token", "max_out inside a match",
+    "max_out inside an RLE of more than 8",
+    "max_out at a multiple of 16 inside a match",
+    "max_out at a multiple of 16 inside an RLE of more than 8")
+
+
+def x2_hazard_streams(window: int, kind: str, n: int = 3):
+    """Seeded hazard streams (:func:`hazard_stream`) for kernel X2, the
+    token-serial decoder, and the max_out to decode them to: (streams,
+    decoded lengths, more, max_out).  The "max_out" kinds cut the output
+    inside a match or an extended match of 3+ bytes, or inside an RLE of
+    more than 8 bytes, of the first stream's second half (the token that
+    crosses max_out writes all its ring bytes but only its output bytes
+    below max_out); at a multiple of 16 the kernel stores its rows in
+    16-byte units.  chip_smoke.py holds a copy."""
+    more = kind.startswith("more")
+    spans = []
+    streams, lens = zip(*(hazard_stream(
+        window * 10 + i, window, more=more, n_tokens=1500 + 500 * i,
+        oob_at=900 + 50 * i if kind.startswith("out of") else -1,
+        spans=spans if i == 0 else None) for i in range(n)))
+    max_out = 1 << max(max(lens), 1024).bit_length()
+    if kind.startswith("max_out"):
+        rle = "RLE" in kind
+        at16 = "multiple of 16" in kind
+
+        def cut(o, cnt):  # an output length inside the token
+            return (o // 16 + 1) * 16 if at16 else o + cnt // 2
+
+        _k, o, cnt = next(
+            x for x in spans if x[1] >= min(lens) // 2 and (
+                x[0] == "rle" and x[2] > 8 if rle
+                else x[0] != "rle" and x[2] >= 3)
+            and cut(x[1], x[2]) < x[1] + x[2])
+        max_out = cut(o, cnt)
+    if kind == "trailing incomplete token":
+        streams = [x[:-2] for x in streams]
+    return list(streams), list(lens), more, max_out
+
+
+def _x2_pair(dev, streams, window, more, max_out):
+    """X2 on the card against its plain version on the header-less payloads
+    of ``streams``; returns the kernel's (out, lens, errs) on the host."""
+    skip = 2 if more else 1
+    pieces = [x[skip:] for x in streams]
+    pl = np.zeros((len(pieces), max(len(p) for p in pieces)), np.uint8)
+    for i, p in enumerate(pieces):
+        pl[i, : len(p)] = np.frombuffer(p, np.uint8)
+    pl = torch.from_numpy(pl)
+    nb = torch.tensor([len(p) for p in pieces], dtype=torch.int32)
+    d = torch.from_numpy(dictionary_array(1 << window))
+    kw = dict(window=window, literal=8, extended=True, more=more,
+              max_out=max_out)
+    want = dser.serial_decode_plain(pl, nb, d, d, **kw)
+    before = dser.serial_decode.launches
+    got = dser.serial_decode(pl.to(dev), nb.to(dev), d.to(dev), d.to(dev),
+                             **kw)
+    assert dser.serial_decode.launches == before + 1
+    got = [g.cpu() for g in got]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("kind", X2_HAZARD_KINDS)
+@pytest.mark.parametrize("window", [8, 10, 15])
+def test_x2_kernel_equals_plain_on_hazard_streams(cuda, window, kind):
+    streams, lens, more, max_out = x2_hazard_streams(window, kind)
+    _out, got_lens, errs = _x2_pair(cuda, streams, window, more, max_out)
+    oob = kind.startswith("out of")
+    assert errs.tolist() == [dser.ERR_OOB if oob else dser.ERR_OK] * 3
+    if kind != "trailing incomplete token":
+        assert got_lens.tolist() == [min(n, max_out) for n in lens]
+    if kind.startswith("max_out"):
+        assert got_lens.tolist()[0] == max_out
+
+
 @pytest.mark.parametrize("mode", ["chase", "xla", "serial"])
 def test_decode_modes_round_trip_and_match_plain(cuda, mode):
     data = _text(40000, 5)
@@ -1002,6 +1088,36 @@ def test_x4_kernel_equals_plain(cuda, window, literal, rows):
     before = opt_ext_choice.launches
     got = opt_ext_choice(*_on(cuda, args), **kw)
     assert opt_ext_choice.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("B", [1024, 2048])
+@pytest.mark.parametrize("window,literal", [(10, 8), (11, 6)])
+def test_x4_kernel_equals_plain_at_block_size(cuda, monkeypatch, window,
+                                              literal, B):
+    from tamp_tpu_torch.ops import opt_parse_ext
+
+    monkeypatch.setattr(opt_parse_ext, "B_EXT", B)
+    shards = ([_text(65536, k)[:65536 - 7 * k] for k in range(3)]
+              + hazard_opt_shards(window, window, literal)[-3:])
+    args = ext_opt_inputs(shards, window, literal)
+    kw = dict(window=window, literal=literal)
+    want = opt_ext_choice_plain(*_on(cuda, args), **kw)
+    got = opt_ext_choice(*_on(cuda, args), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_x4_kernel_pads_a_shard_below_its_chunk(cuda):
+    # NP = 1000: the wrapper pads the planes to 1024 free positions
+    shards = [_text(900, k)[: 900 - 50 * k] for k in range(3)]
+    pk, _data, npos, sp, sc = ext_opt_inputs(shards, 10, 8)
+    args = (pk[:, :1000], None, npos, sp, sc)
+    kw = dict(window=10, literal=8)
+    want = opt_ext_choice_plain(*_on(cuda, args), **kw)
+    got = opt_ext_choice(*_on(cuda, args), **kw)
+    assert got[0].shape == (3, 1000)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 

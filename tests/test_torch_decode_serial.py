@@ -1,7 +1,9 @@
 """The port's token-serial decoder (ops/decode_serial.py, kernel X2's plain
 version) against the JAX package's ``decode_shards_device`` on the cases of
-tests/test_device_decode.py, and against the native decoder where
-``decode_jax`` departs from the reference decoder.  Exact equality."""
+tests/test_device_decode.py and on the seeded hazard streams that the card
+tests hold kernel X2 to (``x2_hazard_streams`` of tests/test_torch_cuda.py),
+and against the native decoder where ``decode_jax`` departs from the
+reference decoder.  Exact equality."""
 
 import io
 import random
@@ -20,6 +22,7 @@ from tamp_tpu_torch.ops.decode_serial import (
     decode_shards_device, serial_decode,
 )
 from tamp_tpu_torch.parallel import shard as tshard
+from test_torch_cuda import X2_HAZARD_KINDS, x2_hazard_streams
 
 pytestmark = pytest.mark.skipif(not _native.available(),
                                 reason="native engine unavailable")
@@ -144,3 +147,25 @@ def test_serial_container_round_trip():
         got = tshard.decompress_sharded_device(blob, algorithm="serial",
                                                device="cpu")
         assert bytes(got) == data
+
+
+@pytest.mark.parametrize("kind", X2_HAZARD_KINDS)
+@pytest.mark.parametrize("window", [8, 10, 15])
+def test_serial_matches_jax_on_hazard_streams(window, kind):
+    # matches into the last ring bytes, RLE and extended matches at the
+    # ring end, double FLUSH, a match past the window, a trailing
+    # incomplete token, and max_out inside a match or an RLE of 9+ bytes
+    streams, lens, _more, max_out = x2_hazard_streams(window, kind)
+    if kind.startswith("out of"):  # both decoders refuse the stream
+        with pytest.raises(ValueError):
+            decode_shards_device(streams, max_out=max_out, device="cpu")
+        with pytest.raises(ValueError):
+            jax_decode(streams, max_out=max_out)
+        return
+    got = decode_shards_device(streams, max_out=max_out, device="cpu")
+    assert got == jax_decode(streams, max_out=max_out)
+    if kind != "trailing incomplete token":
+        assert [len(x) for x in got] == [min(n, max_out) for n in lens]
+    if kind.startswith("max_out"):
+        full = decode_shards_device(streams, max_out=1 << 17, device="cpu")
+        assert got == [x[:max_out] for x in full]

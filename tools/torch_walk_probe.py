@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
 """Time kernels B4, B3, B6, B7, B8 and B5 of the PyTorch/CUDA port beside
-the chain floors of their walks and the parts of their work, on one NVIDIA
-card.
+the chain floors of their walks and the parts of their work, and X2 and X4
+beside variants with parts cut out, on one NVIDIA card.
 
-    python3 tools/torch_walk_probe.py [--no-variants] [--tables]
+    python3 tools/torch_walk_probe.py [--no-variants] [--tables] [--x]
+
+``--x`` times X2 alone, the serial decode of the main path's payloads
+(``x2_ms``, ns a token a shard), and X4 alone on the optimal path's
+planes, whole and by launch through the profiler (``x4_pass1_ms``,
+``x4_combine_ms``, ``x4_pass2_ms``), each beside its variants
+(X2_VARIANTS, X4_VARIANTS: sources edited and built as libraries of
+their own; a variant whose anchor is not in the source raises).
 
 Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
 shards, window 10, literal 8.  B4 decodes the main path's container, B3
@@ -42,6 +49,7 @@ power limit.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 from pathlib import Path
@@ -74,14 +82,84 @@ VARIANTS = {
 }
 
 
-def variant_lib(name: str, edit):
-    """Build the edited copy of csrc/decode_commit.cu as its own library."""
+def _parse_alone(src: str) -> str:
+    """X2's parse lane with the commit warp gone and no wait for room in
+    the queue."""
+    out, n = re.subn(r"while \(nq \+ 40 - \*tail_v > Q\) \{\s*\}", "", src)
+    if n == 0:
+        raise RuntimeError("x2_parse_alone: no wait for room in the source")
+    return out.replace("  if (threadIdx.x < 32) return;\n",
+                       "  if (threadIdx.x < 64) return;\n", 1)
+
+
+# X2 variants (csrc/decode_serial.cu): name -> edit of the kernel source,
+# each cutting the parse lane or the commit warp (their lens are not
+# checked: the commit warp writes them).
+X2_VARIANTS = {
+    # the commit warp drains the queue and commits nothing
+    "x2_chain_only_ms": lambda src: src.replace(
+        "    const int nrec = min(32, head - done);\n",
+        "    if (head > done) {\n      done = head;\n"
+        "      if (lane == 0) *tail_v = done;\n      continue;\n    }\n"
+        "    const int nrec = min(32, head - done);\n", 1),
+    # the parse lane alone: no commit warp, no wait for room
+    "x2_parse_alone_ms": lambda src: _parse_alone(src),
+    # the parse lane alone reading every token as a literal (a stream of
+    # literals' floor)
+    "x2_literals_only_ms": lambda src: _parse_alone(src).replace(
+        "lds32(tok_a + ((ah >> 23) << 2))",
+        "lds32(tok_a + ((256 | ah >> 23) << 2))", 1),
+    # the same, storing no record
+    "x2_parse_no_queue_ms": lambda src: re.sub(
+        r"sts32\(queue_a \+ \(\(nq\+\+ & \(Q - 1\)\) << 2\), ([^;]+)\);",
+        r"nq += (\1) != -1;", re.sub(
+            r"queue\[nq\+\+ & \(Q - 1\)\] = ([^;]+);",
+            r"nq += (\1) != -1;", _parse_alone(src))),
+}
+_P1_LOOP = """#pragma unroll
+        for (int b = 0; b < 12; b++) {
+          if (MINP + b > e.y) break;
+          m = min(m, r[(MINP + b - 1 - u + WIN) % WIN] + wb[b]);
+        }
+"""
+_P1_SWITCH = ("        switch (min(e.y - MINP, 11)) {\n" + "".join(
+    f"          case {b}:\n            m = min(m, r[(MINP + {b - 1} - u + WIN)"
+    f" % WIN] + wb[{b}]);\n" + ("            [[fallthrough]];\n" if b else "")
+    for b in range(11, -1, -1)) + "          default:\n            break;\n"
+    "        }\n")
+# X4 variants (csrc/opt_parse.cu): name -> (the launch timed, edit).
+X4_VARIANTS = {
+    # pass 1's edges by one jump (a switch falling through from the
+    # highest advance) in place of an early exit a candidate
+    "x4_pass1_switch_ms": ("pass1", lambda src: src.replace(
+        _P1_LOOP, _P1_SWITCH, 1)),
+    # the cluster combine with 8 CTAs a shard in place of 16
+    "x4_combine_cl8_ms": ("combine", lambda src: src.replace(
+        "constexpr int CL = 16;", "constexpr int CL = 8;", 1)),
+    # pass 2 without its min-plus step (each position's cost its literal
+    # edge's): the staging and the edges alone
+    "x4_pass2_edges_only_ms": ("pass2", lambda src: src.replace(
+        "      const int best = lc <= bm ? lc : bm;",
+        "      const int best = lc;", 1)),
+    # pass 2 staging only its first chunk (the rest read stale rows)
+    "x4_pass2_no_staging_ms": ("pass2", lambda src: src.replace(
+        "    if (q + 1 < nq) issue(q + 1);\n    else __pipeline_commit();",
+        "    __pipeline_commit();", 1)),
+}
+
+
+def variant_lib(name: str, edit, source: str = "decode_commit",
+                entry: str = "tpt_commit_decode", n_ptr: int = 6,
+                n_int: int = 5):
+    """Build the edited copy of ``csrc/<source>.cu`` as its own library
+    and return its C entry ``entry`` (``n_ptr`` pointers, ``n_int`` ints,
+    the stream); raises if the edit finds no anchor."""
     import ctypes
     import subprocess
 
     from tamp_tpu_torch.ops import _build
 
-    src = (_build.CSRC / "decode_commit.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     text = edit(src)
     if text == src:
         raise RuntimeError(f"variant {name}: its anchor is not in the source")
@@ -91,9 +169,9 @@ def variant_lib(name: str, edit):
     cu.write_text(text)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(cu)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(so)).tpt_commit_decode
+    fn = getattr(ctypes.CDLL(str(so)), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
     return fn
 
@@ -109,6 +187,8 @@ def main() -> int:
                     help="time B4 and B3 and the chain floors only")
     ap.add_argument("--tables", action="store_true",
                     help="time the match tables B1, B2 and B5 only")
+    ap.add_argument("--x", action="store_true",
+                    help="time X2 and X4 and their variants only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_walk_probe: no CUDA device", file=sys.stderr)
@@ -136,6 +216,12 @@ def main() -> int:
     res = {"card": cs.smi()}
     shards = [np.frombuffer(data[i : i + DEFAULT_SHARD_SIZE], np.uint8)
               for i in range(0, len(data), DEFAULT_SHARD_SIZE)]
+    if args.x:
+        blob = compress_sharded(data, shard_size=DEFAULT_SHARD_SIZE,
+                                device=dev)
+        x2_parts(res, dev, blob, d, window, literal)
+        x4_parts(res, dev, shards, window, literal)
+        return finish(res)
     _p, dh, rc, npos = prepare_batch(shards, window=window)
     ext_table_parts(res, dev, dh, npos, d, window, literal)
     if args.tables:
@@ -269,6 +355,105 @@ def finish(res) -> int:
         print(f"{k}: {v}")
     print(json.dumps(res), flush=True)
     return 0
+
+
+def x2_parts(res, dev, blob, d, window, literal):
+    """X2 on the main path's payloads (as phase 4 decodes them) beside its
+    variants (X2_VARIANTS), in ns a token a shard too."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops.decode_serial import padded_width, serial_decode
+    from tamp_tpu_torch.parallel.shard import DEFAULT_SHARD_SIZE, _parse_frame
+
+    pieces = _parse_frame(blob)[2]
+    S = len(pieces)
+    Lp = padded_width(max(len(p) - 1 for p in pieces))
+    pl = np.zeros((S, Lp), np.uint8)
+    for i, p in enumerate(pieces):
+        pl[i, : len(p) - 1] = np.frombuffer(p[1:], np.uint8)
+    pl_d = torch.from_numpy(pl).to(dev)
+    nb_d = torch.tensor([len(p) - 1 for p in pieces], dtype=torch.int32,
+                        device=dev)
+    max_out = DEFAULT_SHARD_SIZE
+    kw = dict(window=window, literal=literal, extended=True, more=False,
+              max_out=max_out)
+    res["x2_ms"], _r = cs.cuda_ms(
+        lambda: serial_decode(pl_d, nb_d, d, d, **kw), reps=5)
+    _pk, tokens = cs.stream_tokens(dev, blob, window, literal, True)
+    del _pk
+    res["x2_tokens"] = tokens
+    res["x2_ns_per_token"] = res["x2_ms"] * 1e6 * S / tokens
+    minp = compute_min_pattern_size(window, literal)
+    for name, edit in X2_VARIANTS.items():
+        fn = variant_lib(name, edit, "decode_serial", "tpt_serial_decode",
+                         7, 8)
+        o = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
+        ln = torch.empty(S, dtype=torch.int32, device=dev)
+        er = torch.empty(S, dtype=torch.int32, device=dev)
+        argv = [t.data_ptr() for t in (pl_d, nb_d, d, d, o, ln, er)] + [
+            S, Lp, window, literal, 1, 0, minp, max_out,
+            torch.cuda.current_stream().cuda_stream]
+        res[name], _ = cs.cuda_ms(lambda: _build.check(fn(*argv), name),
+                                  reps=5)
+        res[name.replace("_ms", "_ns_per_token")] = (
+            res[name] * 1e6 * S / tokens)
+
+
+def x4_parts(res, dev, shards, window, literal):
+    """X4 on the optimal path's planes (as phase 4 makes them): the whole
+    call, each of its three launches (profiler), and the pass-1 variants
+    (X4_VARIANTS) by launch."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.engine.pipeline_ext import (
+        optimal_batch, optimal_prep,
+    )
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops.opt_parse import block_size
+    from tamp_tpu_torch.ops.opt_parse_ext import (
+        B_EXT, chunk_weights, opt_ext_choice,
+    )
+
+    kw = dict(window=window, literal=literal)
+    planes = optimal_batch(shards, optimal_prep(shards, **kw),
+                           literal=literal)
+    args = cs.on_device(dev, planes)
+    parts = {"pass1": "pass1", "combine": "combine", "pass2": "pass2"}
+    res["x4_ms"], (choice, _c, _b) = cs.cuda_ms(
+        lambda: opt_ext_choice(*args, **kw), reps=5)
+    for k, v in cs.launch_split(lambda: opt_ext_choice(*args, **kw),
+                                parts).items():
+        res[f"x4_{k}_ms"] = v
+    pk, data, npos, sp, sc = args
+    S, NP = pk.shape
+    B = block_size(NP, B_EXT)
+    K = 131 + (2 if window <= 10 + ((literal - 5) << 1) else 3)
+    cw = chunk_weights(sp, sc, NP)
+    n_b = NP // B
+    for name, (launch, edit) in X4_VARIANTS.items():
+        fn = variant_lib(name, edit, "opt_parse", "tpt_opt_ext_choice", 9, 5)
+        ch = torch.empty((S, NP), dtype=torch.uint8, device=dev)
+        c0 = torch.empty(S, dtype=torch.int32, device=dev)
+        bad = torch.zeros(S, dtype=torch.int32, device=dev)
+        T = torch.empty(S * n_b * ((K * K + 3) & ~3), dtype=torch.int32,
+                        device=dev)
+        bounds = torch.empty(S * n_b * K, dtype=torch.int32, device=dev)
+        argv = [None if t is None else t.data_ptr() for t in (
+            pk, data, npos, cw, ch, c0, bad, T, bounds)] + [
+            S, NP, B, window, literal,
+            torch.cuda.current_stream().cuda_stream]
+        try:
+            split = cs.launch_split(lambda: _build.check(fn(*argv), name),
+                                    {launch: launch})
+            res[name] = split[launch]
+        except RuntimeError as e:  # a variant the card refuses to launch
+            res[name] = f"failed: {e}"
+    del choice
 
 
 def table_parts(res, key, dev, rows, npos_d, d, window, lrun, probe):
