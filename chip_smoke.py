@@ -47,7 +47,12 @@ Phases (any failure raises, and the script exits non-zero):
    l6 and w12 l8 (text of 1 to 2048 + 133 bytes around the blocks and the
    lookback K, all-equal bytes, a long periodic stretch at the cap and the
    ring-end room caps, forced-RLE chunk splits of 241 and 240, an
-   unencodable literal at l6) and on 4 x 64 KiB of the corpus;
+   unencodable literal at l6) and on 4 x 64 KiB of the corpus, X3 also
+   on 1, 13 and 203 shards of 1, 5, 33 and 40 blocks (one block, fewer
+   than a group of 32, ragged last groups) at w10 l8 and w11 l6, and X1
+   on seeded hazard rows (a deficit at every token, segment changes
+   inside a chunk of 32 tokens and at its first token, 0, 31-33, 127-129
+   and T_max truncating tokens) at 1, 7 and 203 shards;
 3. eight round trips at full size: 8 x 1 MiB shards of a seeded random-word
    text with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded`` and ``decompress_sharded_device``: the main path
@@ -88,9 +93,11 @@ Phases (any failure raises, and the script exits non-zero):
    walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
    replay steps); X3 and X4 carry the edges their serial DP relaxes on
    the path's inputs (``edges``; their operation bound counts an add and
-   a min an edge); X4's three launches are timed apart (profiler), and
-   the X2 and X4 rows print their first ports' times (FIRST_PORT_MS)
-   beside.
+   a min an edge); X4's three launches and X3's five are timed apart
+   (profiler; X4_LAUNCHES, X3_LAUNCHES), X1 is timed alone beside its
+   call (the call zero-fills the (S, T_max) output) and in ns a truncating
+   token, and the X1, X2, X3 and X4 rows print their first ports' times
+   (FIRST_PORT_MS) beside.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -128,14 +135,25 @@ PATHS = (
      ("v1_tables", "opt_v1_choice", "commit_fields", "commit_decode")),
 )
 OPT_CASES = ((8, 8), (10, 8), (11, 6), (12, 8))  # X3 and X4: window, literal
-# X4's three launches, by a substring of their kernels' names
-X4_LAUNCHES = {"pass 1": "pass1", "combine": "combine", "pass 2": "pass2"}
-# the phase-4 times of X2's and X4's first ports (this script on the tree
-# before their redesign, NVIDIA H100 80GB HBM3, 700.00 W), printed beside
-# this run's (on their report lines only: they are not this run's numbers,
-# so the kernels line leaves them out)
+# X4's and X3's launches, by a substring of their kernels' names (neither
+# matches a kernel of the other)
+X4_LAUNCHES = {"pass 1": "pass1_ext", "combine": "combine_ext",
+               "pass 2": "pass2_ext"}
+X3_LAUNCHES = {"pass 1": "v1_pass1", "groups": "v1_group", "scan": "v1_scan",
+               "bounds": "v1_bounds", "pass 2": "v1_pass2"}
+# X3's blocks and groups in phase 2: (shards, blocks a shard)
+X3_GROUP_CASES = ((1, 1), (1, 33), (203, 5), (13, 40))
+X1_HAZARD_S = (1, 7, 203)  # shards of X1's hazard rows in phase 2
+# the phase-4 times of X1's, X2's, X3's and X4's first ports (this script
+# on the tree before their redesign, and for X1's kernel and X3's launches
+# tools/torch_walk_probe.py --x there; NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's (on their report lines only: they are not this
+# run's numbers, so the kernels line leaves them out)
 FIRST_PORT_MS = {
+    "trunc_deficits (X1)": "0.210-0.259 (kernel alone 0.189)",
     "serial_decode (X2)": "265.930-266.053",
+    "opt_v1_choice (X3)":
+        "0.990-1.064 (pass 1 0.43, combine 0.22, pass 2 0.28)",
     "opt_ext_choice (X4)":
         "7.060-7.110 (pass 1 4.40, combine 0.87, pass 2 1.26)"}
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
@@ -736,8 +754,9 @@ def phase_hazards(dev, report):
     """Phase 2, the walks' hazards: B4 and X2 on seeded hazard streams (X2
     also with max_out inside a match and inside an RLE), B3 on seeded
     hazard fields, B6 on seeded lazy tables, B7 on seeded walker
-    planes, B8 on seeded jump planes (and one it must refuse) and B5 on
-    seeded hazard rows, each against its plain version, exactly."""
+    planes, B8 on seeded jump planes (and one it must refuse), B5 on
+    seeded hazard rows and X1 on seeded hazard rows (x1_hazard_rows, at
+    1, 7 and 203 shards), each against its plain version, exactly."""
     import numpy as np
     import torch
 
@@ -946,6 +965,23 @@ def phase_hazards(dev, report):
                 fail(f"B5 differs from its plain version on the hazard rows, "
                      f"w{window}, cap {cap}, probe={probe}")
 
+    # X1 on seeded hazard rows: deficits at every token, segment changes
+    # inside a chunk and at its first token, n_tr = 0, 31, 32, 33, T_max
+    for S in X1_HAZARD_S:
+        for W in (256, 1024):
+            args = [torch.from_numpy(x).to(dev)
+                    for x in x1_hazard_rows(W + S, S, 2100, W)]
+            got = dw.trunc_deficits(*args, W)
+            plain = dw.trunc_deficits_plain(*args, W)
+            sync(dev)
+            err = max_abs_err([(got, plain)])
+            report(f"X1 hazard rows S={S} W={W}: kernel vs plain "
+                   f"max_abs_err={err}, nonzero deficits "
+                   f"{int((plain != 0).sum())}")
+            if err:
+                fail(f"X1 differs from its plain version on the hazard rows, "
+                     f"S={S}, W={W}")
+
 
 def hazard_opt_shards(seed: int, window: int, literal: int):
     """Seeded shards (a list of bytes) aimed at the optimal DPs' hazards
@@ -985,17 +1021,18 @@ def hazard_opt_shards(seed: int, window: int, literal: int):
     return shards
 
 
-def v1_opt_inputs(shards, window: int, literal: int):
+def v1_opt_inputs(shards, window: int, literal: int, NP: int = 0):
     """Kernel X3's inputs for shards (numpy): (flen, data, npos), flen the
     exact tables at cap min(16, minp + 13) of the v1 default window
-    (engine/greedy.host_v1_tables), NP a power of two >= 512."""
+    (engine/greedy.host_v1_tables), NP a power of two >= 512 unless
+    given."""
     import numpy as np
 
     from tamp_tpu_torch.dictionary import dictionary_array
     from tamp_tpu_torch.engine.greedy import host_v1_tables
     from tamp_tpu_torch.ops.encode_fused import v1_cap
 
-    NP = 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
+    NP = NP or 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
     S = len(shards)
     flen = np.zeros((S, NP), np.int32)
     data = np.zeros((S, NP), np.uint8)
@@ -1007,6 +1044,63 @@ def v1_opt_inputs(shards, window: int, literal: int):
             dictionary=d8)[0]
         data[i, : len(x)] = arr
     return flen, data, np.asarray([len(x) for x in shards], np.int32)
+
+
+def x3_group_shards(window: int, literal: int, S: int, NP: int):
+    """S seeded shards of at most NP bytes for X3's block groups: pieces of
+    the corpus (masked to the literal's bits) and the hazard shards from
+    the last (cut to NP; at literal < 8 the last holds an unencodable
+    byte), in turns.  As tests/test_torch_cuda.py's, with corpus text."""
+    import numpy as np
+
+    haz = hazard_opt_shards(window, window, literal)
+    text = np.frombuffer(corpus(NP * (S + 1) // 2 + NP, seed=window),
+                         np.uint8) & ((1 << literal) - 1)
+    return [haz[-1 - k // 2 % len(haz)][:NP] if k % 2 else
+            text[k // 2 * NP : (k // 2 + 1) * NP - 37 * (k % 5)].tobytes()
+            for k in range(S)]
+
+
+def x1_hazard_rows(seed: int, S: int, T_max: int, W: int):
+    """Seeded inputs of kernel X1 (seg_c, s_c, w_c, n_tr: numpy int32) for
+    S shards of T_max tokens (T_max >= 200), aimed at the chunks of 32
+    tokens its kernel resolves: shard k is of kind k % 8: 0 every deficit
+    nonzero (w > W), segment changes inside a chunk (token 7) and at a
+    chunk's first token (32, 96, 128), n_tr = T_max; 1 n_tr = 0; 2, 3, 4
+    n_tr = 31, 32, 33, a deficit at about one token in three and a change
+    at token 31; 5 rare deficits and changes at random, n_tr random; 6
+    n_tr = T_max, a change at each chunk's first token and a deficit at its
+    last; 7 as 2-4 with n_tr = 127, 128, 129 in turns.  A copy of the
+    generator in tests/test_torch_cuda.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(T_max)
+    seg = np.zeros((S, T_max), np.int64)
+    s_c = rng.integers(0, 1 << 20, (S, T_max))
+    w_c = rng.integers(0, 9, (S, T_max))
+    n_tr = np.zeros(S, np.int64)
+    for k in range(S):
+        kind = k % 8
+        if kind == 0:
+            n_tr[k] = T_max
+            w_c[k] = W + 1 + rng.integers(0, 40, T_max)
+            seg[k] = ((t >= 7).astype(int) + (t >= 32) + (t >= 96)
+                      + (t >= 128))
+        elif kind in (2, 3, 4, 7):
+            n_tr[k] = 29 + kind if kind < 7 else 127 + k // 8 % 3
+            w_c[k] = np.where(rng.random(T_max) < 0.35,
+                              rng.integers(W // 2, 2 * W, T_max), w_c[k])
+            seg[k] = t >= 31
+        elif kind == 5:
+            n_tr[k] = rng.integers(0, T_max + 1)
+            w_c[k] = rng.integers(0, 300, T_max)
+            seg[k] = np.cumsum(rng.random(T_max) < 0.01)
+        elif kind == 6:
+            n_tr[k] = T_max
+            seg[k] = t // 32
+            w_c[k] = np.where(t % 32 == 31, W + 3, w_c[k])
+    return tuple(x.astype(np.int32) for x in (seg, s_c, w_c, n_tr))
 
 
 def ext_opt_inputs(shards, window: int, literal: int):
@@ -1035,7 +1129,10 @@ def phase_optimal_small(dev, report):
     """Phase 2, the optimal DPs: kernels X3 and X4 against their plain
     versions (run on the card) on seeded hazard shards at w8 l8, w10 l8,
     w11 l6 (with an unencodable literal) and w12 l8, and on 4 x 64 KiB of
-    the corpus at w10 l8, exactly: choice, cost0 and bad."""
+    the corpus at w10 l8, exactly: choice, cost0 and bad; then X3 at w10
+    l8 and w11 l6 on X3_GROUP_CASES (x3_group_shards): one block a shard,
+    fewer blocks than a group, a group and one block, 40 blocks, at 1, 13
+    and 203 shards."""
     from tamp_tpu_torch.ops.opt_parse import (
         opt_v1_choice, opt_v1_choice_plain,
     )
@@ -1066,6 +1163,27 @@ def phase_optimal_small(dev, report):
                          f"max_abs_err {err}")
         report(f"X3, X4 at w{window} l{literal}: equal to their plain "
                f"versions on {' and '.join(c[0] for c in cases)} shards")
+    # X3's block groups: one block, fewer than a group, ragged groups, at
+    # 1 and 203 shards, with an unencodable byte at l6
+    from tamp_tpu_torch.ops.opt_parse import B_V1
+
+    for window, literal in ((10, 8), (11, 6)):
+        kw = dict(window=window, literal=literal)
+        for S, n_b in X3_GROUP_CASES:
+            NP = n_b * B_V1
+            args = on_device(dev, v1_opt_inputs(
+                x3_group_shards(window, literal, S, NP), window, literal,
+                NP))
+            got = opt_v1_choice(*args, **kw)
+            plain = opt_v1_choice_plain(*args, **kw)
+            sync(dev)
+            err = max_abs_err(zip(got, plain))
+            if err or bool(plain[2].any()) != (literal < 8 and S > 1):
+                fail(f"X3 differs from its plain version on {S} shards of "
+                     f"{n_b} blocks at w{window} l{literal}: max_abs_err "
+                     f"{err}, bad {plain[2].tolist()}")
+        report(f"X3 at w{window} l{literal}: equal to its plain version on "
+               f"(shards, blocks) {X3_GROUP_CASES}")
 
 
 def phase_kernels_small(dev, report):
@@ -2316,7 +2434,13 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     pdefs = dw.trunc_deficits_plain(*x1_h, W)
     pms = (time.perf_counter() - h0) * 1e3
     n_tr = int(x1_in[3].sum())
-    report(f"  X1 inputs: {n_tr} truncating tokens of {tokens}")
+    split = launch_split(lambda: dw.trunc_deficits(*x1_in, W),
+                         {"fold": "trunc_deficits"})
+    report(f"  X1 inputs: {n_tr} truncating tokens of {tokens}, "
+           f"{int((pdefs != 0).sum())} nonzero deficits; the call "
+           f"{ms * 1e6 / max(n_tr, 1):.1f} ns a truncating token, its "
+           f"kernel alone {split['fold']:.4f} ms, "
+           f"{split['fold'] * 1e6 / max(n_tr, 1):.1f} ns [{card}]")
     # the fold reads three words and writes one per truncating token
     kernels.append(dict(
         name="trunc_deficits (X1)", route="cuda",
@@ -2324,7 +2448,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         replaces="tamp_tpu/ops/decode_wavefront.py:358",
         launches=dec_launches["extended", "chase"]["trunc_deficits"],
         max_abs_err=max_abs_err([(defs, pdefs)]), ms=ms, plain_ms=pms,
-        bytes=16 * n_tr + 4 * S, ops=6 * n_tr))
+        bytes=16 * n_tr + 4 * S, ops=6 * n_tr, launch_ms=split))
     del tab, packed, x1_in, x1_h, defs, pdefs
 
     # X2: the serial decode of the main path's payloads
@@ -2370,6 +2494,10 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     n_edges = int(torch.where(inside, 1 + torch.clamp_min(torch.clamp_max(
         flen, minp + 13) - minp + 1, 0), 0).sum())
     report(f"  X3 inputs: {n_edges} edges over {n_raw} positions [{card}]")
+    split = launch_split(lambda: opt_v1_choice(flen, raw_d, nraw_d, **kw),
+                         X3_LAUNCHES)
+    report("  X3 launches: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items()) + f" [{card}]")
     kernels.append(dict(
         name="opt_v1_choice (X3)", route="cuda",
         source="tamp_tpu_torch/csrc/opt_parse.cu",
@@ -2378,7 +2506,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
         edges=n_edges,
         # flen and data read once, the int32 choice plane written once
-        bytes=9 * S * shard_size + 12 * S, ops=2 * n_edges))
+        bytes=9 * S * shard_size + 12 * S, ops=2 * n_edges,
+        launch_ms=split))
     del flen, got, plain, inside
 
     # X4: the optimal path's DP over the host prep of the raw shards

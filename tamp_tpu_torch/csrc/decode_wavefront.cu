@@ -52,10 +52,23 @@
 // untruncated write count), in order:
 //   D = 0 where the segment changes; room = W - ((s - D) mod W);
 //   d = max(0, w - room); D += d; defs_c[i] = d.
-// What bounds X1: the chain through D, a few integer operations per token.
-// Design: one thread per shard, reading three sequential int32 rows, so no
-// load depends on the chain.
+// What bounds X1: the chain through D, a few integer operations a token,
+// and, in its first port (one thread a shard, 8 shards on one warp), one
+// device-memory latency a token: its loads sat in a loop of runtime bound.
+// Design: a CTA a shard.  Its threads stage the shard's three rows
+// TR_TILE tokens at a time into shared memory with cp.async, the next tile
+// in flight while warp 0 resolves the current one 32 tokens a pass by
+// speculation: every lane takes D as it stood before the first unresolved
+// token, or 0 where a segment change lies between, and computes its d; a
+// ballot finds the first lane whose d > 0, every lane up to it is exact
+// (the ones before it have d = 0), D and the segment advance to that lane
+// and the pass repeats after it.  D changes only by a nonzero d or a
+// segment reset, so a chunk costs one pass plus one a nonzero deficit, and
+// nonzero deficits are rare (an RLE writes at most 8 bytes, an extended
+// match far fewer than W, into a ring of W).  The deficits go out a chunk
+// at a time in coalesced stores.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -161,25 +174,79 @@ chase_pack_kernel(const int32_t* __restrict__ nxt,
   }
 }
 
-__global__ void trunc_deficits_kernel(const int32_t* __restrict__ seg_c,
-                                      const int32_t* __restrict__ s_c,
-                                      const int32_t* __restrict__ w_c,
-                                      const int32_t* __restrict__ n_tr,
-                                      int32_t* __restrict__ defs_c, int S,
-                                      int T_max, int W) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const size_t off = (size_t)s * T_max;
-  const int n = n_tr[s];
-  int D = 0, cur = 0;
-  for (int i = 0; i < n; ++i) {
-    const int sg = seg_c[off + i];
-    if (sg != cur) D = 0;
-    const int room = W - ((s_c[off + i] - D) & (W - 1));
-    const int d = max(0, w_c[off + i] - room);
-    D += d;
-    cur = sg;
-    defs_c[off + i] = d;
+constexpr int TR_TILE = 1024;    // tokens of a shard staged at a time
+constexpr int TR_THREADS = 128;
+
+// The deficits of one chunk of 32 tokens (lane l: token l, valid below m;
+// sg, sv, wv its segment, offset and count), from D and the segment `cur`
+// of the token before the chunk, which it leaves at the chunk's last
+// token.  A pass gives each unresolved token D, or 0 where a segment
+// change lies between it and the first unresolved token, and resolves
+// every token up to the first whose deficit is nonzero (the ones before
+// it have d = 0, so their D is exact).
+__device__ __forceinline__ int fold_chunk(int sg, int sv, int wv, int m,
+                                          int W, int& D, int& cur) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int up = __shfl_up_sync(FULL, sg, 1);
+  const unsigned chg = __ballot_sync(FULL, sg != (lane == 0 ? cur : up));
+  const unsigned le = (2u << lane) - 1;  // lanes 0..lane
+  int out = 0;
+  for (int pos = 0; pos < m;) {
+    const bool reset = (chg & le) >> pos != 0;
+    const int Dl = reset ? 0 : D;
+    const int d = max(0, wv - (W - ((sv - Dl) & (W - 1))));
+    const unsigned hit = __ballot_sync(FULL, lane >= pos && lane < m && d);
+    const int f = hit ? __ffs(hit) - 1 : m - 1;
+    if (lane >= pos && lane <= f) out = d;
+    D = __shfl_sync(FULL, Dl + d, f);
+    cur = __shfl_sync(FULL, sg, f);
+    pos = f + 1;
+  }
+  return out;
+}
+
+__global__ void __launch_bounds__(TR_THREADS)
+trunc_deficits_kernel(const int32_t* __restrict__ seg_c,
+                      const int32_t* __restrict__ s_c,
+                      const int32_t* __restrict__ w_c,
+                      const int32_t* __restrict__ n_tr,
+                      int32_t* __restrict__ defs_c, int T_max, int W) {
+  __shared__ int32_t tile[2][3][TR_TILE];
+  const size_t off = (size_t)blockIdx.x * T_max;
+  const int n = n_tr[blockIdx.x];
+  const int nt = (n + TR_TILE - 1) / TR_TILE;
+  auto issue = [&](int t) {
+    if (t < nt) {
+      const int base = t * TR_TILE, m = min(TR_TILE, n - base);
+      for (int i = threadIdx.x; i < m; i += TR_THREADS) {
+        __pipeline_memcpy_async(&tile[t & 1][0][i], seg_c + off + base + i,
+                                4);
+        __pipeline_memcpy_async(&tile[t & 1][1][i], s_c + off + base + i, 4);
+        __pipeline_memcpy_async(&tile[t & 1][2][i], w_c + off + base + i, 4);
+      }
+    }
+    __pipeline_commit();
+  };
+  issue(0);
+  int D = 0, cur = 0;  // warp 0's
+  for (int t = 0; t < nt; ++t) {
+    issue(t + 1);
+    __pipeline_wait_prior(1);
+    __syncthreads();  // tile t landed
+    if (threadIdx.x < 32) {
+      const int base = t * TR_TILE, m = min(TR_TILE, n - base);
+      const int(*rows)[TR_TILE] = tile[t & 1];
+      for (int c = 0; c < m; c += 32) {
+        const int i = c + threadIdx.x;
+        const bool in = i < m;
+        const int d = fold_chunk(in ? rows[0][i] : 0, in ? rows[1][i] : 0,
+                                 in ? rows[2][i] : 0, min(32, m - c), W, D,
+                                 cur);
+        if (in) defs_c[off + base + i] = d;
+      }
+    }
+    __syncthreads();  // tile t is read: issue(t + 2) may overwrite it
   }
 }
 
@@ -210,14 +277,15 @@ extern "C" int tpt_token_chase(const void* nxt, void* starts, void* T,
   return (int)cudaGetLastError();
 }
 
+// defs_c (S, T_max) zeroed by the caller; entries at or past n_tr[s] are
+// not written
 extern "C" int tpt_trunc_deficits(const void* seg_c, const void* s_c,
                                   const void* w_c, const void* n_tr,
                                   void* defs_c, int S, int T_max, int W,
                                   void* stream) {
-  const int threads = 32;
-  trunc_deficits_kernel<<<(S + threads - 1) / threads, threads, 0,
-                          (cudaStream_t)stream>>>(
+  if (S == 0) return (int)cudaSuccess;
+  trunc_deficits_kernel<<<S, TR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)seg_c, (const int32_t*)s_c, (const int32_t*)w_c,
-      (const int32_t*)n_tr, (int32_t*)defs_c, S, T_max, W);
+      (const int32_t*)n_tr, (int32_t*)defs_c, T_max, W);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Chain-floor probes for the serial walks of kernels B4, B3, B6, B7 and B8,
-// and the parts of the match-table scan of B5 (a measurement tool, not a
-// kernel of any path; tools/torch_walk_probe.py builds and times it).
+// Chain-floor probes for the serial walks of kernels B4, B3, B6, B7, B8 and
+// X1, and the parts of the match-table scan of B5 (a measurement tool, not
+// a kernel of any path; tools/torch_walk_probe.py builds and times it).
 //
 // Each probe walks the same chain as its kernel, in the first port's
 // skeleton (one block per shard, thread 0 walks a shared-memory tile while
@@ -21,6 +21,11 @@
 //     not advance, storing no start.
 // Outputs per shard: steps and checksum (B4, B3), steps and the stop t
 // (B6, B7), hops and the stop c (B8).
+//
+// probe_trunc_chain walks X1's fold (D += max(0, w - (W - ((s - D) mod
+// W))), D reset where the segment changes) on one thread a shard over its
+// three rows staged in shared memory TILE tokens at a time, and stores the
+// deficits: the fold's chain floor.
 //
 // probe_read_plane reads an int32 plane once, coalesced (16 B a thread),
 // folding it into one word a block: the bytes any design that looks at
@@ -305,6 +310,41 @@ probe_chase_chain(const int32_t* __restrict__ nxt, int32_t* __restrict__ res,
 }
 
 __global__ void __launch_bounds__(THREADS)
+probe_trunc_chain(const int32_t* __restrict__ seg,
+                  const int32_t* __restrict__ s_c,
+                  const int32_t* __restrict__ w_c,
+                  const int32_t* __restrict__ n_tr,
+                  int32_t* __restrict__ defs, int T_max, int W) {
+  __shared__ int32_t rows[3][TILE];
+  const size_t off = (size_t)blockIdx.x * T_max;
+  const int n = n_tr[blockIdx.x];
+  int D = 0, cur = 0;  // thread 0's
+  for (int base = 0; base < n; base += TILE) {
+    const int m = min(TILE, n - base);
+    for (int i = threadIdx.x; i < m; i += THREADS) {
+      rows[0][i] = seg[off + base + i];
+      rows[1][i] = s_c[off + base + i];
+      rows[2][i] = w_c[off + base + i];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < m; ++i) {
+        const int sg = rows[0][i];
+        if (sg != cur) D = 0;
+        const int d = max(0, rows[2][i] - (W - ((rows[1][i] - D) & (W - 1))));
+        D += d;
+        cur = sg;
+        rows[2][i] = d;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < m; i += THREADS)
+      defs[off + base + i] = rows[2][i];
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
 probe_read_plane(const int4* __restrict__ p, size_t n4,
                  int32_t* __restrict__ res) {
   int32_t x = 0;
@@ -450,6 +490,17 @@ extern "C" int tpt_probe_chase_chain(const void* nxt, void* res, int S,
                                      int NBP, void* stream) {
   probe_chase_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)nxt, (int32_t*)res, NBP);
+  return (int)cudaGetLastError();
+}
+
+// defs (S, T_max) zeroed by the caller
+extern "C" int tpt_probe_trunc_chain(const void* seg, const void* s_c,
+                                     const void* w_c, const void* n_tr,
+                                     void* defs, int S, int T_max, int W,
+                                     void* stream) {
+  probe_trunc_chain<<<S, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)seg, (const int32_t*)s_c, (const int32_t*)w_c,
+      (const int32_t*)n_tr, (int32_t*)defs, T_max, W);
   return (int)cudaGetLastError();
 }
 

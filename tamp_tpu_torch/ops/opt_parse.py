@@ -10,7 +10,9 @@ in three passes over blocks of B positions:
   pass 1   each block's K x K min-plus transfer matrix: the identity pushed
            through the block's B positions, right to left;
   combine  the boundary vectors of the blocks, right to left (one matrix
-           by vector product a block);
+           by vector product a block; the kernel's two-level form: the
+           products of groups of G_V1 blocks, a pass over the groups, then
+           the blocks of each group);
   pass 2   the exact costs inside each block from its boundary vector, and
            each position's choice: the lowest advance among the minimal
            costs (literal first, then ascending match size), which is the
@@ -18,30 +20,35 @@ in three passes over blocks of B positions:
            JAX function).
 
 Every sum saturates at ``INF``; with non-negative weights the saturation
-commutes with min-plus, so the outputs do not depend on B.  Positions at
-or past a shard's length are free literals (cost 0); in-shard matches never
-reach past it because the tables stop at ``npos``.
+commutes with min-plus, so the outputs do not depend on B and products of
+block matrices associate.  Positions at or past a shard's length are free
+literals (cost 0); in-shard matches never reach past it because the tables
+stop at ``npos``.
 
 :func:`opt_v1_choice_plain` runs the three passes in tensor ops with the
 JAX function's arithmetic; :func:`opt_v1_choice` launches the CUDA kernels
-(``csrc/opt_parse.cu``, entry ``tpt_opt_v1_choice``) for CUDA tensors.
+(``csrc/opt_parse.cu``, entry ``tpt_opt_v1_choice``: pass 1, the combine's
+three launches, pass 2) for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from . import _build
 
-__all__ = ["opt_v1_choice", "opt_v1_choice_plain", "INF", "K_V1",
-           "check_shard_size", "block_size"]
+__all__ = ["opt_v1_choice", "opt_v1_choice_plain", "INF", "K_V1", "G_V1",
+           "check_shard_size", "block_size", "v1_block"]
 
 # Saturating infinity: above every real cost (NP * worst bits) and with
 # INF * 32 + priority inside int32 (pass 2's packed score)
 INF = (1 << 26) - 64
 K_V1 = 16        # the v1 lookback: literal 1, matches minp..minp + 13
-B_V1 = 1024      # positions a block of X3's kernels
+B_V1 = 512       # positions a block of X3's kernels
+G_V1 = 32        # blocks a group of X3's combine (G in csrc/opt_parse.cu)
 
 
 def check_shard_size(NP: int, worst: int) -> None:
@@ -62,6 +69,12 @@ def block_size(NP: int, B: int) -> int:
     return B
 
 
+def v1_block(NP: int) -> int:
+    """X3's block size for NP positions: the largest power of two that
+    divides NP, at most B_V1."""
+    return math.gcd(NP, B_V1)
+
+
 def to_steps(x: torch.Tensor, n_b: int, B: int) -> torch.Tensor:
     """(S, NP) -> (B, S, n_b): step k holds in-block offset B - 1 - k."""
     S = x.shape[0]
@@ -74,17 +87,48 @@ def from_steps(x: torch.Tensor) -> torch.Tensor:
     return x.flip(0).permute(1, 2, 0).reshape(S, n_b * B)
 
 
-def combine_plain(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _apply(T: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Min-plus matrix (S, K, K) by vector (S, K), saturated at INF."""
+    return torch.clamp_max((T + v[:, None, :]).amin(2), INF)
+
+
+def combine_plain(T: torch.Tensor, group: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(bounds (S, n_b, K), v0 (S, K)) of transfer matrices T (S, n_b, K,
     K): block b's incoming boundary vector (the costs of the first K
     positions of block b + 1, zeros past the last block) and the shard's
-    first K costs."""
+    first K costs.
+
+    ``group=None`` walks the blocks right to left.  ``group=G`` is the
+    kernel's two-level form, with the same result: the product of each
+    group of G consecutive blocks (the last group may be short), a right
+    to left pass over the groups' products that gives each group's
+    incoming vector (the bounds of its last block), then each group's
+    blocks from that vector."""
     S, n_b, K, _ = T.shape
     v = torch.zeros((S, K), dtype=torch.int32, device=T.device)
     bounds = torch.empty((S, n_b, K), dtype=torch.int32, device=T.device)
-    for b in range(n_b - 1, -1, -1):
-        bounds[:, b] = v
-        v = torch.clamp_max((T[:, b] + v[:, None, :]).amin(2), INF)
+    if group is None:
+        for b in range(n_b - 1, -1, -1):
+            bounds[:, b] = v
+            v = _apply(T[:, b], v)
+        return bounds, v
+    spans = [(b0, min(b0 + group, n_b) - 1) for b0 in range(0, n_b, group)]
+    prods = []
+    for b0, last in spans:
+        acc = T[:, last]
+        for b in range(last - 1, b0 - 1, -1):
+            acc = torch.clamp_max(
+                (T[:, b, :, :, None] + acc[:, None, :, :]).amin(2), INF)
+        prods.append(acc)
+    for (_b0, last), acc in zip(reversed(spans), reversed(prods)):
+        bounds[:, last] = v
+        v = _apply(acc, v)
+    for b0, last in spans:
+        w = bounds[:, last]
+        for b in range(last, b0, -1):
+            w = _apply(T[:, b], w)
+            bounds[:, b - 1] = w
     return bounds, v
 
 
@@ -97,12 +141,14 @@ def identity(S: int, n_b: int, K: int, device) -> torch.Tensor:
 
 def opt_v1_choice_plain(flen: torch.Tensor, data: torch.Tensor,
                         npos: torch.Tensor, *, window: int, literal: int,
-                        B: int = 1024):
+                        B: int | None = None, group: int | None = None):
     """X3 in tensor ops on the inputs' device: (choice (S, NP) int32,
-    cost0 (S,) int32, bad (S,) bool), with B positions a block."""
+    cost0 (S,) int32, bad (S,) bool), with B positions a block (the
+    kernel's, :func:`v1_block`, by default) and the combine of
+    :func:`combine_plain` (``group``)."""
     S, NP = flen.shape
     dev = flen.device
-    B = block_size(NP, B)
+    B = v1_block(NP) if B is None else block_size(NP, B)
     n_b = NP // B
     K = K_V1
     minp = compute_min_pattern_size(window, literal)
@@ -139,7 +185,7 @@ def opt_v1_choice_plain(flen: torch.Tensor, data: torch.Tensor,
         new = torch.clamp_max(new, INF)
         M = torch.cat([new[:, :, None], M[:, :, : K - 1]], dim=2)
 
-    bounds, v0 = combine_plain(M)
+    bounds, v0 = combine_plain(M, group)
 
     # pass 2: concrete costs and the tie-broken choice
     cur = bounds
@@ -189,13 +235,15 @@ def opt_v1_choice(flen: torch.Tensor, data: torch.Tensor, npos: torch.Tensor,
     S, NP = flen.shape
     minp = compute_min_pattern_size(window, literal)
     check_shard_size(NP, max(1 + literal, -(-(window + 9) // minp)))
-    B = block_size(NP, B_V1)
+    B = v1_block(NP)
     if B % K_V1:
         raise ValueError(f"NP={NP} must be a multiple of {K_V1}")
+    data = data.contiguous()
+    if data.data_ptr() % 4:  # the kernel stages the bytes four at a time
+        data = data.clone()
     choice, cost0, bad = launch_dp(
         "tpt_opt_v1_choice", flen.device, S, NP, B, K_V1, torch.int32,
-        (flen.contiguous(), data.contiguous(), npos.contiguous()),
-        window, literal)
+        (flen.contiguous(), data, npos.contiguous()), window, literal)
     opt_v1_choice.launches += 1
     return choice, cost0, bad
 

@@ -40,7 +40,9 @@ from tamp_tpu_torch.ops.match_ext import (
     ext_tables, ext_tables_plain, ext_tables_probe, ext_tables_probe_plain,
 )
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
-from tamp_tpu_torch.ops.opt_parse import opt_v1_choice, opt_v1_choice_plain
+from tamp_tpu_torch.ops.opt_parse import (
+    B_V1, opt_v1_choice, opt_v1_choice_plain,
+)
 from tamp_tpu_torch.ops.opt_parse_ext import (
     opt_ext_choice, opt_ext_choice_plain,
 )
@@ -751,14 +753,62 @@ def test_b8_kernel_raises_on_a_hop_past_its_map(cuda):
         assert torch.equal(g.cpu(), w)
 
 
-def test_x1_kernel_equals_plain(cuda):
-    rng = np.random.default_rng(7)
-    S, T_max, W = 40, 3000, 1024
-    seg = np.cumsum(rng.random((S, T_max)) < 0.01, axis=1).astype(np.int32)
-    s_c = rng.integers(0, 1 << 20, (S, T_max)).astype(np.int32)
-    w_c = rng.integers(0, 300, (S, T_max)).astype(np.int32)
-    n_tr = rng.integers(0, T_max, S).astype(np.int32)
-    args = [torch.from_numpy(x) for x in (seg, s_c, w_c, n_tr)]
+def x1_hazard_rows(seed: int, S: int, T_max: int, W: int):
+    """Seeded inputs of kernel X1 (seg_c, s_c, w_c, n_tr: numpy int32) for
+    S shards of T_max tokens (T_max >= 200), aimed at the chunks of 32
+    tokens its kernel resolves: shard k is of kind k % 8: 0 every deficit
+    nonzero (w > W), segment changes inside a chunk (token 7) and at a
+    chunk's first token (32, 96, 128), n_tr = T_max; 1 n_tr = 0; 2, 3, 4
+    n_tr = 31, 32, 33, a deficit at about one token in three and a change
+    at token 31; 5 rare deficits and changes at random, n_tr random; 6
+    n_tr = T_max, a change at each chunk's first token and a deficit at its
+    last; 7 as 2-4 with n_tr = 127, 128, 129 in turns.  A copy of the
+    generator in chip_smoke.py."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T_max)
+    seg = np.zeros((S, T_max), np.int64)
+    s_c = rng.integers(0, 1 << 20, (S, T_max))
+    w_c = rng.integers(0, 9, (S, T_max))
+    n_tr = np.zeros(S, np.int64)
+    for k in range(S):
+        kind = k % 8
+        if kind == 0:
+            n_tr[k] = T_max
+            w_c[k] = W + 1 + rng.integers(0, 40, T_max)
+            seg[k] = ((t >= 7).astype(int) + (t >= 32) + (t >= 96)
+                      + (t >= 128))
+        elif kind in (2, 3, 4, 7):
+            n_tr[k] = 29 + kind if kind < 7 else 127 + k // 8 % 3
+            w_c[k] = np.where(rng.random(T_max) < 0.35,
+                              rng.integers(W // 2, 2 * W, T_max), w_c[k])
+            seg[k] = t >= 31
+        elif kind == 5:
+            n_tr[k] = rng.integers(0, T_max + 1)
+            w_c[k] = rng.integers(0, 300, T_max)
+            seg[k] = np.cumsum(rng.random(T_max) < 0.01)
+        elif kind == 6:
+            n_tr[k] = T_max
+            seg[k] = t // 32
+            w_c[k] = np.where(t % 32 == 31, W + 3, w_c[k])
+    return tuple(x.astype(np.int32) for x in (seg, s_c, w_c, n_tr))
+
+
+@pytest.mark.parametrize("rows", ["random", "hazards S=1", "hazards S=7",
+                                  "hazards S=203"])
+def test_x1_kernel_equals_plain(cuda, rows):
+    W = 1024
+    if rows == "random":
+        rng = np.random.default_rng(7)
+        S, T_max = 40, 3000
+        seg = np.cumsum(rng.random((S, T_max)) < 0.01,
+                        axis=1).astype(np.int32)
+        s_c = rng.integers(0, 1 << 20, (S, T_max)).astype(np.int32)
+        w_c = rng.integers(0, 300, (S, T_max)).astype(np.int32)
+        n_tr = rng.integers(0, T_max, S).astype(np.int32)
+        arrays = (seg, s_c, w_c, n_tr)
+    else:
+        arrays = x1_hazard_rows(3, int(rows.split("=")[1]), 2100, W)
+    args = [torch.from_numpy(x) for x in arrays]
     want = dw.trunc_deficits_plain(*args, W)
     before = dw.trunc_deficits.launches
     got = dw.trunc_deficits(*(a.to(cuda) for a in args), W)
@@ -1026,11 +1076,11 @@ def hazard_opt_shards(seed: int, window: int, literal: int):
     return shards
 
 
-def v1_opt_inputs(shards, window: int, literal: int):
+def v1_opt_inputs(shards, window: int, literal: int, NP: int = 0):
     """Kernel X3's inputs for shards (numpy): (flen, data, npos), flen the
     exact tables at cap min(16, minp + 13) of the v1 default window, NP
-    the v1 encode's padding (a power of two >= 512)."""
-    NP = 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
+    the v1 encode's padding (a power of two >= 512) unless given."""
+    NP = NP or 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
     S = len(shards)
     flen = np.zeros((S, NP), np.int32)
     data = np.zeros((S, NP), np.uint8)
@@ -1042,6 +1092,17 @@ def v1_opt_inputs(shards, window: int, literal: int):
             dictionary=d8)[0]
         data[i, : len(x)] = arr
     return flen, data, np.asarray([len(x) for x in shards], np.int32)
+
+
+def x3_group_shards(window: int, literal: int, S: int, NP: int):
+    """S seeded shards of at most NP bytes for X3's block groups: text
+    (masked to the literal's bits) and the hazard shards from the last (cut
+    to NP; at literal < 8 the last holds an unencodable byte), in turns."""
+    haz = hazard_opt_shards(window, window, literal)
+    lmask = (1 << literal) - 1
+    return [haz[-1 - k // 2 % len(haz)][:NP] if k % 2 else
+            (np.frombuffer(_text(NP, k), np.uint8)[: NP - 37 * (k % 5)]
+             & lmask).tobytes() for k in range(S)]
 
 
 def ext_opt_inputs(shards, window: int, literal: int, dictionary=None):
@@ -1062,12 +1123,27 @@ def _on(dev, arrays):
 _OPT_CASES = [(8, 8), (10, 8), (11, 6), (12, 8)]
 
 
-@pytest.mark.parametrize("rows", ["hazards", "text"])
-@pytest.mark.parametrize("window,literal", _OPT_CASES)
+# X3's blocks and groups: S shards of n_b = NP / B_V1 blocks each: one
+# block, fewer than a group, a group and one block, not a multiple of a
+# group
+X3_GROUP_CASES = [(1, 1), (1, 33), (203, 5), (13, 40)]
+
+
+@pytest.mark.parametrize(
+    "window,literal,rows",
+    [(w, l, r) for w, l in _OPT_CASES for r in ("hazards", "text")]
+    + [(w, l, f"S={S} n_b={n_b}") for w, l in ((10, 8), (11, 6))
+       for S, n_b in X3_GROUP_CASES])
 def test_x3_kernel_equals_plain(cuda, window, literal, rows):
-    shards = (hazard_opt_shards(window, window, literal) if rows == "hazards"
-              else [_text(65536, k)[:65536 - 7 * k] for k in range(4)])
-    args = v1_opt_inputs(shards, window, literal)
+    if rows == "hazards":
+        shards, NP = hazard_opt_shards(window, window, literal), 0
+    elif rows == "text":
+        shards, NP = [_text(65536, k)[:65536 - 7 * k] for k in range(4)], 0
+    else:
+        S, n_b = (int(x.split("=")[1]) for x in rows.split())
+        NP = n_b * B_V1
+        shards = x3_group_shards(window, literal, S, NP)
+    args = v1_opt_inputs(shards, window, literal, NP)
     kw = dict(window=window, literal=literal)
     want = opt_v1_choice_plain(*_on("cpu", args), **kw)
     before = opt_v1_choice.launches
@@ -1075,6 +1151,8 @@ def test_x3_kernel_equals_plain(cuda, window, literal, rows):
     assert opt_v1_choice.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    if NP:  # l6: the unencodable byte's shard is bad
+        assert bool(want[2].any()) == (literal < 8 and len(shards) > 1)
 
 
 @pytest.mark.parametrize("rows", ["hazards", "text"])

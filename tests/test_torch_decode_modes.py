@@ -25,6 +25,8 @@ from tamp_tpu.ops import decode_wavefront as jwf
 from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_wavefront as twf
 
+from test_torch_cuda import x1_hazard_rows
+
 pytestmark = pytest.mark.skipif(not _native.available(),
                                 reason="native engine unavailable")
 
@@ -218,6 +220,57 @@ def test_trunc_deficits_plain_matches_jax_fold(W):
         np.testing.assert_array_equal(got, want)
         if s < 2:
             assert want.any()  # some write was truncated
+
+
+def _x1_chunked(seg, s_c, w_c, n_tr, W):
+    """Kernel X1's resolution (csrc/decode_wavefront.cu, ``fold_chunk``)
+    in numpy: per shard, chunks of 32 tokens; a pass gives every
+    unresolved token D as it stood before the first of them, or 0 where a
+    segment change lies between, takes the first token whose deficit is
+    nonzero, and resolves every token up to it."""
+    chunk = 32
+    defs = np.zeros(seg.shape, np.int32)
+    for s in range(seg.shape[0]):
+        D = cur = 0
+        for c in range(0, int(n_tr[s]), chunk):
+            m = min(chunk, int(n_tr[s]) - c)
+            sg, sv, wv = (x[s, c : c + m].astype(np.int64)
+                          for x in (seg, s_c, w_c))
+            chg = sg != np.concatenate([[cur], sg[:-1]])
+            pos = 0
+            while pos < m:
+                Dl = np.where(np.cumsum(chg[pos:]) > 0, 0, D)
+                d = np.maximum(0, wv[pos:] - (W - ((sv[pos:] - Dl)
+                                                   & (W - 1))))
+                hit = np.flatnonzero(d)
+                f = int(hit[0]) if hit.size else m - 1 - pos
+                defs[s, c + pos : c + pos + f + 1] = d[: f + 1]
+                D, cur = int(Dl[f] + d[f]), int(sg[pos + f])
+                pos += f + 1
+    return defs
+
+
+@pytest.mark.parametrize("W", [256, 1024])
+def test_trunc_deficits_chunked_matches_plain_and_jax_fold(W):
+    """X1's chunked speculative resolution against its plain version and
+    the JAX fold on the hazard rows of tests/test_torch_cuda.py: deficits
+    at every token, segment changes inside a chunk and at its first token,
+    n_tr = 0, 31, 32, 33, 127, 128, 129 and T_max."""
+    T_max = 200
+    arrays = x1_hazard_rows(W, 24, T_max, W)
+    seg, s_c, w_c, n_tr = arrays
+    got = _x1_chunked(*arrays, W)
+    plain = twf.trunc_deficits(*(torch.from_numpy(x) for x in arrays), W)
+    np.testing.assert_array_equal(got, plain.numpy())
+    fold = jax.jit(_jax_fold, static_argnums=4)
+    for s in range(seg.shape[0]):
+        want = np.asarray(fold(jnp.asarray(seg[s]), jnp.asarray(s_c[s]),
+                               jnp.asarray(w_c[s]),
+                               jnp.arange(T_max) < n_tr[s], W))
+        np.testing.assert_array_equal(got[s], want)
+    assert (got[0] > 0).all() and (got[6, 31::32] > 0).all()
+    lengths = {0, 31, 32, 33, 127, 128, 129, T_max}
+    assert set(n_tr.tolist()) & lengths == lengths
 
 
 def test_modes_select_and_reject(monkeypatch):

@@ -8,7 +8,9 @@ walk) against the JAX package's ``engine/encode`` and native engine.
 The inputs are seeded hazard shards (``hazard_opt_shards`` of
 tests/test_torch_cuda.py, which also feeds the card's tests): sizes around
 the blocks and the lookback K, all-equal bytes, long periodic matches,
-forced-RLE chunk splits of 241 and 240, and an unencodable literal."""
+forced-RLE chunk splits of 241 and 240, and an unencodable literal.
+X3's plain version also runs with its kernel's grouped combine at ragged
+group counts."""
 
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ from tamp_tpu_torch.constants import compute_min_pattern_size
 from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.engine import encode as tencode
 from tamp_tpu_torch.engine.greedy import host_v1_tables, opt_ext_walk
-from tamp_tpu_torch.ops.opt_parse import opt_v1_choice, opt_v1_choice_plain
+from tamp_tpu_torch.ops.opt_parse import (
+    B_V1, G_V1, INF, combine_plain, opt_v1_choice, opt_v1_choice_plain,
+)
 from tamp_tpu_torch.ops.opt_parse_ext import (
     opt_ext_choice, opt_ext_choice_plain,
 )
@@ -117,6 +121,39 @@ def test_plain_is_independent_of_the_block_size(x):
                                      B=B) for B in (256, 1024)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_b,group", [(1, G_V1), (5, G_V1), (33, G_V1),
+                                       (40, G_V1), (64, 5), (9, 1)])
+def test_grouped_combine_equals_serial(n_b, group):
+    """combine_plain's two-level form (X3's kernel combine) against its
+    serial walk on seeded matrices with saturated entries: n_b = 1, fewer
+    blocks than a group, ragged last groups, groups of one."""
+    rng = np.random.default_rng(n_b)
+    T = rng.integers(0, 60, (3, n_b, 16, 16))
+    T[rng.random(T.shape) < 0.3] = INF
+    T[0, :, 3] = INF  # a row with no edge: its costs saturate
+    T = torch.from_numpy(T.astype(np.int32))
+    serial = combine_plain(T)
+    for g, w in zip(combine_plain(T, group), serial):
+        assert torch.equal(g, w)
+    assert int(serial[1][0, 3]) == INF
+
+
+@pytest.mark.parametrize("window,literal", [(10, 8), (11, 6)])
+@pytest.mark.parametrize("B,group", [(16, 7), (64, 5), (256, G_V1),
+                                     (B_V1, G_V1), (4096, G_V1)])
+def test_x3_plain_grouped_equals_jax(window, literal, B, group):
+    """X3's plain version with the kernel's grouped combine against the JAX
+    DP on the hazard shards (NP = 4096): n_b = 256 and 64 in ragged groups,
+    16 and 4096 / B_V1 blocks in one short group, and one block."""
+    args = v1_opt_inputs(hazard_opt_shards(window, window, literal), window,
+                         literal)
+    assert args[0].shape[1] == 4096
+    want = _jax_x3(args, window, literal)
+    _equal(opt_v1_choice_plain(*_t(args), window=window, literal=literal,
+                               B=B, group=group), want)
+    assert bool(want[2].any()) == (literal < 8)
 
 
 @needs_native

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Time kernels B4, B3, B6, B7, B8 and B5 of the PyTorch/CUDA port beside
-the chain floors of their walks and the parts of their work, and X2 and X4
-beside variants with parts cut out, on one NVIDIA card.
+the chain floors of their walks and the parts of their work, and X1, X2,
+X3 and X4 beside variants with parts cut out, on one NVIDIA card.
 
-    python3 tools/torch_walk_probe.py [--no-variants] [--tables] [--x]
+    python3 tools/torch_walk_probe.py [--no-variants] [--tables]
+                                      [--x [--only x1,x2,x3,x4]]
 
 ``--x`` times X2 alone, the serial decode of the main path's payloads
-(``x2_ms``, ns a token a shard), and X4 alone on the optimal path's
-planes, whole and by launch through the profiler (``x4_pass1_ms``,
-``x4_combine_ms``, ``x4_pass2_ms``), each beside its variants
-(X2_VARIANTS, X4_VARIANTS: sources edited and built as libraries of
-their own; a variant whose anchor is not in the source raises).
+(``x2_ms``, ns a token a shard), X4 alone on the optimal path's planes,
+whole and by launch through the profiler (``x4_pass1_ms``,
+``x4_combine_ms``, ``x4_pass2_ms``) and again at a block size of 4096
+(``x4_b4096_*``), X3 alone on the optimal v1 path's tables, whole and by
+launch (``x3_*_ms``, chip_smoke.X3_LAUNCHES), with the share of in-shard
+positions that have a match (``x3_match_share``), and X1 alone on the main
+path's token table (``x1_ms``, its kernel alone ``x1_kernel_ms``, ns a
+truncating token) beside its one-thread chain over the same rows staged
+in shared memory (``x1_chain_ms``), each beside its variants
+(X2_VARIANTS, X4_VARIANTS, X3_VARIANTS, X1_VARIANTS: sources edited and
+built as libraries of their own; a variant whose anchor is not in the
+source raises).
 
 Inputs are chip_smoke.py's phase-4 inputs: its seeded text corpus, 8 x 1 MiB
 shards, window 10, literal 8.  B4 decodes the main path's container, B3
@@ -48,6 +56,7 @@ power limit.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import statistics
@@ -148,6 +157,56 @@ X4_VARIANTS = {
 }
 
 
+# X3 variants (csrc/opt_parse.cu): name -> (the launches timed, as keys
+# of chip_smoke.X3_LAUNCHES less spaces, edit)
+X3_VARIANTS = {
+    # pass 1 relaxing all 14 match advances by selects (no early exit)
+    "x3_pass1_selects_ms": (("pass1",), lambda src: src.replace(
+        "          if (MINP + b > hi) break;\n"
+        "          nv = min(nv, r[(MINP + b - 1 - u + 16) % 16] + wt[b]);",
+        "          nv = min(nv, MINP + b <= hi ? "
+        "r[(MINP + b - 1 - u + 16) % 16] + wt[b] : INF);", 1)),
+    # the combine in groups of 16 blocks in place of 32
+    "x3_combine_g16_ms": (("groups", "scan", "bounds"), lambda src:
+                          src.replace("constexpr int G = 32;",
+                                      "constexpr int G = 16;", 1)),
+    # pass 2 staging only its first chunk (the rest read stale rows)
+    "x3_pass2_no_staging_ms": (("pass2",), lambda src: src.replace(
+        "    issue(q + 1);\n    __pipeline_wait_prior(1);",
+        "    __pipeline_commit();\n    __pipeline_wait_prior(1);", 1)),
+}
+X3_BLOCK_SIZES = (256, 512, 1024, 2048)  # X3 also timed at these
+_X1_WALK = """  int out = 0;
+  for (int k = 0; k < m; ++k) {
+    const int g = __shfl_sync(FULL, sg, k), a = __shfl_sync(FULL, sv, k);
+    const int w = __shfl_sync(FULL, wv, k);
+    if (g != cur) D = 0;
+    const int d = max(0, w - (W - ((a - D) & (W - 1))));
+    D += d;
+    cur = g;
+    if (lane == k) out = d;
+  }
+  return out;
+"""
+# X1 variants (csrc/decode_wavefront.cu): name -> edit
+X1_VARIANTS = {
+    # no tile: the launch and the read of n_tr alone
+    "x1_empty_ms": lambda src: src.replace(
+        "  const int nt = (n + TR_TILE - 1) / TR_TILE;",
+        "  const int nt = 0 * n;", 1),
+    # the tiles staged and the deficits stored, no pass run
+    "x1_no_fold_ms": lambda src: src.replace(
+        "  for (int pos = 0; pos < m;) {", "  for (int pos = m; pos < m;) {",
+        1),
+    # each chunk walked token by token (the warp in step, reading the
+    # tokens by shuffles) in place of the speculative passes
+    "x1_walk_ms": lambda src: re.sub(
+        r"  int out = 0;\n  for \(int pos = 0; pos < m;\) \{.*?\n"
+        r"  return out;\n", lambda _m: _X1_WALK, src, count=1,
+        flags=re.S),
+}
+
+
 def variant_lib(name: str, edit, source: str = "decode_commit",
                 entry: str = "tpt_commit_decode", n_ptr: int = 6,
                 n_int: int = 5):
@@ -188,7 +247,9 @@ def main() -> int:
     ap.add_argument("--tables", action="store_true",
                     help="time the match tables B1, B2 and B5 only")
     ap.add_argument("--x", action="store_true",
-                    help="time X2 and X4 and their variants only")
+                    help="time X1, X2, X3 and X4 and their variants only")
+    ap.add_argument("--only", default="x1,x2,x3,x4",
+                    help="with --x: the kernels to time, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_walk_probe: no CUDA device", file=sys.stderr)
@@ -219,8 +280,15 @@ def main() -> int:
     if args.x:
         blob = compress_sharded(data, shard_size=DEFAULT_SHARD_SIZE,
                                 device=dev)
-        x2_parts(res, dev, blob, d, window, literal)
-        x4_parts(res, dev, shards, window, literal)
+        only = args.only.split(",")
+        if "x1" in only:
+            x1_parts(res, dev, blob, window, literal)
+        if "x3" in only:
+            x3_parts(res, dev, shards, window, literal)
+        if "x2" in only:
+            x2_parts(res, dev, blob, d, window, literal)
+        if "x4" in only:
+            x4_parts(res, dev, shards, window, literal)
         return finish(res)
     _p, dh, rc, npos = prepare_batch(shards, window=window)
     ext_table_parts(res, dev, dh, npos, d, window, literal)
@@ -423,7 +491,7 @@ def x4_parts(res, dev, shards, window, literal):
     planes = optimal_batch(shards, optimal_prep(shards, **kw),
                            literal=literal)
     args = cs.on_device(dev, planes)
-    parts = {"pass1": "pass1", "combine": "combine", "pass2": "pass2"}
+    parts = {k.replace(" ", ""): v for k, v in cs.X4_LAUNCHES.items()}
     res["x4_ms"], (choice, _c, _b) = cs.cuda_ms(
         lambda: opt_ext_choice(*args, **kw), reps=5)
     for k, v in cs.launch_split(lambda: opt_ext_choice(*args, **kw),
@@ -454,6 +522,153 @@ def x4_parts(res, dev, shards, window, literal):
         except RuntimeError as e:  # a variant the card refuses to launch
             res[name] = f"failed: {e}"
     del choice
+    # the same planes at a block size of 4096 (the output must not change)
+    from tamp_tpu_torch.ops import opt_parse_ext
+
+    kept = opt_parse_ext.B_EXT
+    opt_parse_ext.B_EXT = 4096
+    try:
+        res["x4_b4096_ms"], got = cs.cuda_ms(
+            lambda: opt_ext_choice(*args, **kw), reps=5)
+        for k, v in cs.launch_split(lambda: opt_ext_choice(*args, **kw),
+                                    parts).items():
+            res[f"x4_b4096_{k}_ms"] = v
+    finally:
+        opt_parse_ext.B_EXT = kept
+    ref = opt_ext_choice(*args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise RuntimeError("X4 at B = 4096 differs from X4 at its block size")
+    del got, ref
+
+
+def x3_parts(res, dev, shards, window, literal):
+    """X3 on the optimal v1 path's inputs (B5's tables of the raw shards,
+    as phase 4 makes them): the whole call and each launch (profiler,
+    chip_smoke.X3_LAUNCHES), the share of in-shard positions with a match
+    (flen >= minp) and their mean highest advance, the launches at other
+    block sizes (``x3_b{B}_*``; the choices must not change) and the
+    variants (X3_VARIANTS) by launch."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.constants import compute_min_pattern_size
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_v1 import v1_tables
+    from tamp_tpu_torch.ops.opt_parse import K_V1, opt_v1_choice, v1_block
+
+    raw_d, nraw_d = raw_rows(shards, dev)
+    dict1 = torch.from_numpy(dictionary_array(1 << window, 8)).to(dev)
+    flen = v1_tables(raw_d, nraw_d, dict1, window_bits=window,
+                     cap=v1_cap(window, literal))[0]
+    kw = dict(window=window, literal=literal)
+    res["x3_ms"], want = cs.cuda_ms(
+        lambda: opt_v1_choice(flen, raw_d, nraw_d, **kw), reps=5)
+    labels = {k.replace(" ", ""): v for k, v in cs.X3_LAUNCHES.items()}
+    for k, v in cs.launch_split(lambda: opt_v1_choice(flen, raw_d, nraw_d,
+                                                      **kw), labels).items():
+        res[f"x3_{k}_ms"] = v
+    minp = compute_min_pattern_size(window, literal)
+    S, NP = flen.shape
+    inside = torch.arange(NP, device=dev)[None, :] < nraw_d[:, None]
+    m = inside & (flen >= minp)
+    res["x3_match_share"] = int(m.sum()) / int(inside.sum())
+    res["x3_mean_hi"] = float(flen[m].double().mean())
+
+    def split(fn, B, parts, check=True):
+        """fn (a tpt_opt_v1_choice) at block size B: ms by launch (and
+        whether its choices differ from the wrapper's)."""
+        n_b = NP // B
+        ch = torch.empty((S, NP), dtype=torch.int32, device=dev)
+        out = (ch, torch.empty(S, dtype=torch.int32, device=dev),
+               torch.zeros(S, dtype=torch.int32, device=dev),
+               torch.empty(S * n_b * K_V1 * K_V1, dtype=torch.int32,
+                           device=dev),
+               torch.empty(S * n_b * K_V1, dtype=torch.int32, device=dev))
+        argv = [t.data_ptr() for t in (flen, raw_d, nraw_d, *out)] + [
+            S, NP, B, window, literal,
+            torch.cuda.current_stream().cuda_stream]
+        got = cs.launch_split(lambda: _build.check(fn(*argv), "X3"), parts)
+        if check and not torch.equal(ch, want[0]):
+            raise RuntimeError(f"X3 at B = {B} differs from its wrapper's")
+        return got, not torch.equal(ch, want[0])
+
+    main = getattr(_build.load("opt_parse"), "tpt_opt_v1_choice")
+    main.restype = ctypes.c_int
+    main.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    for B in X3_BLOCK_SIZES:
+        if B != v1_block(NP):
+            for k, v in split(main, B, labels)[0].items():
+                res[f"x3_b{B}_{k}_ms"] = v
+    for name, (launches, edit) in X3_VARIANTS.items():
+        fn = variant_lib(name, edit, "opt_parse", "tpt_opt_v1_choice", 8, 5)
+        got, differs = split(fn, v1_block(NP),
+                             {k: labels[k] for k in launches}, check=False)
+        res[name] = sum(got.values())
+        if len(got) > 1:
+            for k, v in got.items():
+                res[name.replace("_ms", f"_{k}_ms")] = v
+        if differs:
+            res[name.replace("_ms", "_differs")] = True
+    del flen, want
+
+
+def x1_parts(res, dev, blob, window, literal):
+    """X1 on the main path's token table (the chase's, as phase 4 folds
+    it): the call, its kernel alone (profiler), ns a truncating token (of
+    all shards and a shard), the count of nonzero deficits, and the
+    one-thread chain over the same rows staged in shared memory
+    (``tpt_probe_trunc_chain`` of csrc/walk_probe.cu), and the variants
+    (X1_VARIANTS)."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.ops.token_chase import token_table_chase
+    from tamp_tpu_torch.parallel.shard import _parse_frame
+
+    pieces = _parse_frame(blob)[2]
+    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
+                                   literal=literal, extended=True,
+                                   device=dev)
+    S, NBP = nxt.shape
+    T_max = NBP // (1 + literal) + 2
+    tab = token_table_chase(nxt, NBP, T_max)
+    x1_in = dw.fold_inputs(*tab, packed, more=False)
+    del nxt, packed, tab
+    W = 1 << window
+    res["x1_ms"], defs = cs.cuda_ms(lambda: dw.trunc_deficits(*x1_in, W),
+                                    reps=5)
+    res["x1_kernel_ms"] = cs.launch_split(
+        lambda: dw.trunc_deficits(*x1_in, W),
+        {"fold": "trunc_deficits"})["fold"]
+    n_tr = int(x1_in[3].sum())
+    res["x1_n_tr"], res["x1_t_max"] = n_tr, T_max
+    res["x1_n_tr_by_shard"] = x1_in[3].tolist()
+    res["x1_nonzero"] = int((defs != 0).sum())
+    out = torch.zeros_like(defs)
+    res["x1_chain_ms"] = cs.launch_split(lambda: _build.launch(
+        "walk_probe", "tpt_probe_trunc_chain", dev, (*x1_in, out),
+        (S, T_max, W)), {"chain": "probe_trunc_chain"})["chain"]
+    if not torch.equal(out, defs):
+        raise RuntimeError("the fold chain probe differs from X1")
+    for name, edit in X1_VARIANTS.items():
+        fn = variant_lib(name, edit, "decode_wavefront", "tpt_trunc_deficits",
+                         5, 3)
+        out.zero_()
+        argv = [t.data_ptr() for t in (*x1_in, out)] + [
+            S, T_max, W, torch.cuda.current_stream().cuda_stream]
+        res[name] = cs.launch_split(lambda: _build.check(fn(*argv), name),
+                                    {"fold": "trunc_deficits"})["fold"]
+        if not torch.equal(out, defs):
+            res[name.replace("_ms", "_differs")] = True
+    for k in ("x1_ms", "x1_kernel_ms", "x1_chain_ms", *X1_VARIANTS):
+        ns = res[k] * 1e6 / max(n_tr, 1)
+        res[k.replace("_ms", "_ns_per_token")] = ns
+        res[k.replace("_ms", "_ns_per_token_a_shard")] = ns * S
 
 
 def table_parts(res, key, dev, rows, npos_d, d, window, lrun, probe):
