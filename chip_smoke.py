@@ -52,15 +52,23 @@ Phases (any failure raises, and the script exits non-zero):
    than a group of 32, ragged last groups) at w10 l8 and w11 l6, and X1
    on seeded hazard rows (a deficit at every token, segment changes
    inside a chunk of 32 tokens and at its first token, 0, 31-33, 127-129
-   and T_max truncating tokens) at 1, 7 and 203 shards;
-3. eight round trips at full size: 8 x 1 MiB shards of a seeded random-word
+   and T_max truncating tokens) at 1, 7 and 203 shards; then
+   ``engine="device"`` (extended: B5 and the host table committer; v1:
+   the device-commit encode): v1 lazy at w8
+   and w15 (l5), custom dictionaries, empty input and the file path's
+   batches of 1, 7 and 203 shards, each with B5 against its plain version
+   at the path's rows, the streams against the plain versions' and, for
+   the batches, ``compress_file_sharded`` against ``compress_sharded``;
+3. eleven round trips at full size: 8 x 1 MiB shards of a seeded random-word
    text with a run-heavy stretch, window 10 / literal 8, through
    ``compress_sharded`` and ``decompress_sharded_device``: the main path
    (``engine="device-commit"``, extended, no lazy matching), then extended
    with lazy matching, v1, v1 with lazy matching,
    ``engine="device-greedy"`` without and with lazy matching, and
    ``engine="device-optimal"`` extended (``optimal``: X4, B4) and v1
-   (``optimal v1``: B5, X3, B3, B4).  For each:
+   (``optimal v1``: B5, X3, B3, B4), and ``engine="device"`` extended,
+   extended lazy and v1 (``device``, ``device lazy``: B5 and the host
+   table committer, B4; ``device v1``: B5, B3, B4).  For each:
    the kernel launch counts of that one round trip
    (every count set to 0 just before it), encode and decode rates (CUDA
    events, median of 3 after a warm-up), the ratio, and the card's
@@ -77,7 +85,16 @@ Phases (any failure raises, and the script exits non-zero):
    threaded committer's rate (the host-only yardstick).  For the optimal
    paths: the v1 container no larger than the v1 and v1 lazy ones, the
    extended ratio beside extended lazy's (not checked), a stage split of
-   each encode through its own stage functions and its idle share.  Then
+   each encode through its own stage functions and its idle share.  For
+   the device paths: B5's launches a call, B5's full-size tables of the
+   model histories equal to its plain version (extended, lazy and not),
+   the v1 and v1 lazy containers equal to the v1 and v1 lazy
+   device-commit ones, each container
+   decoded by the serial algorithm, ``compress_file_sharded`` through a
+   temporary file equal to the round trip's container (and its rate),
+   each encode's idle share, and the extended encode's stages (host prep,
+   pad, h2d, B5, pack and pull, the gather and two commits a shard, the
+   frame).  Then
    the decode
    modes: those four containers and an extended window-15 one of the same
    corpus, each decoded through ``decompress_sharded_device`` with
@@ -89,12 +106,16 @@ Phases (any failure raises, and the script exits non-zero):
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
    word operation per 32 slots of each target); B5 with the probe family
-   has a row of its own; the walks' rows (B3, B4, B6, B7) also carry their
+   and B5 on ``engine="device"``'s model histories (cap 16) have rows of
+   their own; the walks' rows (B3, B4, B6, B7) also carry their
    walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
    replay steps); X3 and X4 carry the edges their serial DP relaxes on
    the path's inputs (``edges``; their operation bound counts an add and
    a min an edge); X4's three launches and X3's five are timed apart
-   (profiler; X4_LAUNCHES, X3_LAUNCHES), X1 is timed alone beside its
+   (profiler; X4_LAUNCHES, X3_LAUNCHES; each row carries the profiler
+   traces its split took, ``launch_traces``, and the lag from the first
+   launch call to the first kernel on the profiler's clocks,
+   ``launch_lag_us``), X1 is timed alone beside its
    call (the call zero-fills the (S, T_max) output) and in ns a truncating
    token, and the X1, X2, X3 and X4 rows print their first ports' times
    (FIRST_PORT_MS) beside.
@@ -133,7 +154,13 @@ PATHS = (
      ("opt_ext_choice", "commit_decode")),
     ("optimal v1", {"engine": "device-optimal", "extended": False},
      ("v1_tables", "opt_v1_choice", "commit_fields", "commit_decode")),
+    ("device", {"engine": "device"}, ("v1_tables", "commit_decode")),
+    ("device lazy", {"engine": "device", "lazy_matching": True},
+     ("v1_tables", "commit_decode")),
+    ("device v1", {"engine": "device", "extended": False},
+     ("v1_tables", "commit_fields", "commit_decode")),
 )
+DEVICE_PATHS = ("device", "device lazy", "device v1")  # engine="device"
 OPT_CASES = ((8, 8), (10, 8), (11, 6), (12, 8))  # X3 and X4: window, literal
 # X4's and X3's launches, by a substring of their kernels' names (neither
 # matches a kernel of the other)
@@ -1506,6 +1533,251 @@ def phase_kernels_small(dev, report):
            "and tiny shards equal to the table-less committer")
 
 
+def device_rows(shards, kw: dict):
+    """The rows kernel B5 reads on ``engine="device"`` for ``shards`` and
+    the options ``kw``: the model histories (extended) or the raw shards
+    (v1), and the initial window."""
+    import numpy as np
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.encode_extended import model_inputs
+
+    window, literal = kw.get("window", 10), kw.get("literal", 8)
+    extended = kw.get("extended", True)
+    datas = [np.frombuffer(x, np.uint8) for x in shards]
+    if kw.get("dictionary") is not None:
+        d = np.frombuffer(kw["dictionary"], np.uint8).copy()
+    else:
+        d = dictionary_array(1 << window, literal if extended else 8)
+    if extended:
+        return [model_inputs(x, window)[2] for x in datas], d
+    return datas, d
+
+
+def b5_device_err(dev, shards, kw: dict) -> int:
+    """Kernel B5 against its plain version (both on the card) on the rows
+    and at the cap and probe ``engine="device"`` gives it for ``shards``
+    (extended: cap 16 over the model histories; v1: the v1 cap over the
+    raw shards); returns the largest element difference."""
+    import torch
+
+    from tamp_tpu_torch.engine.pipeline import pad_shards
+    from tamp_tpu_torch.ops.encode_fused import v1_cap
+    from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
+
+    rows, d = device_rows(shards, kw)
+    batch, npos = pad_shards(rows)
+    args = (torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
+            torch.from_numpy(d).to(dev))
+    window, literal = kw.get("window", 10), kw.get("literal", 8)
+    cap = 16 if kw.get("extended", True) else v1_cap(window, literal)
+    opts = dict(window_bits=window, cap=cap,
+                probe=kw.get("lazy_matching", False))
+    return max_abs_err(zip(v1_tables(*args, **opts),
+                           v1_tables_plain(*args, **opts)))
+
+
+def phase_device_small(dev, report):
+    """Phase 2, ``engine="device"`` at small size: v1 lazy at w8 and w15
+    (l5), custom dictionaries, empty input, and the file path's batch
+    shapes (1, 7 and 203 shards, the last short).  Each case: kernel B5
+    against its plain version on the card at the path's rows, cap and
+    probe; the streams of ``encode_device_batch`` on the card equal to the
+    plain versions' (``device="cpu"``) and decoded back; for the batch
+    shapes ``compress_file_sharded`` equal to ``compress_sharded``."""
+    import io
+
+    import numpy as np
+
+    from tamp_tpu_torch.engine.pipeline import encode_device_batch
+    from tamp_tpu_torch.parallel.shard import (
+        _pack_frame, compress_file_sharded, compress_sharded,
+        decompress_sharded_device,
+    )
+
+    text = corpus(SMALL, seed=12)
+    l5 = bytes(b & 31 for b in text)
+    custom = np.random.default_rng(0x5EED).integers(
+        97, 123, 1 << 10).astype(np.uint8).tobytes()
+
+    def cut(raw, size):
+        return [raw[i : i + size] for i in range(0, len(raw), size)] or [b""]
+
+    cases = (
+        ("v1 lazy w8 l5", l5[:8192], 4096,
+         dict(window=8, literal=5, extended=False, lazy_matching=True)),
+        ("v1 lazy w15 l5", l5[:8192], 4096,
+         dict(window=15, literal=5, extended=False, lazy_matching=True)),
+        ("extended, custom dictionary", text[:16384], 8192,
+         dict(dictionary=custom)),
+        ("extended lazy, custom dictionary", text[:16384], 8192,
+         dict(dictionary=custom, lazy_matching=True)),
+        ("v1, custom dictionary", text[:16384], 8192,
+         dict(dictionary=custom, extended=False)),
+        ("extended, empty input", b"", 4096, {}),
+        ("v1 lazy, empty input", b"", 4096,
+         dict(extended=False, lazy_matching=True)),
+        ("extended, file batch of 1 shard", text[:3000], 4096, {}),
+        ("extended lazy, file batch of 7 shards", text[: 6 * 1024 + 300],
+         1024, dict(lazy_matching=True)),
+        ("v1, file batch of 203 shards", text[: 202 * 256 + 17], 256,
+         dict(extended=False)),
+    )
+    for name, raw, size, kw in cases:
+        shards = cut(raw, size)
+        err = b5_device_err(dev, shards, kw)
+        if err:
+            fail(f"device {name}: B5 differs from its plain version "
+                 f"(max_abs_err {err})")
+        got = encode_device_batch(shards, device=dev, **kw)
+        if got != encode_device_batch(shards, device="cpu", **kw):
+            fail(f"device {name}: the card's streams differ from the plain "
+                 "versions'")
+        blob = _pack_frame(got, len(raw), size)
+        dictionary = kw.get("dictionary")
+        for alg in ("wavefront", "serial"):
+            if bytes(decompress_sharded_device(
+                    blob, algorithm=alg, dictionary=dictionary,
+                    device=dev)) != raw:
+                fail(f"device {name}: the container did not round-trip "
+                     f"({alg})")
+        if "file batch" in name:
+            dst = io.BytesIO()
+            compress_file_sharded(io.BytesIO(raw), dst, shard_size=size,
+                                  workers=-(-len(shards) // 2), device=dev,
+                                  **kw)
+            if dst.getvalue() != compress_sharded(
+                    raw, engine="device", shard_size=size, device=dev, **kw):
+                fail(f"device {name}: the file container differs from "
+                     "compress_sharded's")
+        report(f"engine=device, {name} ({len(shards)} shards): B5 equal to "
+               "its plain version, streams equal to the plain versions', "
+               "round trip equal")
+
+
+def phase_device(dev, report, data, blobs, launches, shard_size: int,
+                 card: str):
+    """Phase 3, ``engine="device"`` (extended, extended lazy and v1) after
+    their round trips: B5's launches a call; for the extended paths B5's
+    tables at full size element-equal to its plain version on the card;
+    the v1 and v1 lazy containers equal to the v1 and v1 lazy
+    ``device-commit`` ones (v1 runs that encode); each container decoded
+    by the serial
+    algorithm; ``compress_file_sharded`` through a temporary file equal
+    to ``compress_sharded``'s container, with its rate; the device's idle
+    share of each encode."""
+    import tempfile
+
+    from tamp_tpu_torch.parallel.shard import (
+        compress_file_sharded, compress_sharded, decompress_sharded_device,
+    )
+
+    if blobs["device v1"] != blobs["v1"]:
+        fail("device v1: the container differs from the v1 device-commit "
+             "container")
+    lazy_v1 = compress_sharded(data, engine="device", extended=False,
+                               lazy_matching=True, shard_size=shard_size,
+                               device=dev)
+    if lazy_v1 != blobs["v1 lazy"]:
+        fail("device v1 lazy: the container differs from the v1 lazy "
+             "device-commit container")
+    report("  device v1, device v1 lazy: containers equal to the v1 and v1 "
+           "lazy device-commit ones")
+    shards = [data[i : i + shard_size]
+              for i in range(0, len(data), shard_size)]
+    kws = {name: kw for name, kw, _k in PATHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "corpus.bin"
+        src.write_bytes(data)
+        for name in DEVICE_PATHS:
+            kw = {k: v for k, v in kws[name].items() if k != "engine"}
+            report(f"  {name}: B5 launches a call "
+                   f"{launches[name]['v1_tables']}")
+            if kw.get("extended", True):
+                err = b5_device_err(dev, shards, kw)
+                if err:
+                    fail(f"{name}: B5 differs from its plain version at "
+                         f"full size (max_abs_err {err})")
+                report(f"  {name}: B5's tables of the model histories "
+                       "equal to its plain version at full size")
+            ms, back = cuda_ms(lambda: decompress_sharded_device(
+                blobs[name], algorithm="serial", device=dev))
+            if bytes(back) != data:
+                fail(f"{name}: the serial decode differs from the input")
+            dst = Path(tmp) / "out.ttpu"
+            fms, _n = cuda_ms(lambda: compress_file_sharded(
+                src, dst, shard_size=shard_size, device=dev, **kw))
+            if dst.read_bytes() != blobs[name]:
+                fail(f"{name}: the file container differs from "
+                     "compress_sharded's")
+            report(f"  {name}: serial decode equal, "
+                   f"{len(data) / ms / 1e3:.2f} MB/s; compress_file_sharded "
+                   f"equal to compress_sharded, {len(data) / fms / 1e3:.2f} "
+                   f"MB/s [{card}]")
+            idle_share(report, f"{name} encode", lambda: compress_sharded(
+                data, shard_size=shard_size, device=dev, **kws[name]), card)
+
+
+def phase_device_split(dev, report, data, blob, shard_size: int, card: str):
+    """Where the extended ``engine="device"`` encode's time goes, through
+    the entry's own stage functions (engine/encode_extended.py,
+    engine/pipeline.py), host clock around work that ends in a
+    synchronize, median of 3 after a warm-up: the model inputs (a thread a
+    shard), the pad, the copy to the card, B5, the pack and the one pull,
+    the gather and the two commits a shard (a thread a shard), the frame;
+    the staged container equal to the round trip's (``blob``)."""
+    import numpy as np
+    import torch
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.encode_extended import ext_commits, model_inputs
+    from tamp_tpu_torch.engine.pipeline import (
+        device_tables, pack_tables, pad_shards, per_shard,
+    )
+    from tamp_tpu_torch.parallel.shard import _pack_frame, compress_sharded
+
+    window, literal = 10, 8
+    datas = [np.frombuffer(data[i : i + shard_size], np.uint8)
+             for i in range(0, len(data), shard_size)]
+    stages: dict[str, list[float]] = {}
+
+    def timed(stage, fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    commits = "gather + two commits a shard (a thread a shard)"
+    for _ in range(4):
+        model = timed("host prep (plan, model history; a thread a shard)",
+                      lambda: per_shard(lambda i: model_inputs(
+                          datas[i], window), len(datas)))
+        batch, npos = timed("host pad", lambda: pad_shards(
+            [m[2] for m in model]))
+        args = timed("host->device", lambda: (
+            torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
+            torch.from_numpy(dictionary_array(1 << window, literal)).to(dev)))
+        tabs = timed("B5 device_tables (cap 16)", lambda: device_tables(
+            *args, window=window, lazy=False))
+        planes = timed("pack + device->host (one pull)",
+                       lambda: pack_tables(tabs, window).cpu().numpy())
+        streams = timed(commits, lambda: ext_commits(
+            datas, model, planes, window=window, literal=literal,
+            lazy_matching=False, dictionary=None))
+        framed = timed("frame", lambda: _pack_frame(streams, len(data),
+                                                    shard_size))
+        timed("whole compress_sharded call", lambda: compress_sharded(
+            data, shard_size=shard_size, engine="device", device=dev))
+        del tabs, args
+    if framed != blob:
+        fail("device: the staged encode differs from the round trip's")
+    for stage, ts in stages.items():
+        ms = statistics.median(ts[1:])
+        report(f"  device encode {stage}: {ms:.2f} ms [{card}]")
+
+
 def b7_inputs(data, npos, d, *, window: int, lazy: bool):
     """Kernel B7's inputs as the greedy path makes them from the raw rows
     ``data``: the packed walker plane ``pk`` and the probe plane ``pp``
@@ -2098,31 +2370,48 @@ def idle_share(report, name: str, fn, card: str) -> float:
     return 1 - busy / wall
 
 
-def launch_split(fn, parts, reps: int = 5) -> dict:
+def launch_split(fn, parts, reps: int = 5, traces: int = 3):
     """Device ms a call of ``fn`` spends in each of its kernels, from a
     torch.profiler trace of ``reps`` calls after a warm one: ``parts`` maps
-    a label to a substring of the kernel's name."""
+    a label to a substring of the kernel's name.  A trace that misses a
+    kernel is taken again, up to ``traces`` traces in all, and each miss is
+    printed with the device events the trace did hold (one run of the
+    script saw X3's trace come back without its kernels).  Returns (ms by
+    label, the traces taken, the lag in µs from the trace's first kernel
+    launch call to its first kernel start, on the profiler's host and
+    device clocks; None where the trace holds no launch call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    got = {label: 0.0 for label in parts}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for label, key in parts.items():
-            if key in e.key:
-                got[label] += e.self_device_time_total / 1e3 / reps
-    for label, ms in got.items():
-        if ms <= 0:
-            fail(f"the profiler saw no kernel {parts[label]!r}")
-    return got
+    for trace in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got = {label: 0.0 for label in parts}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for label, key in parts.items():
+                if key in e.key:
+                    got[label] += e.self_device_time_total / 1e3 / reps
+        events = prof.events()
+        starts = [e.time_range.start for e in events
+                  if e.device_type == DeviceType.CUDA]
+        calls = [e.time_range.start for e in events
+                 if e.device_type == DeviceType.CPU
+                 and "LaunchKernel" in e.name]
+        lag = min(starts) - min(calls) if starts and calls else None
+        missing = [parts[label] for label, ms in got.items() if ms <= 0]
+        if not missing:
+            return got, trace, lag
+        print(f"  launch_split: trace {trace} saw no kernel {missing}; it "
+              f"held {len(starts)} device events and {len(calls)} launch "
+              f"calls, lag {lag} us", flush=True)
+    fail(f"the profiler saw no kernel {missing!r} in {traces} traces")
 
 
 def walk_count(rows, stops, step):
@@ -2326,6 +2615,20 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         bytes=S * shard_size + W + 4 * S + 4 * 4 * S * shard_size,
         ops=2 * n_raw * slot_words))
     del ptabs
+    # B5 on engine="device" (extended): cap 16 over the model histories
+    # against the extended dictionary, one launch a batch
+    kw16 = dict(window_bits=window, cap=16)
+    ms, dtabs = cuda_ms(lambda: v1_tables(dh_d, npos_d, dict_d, **kw16))
+    pms, ptabs = cuda_ms(lambda: v1_tables_plain(dh_d, npos_d, dict_d,
+                                                 **kw16), reps=1)
+    kernels.append(dict(
+        name="v1_tables (B5) on the model history (engine=device)",
+        route="cuda", source="tamp_tpu_torch/csrc/match_ext.cu",
+        replaces="tamp_tpu/ops/match_pallas.py:75",
+        launches=launches["device"]["v1_tables"],
+        max_abs_err=max_abs_err(zip(dtabs, ptabs)), ms=ms, plain_ms=pms,
+        bytes=S * NP + W + 4 * S + 2 * 4 * S * NP, ops=n_dh * slot_words))
+    del dtabs, ptabs
 
     # B6: the lazy v1 walk over this batch's packed tables
     flen, fidx, plen, pidx = tabs
@@ -2434,13 +2737,14 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     pdefs = dw.trunc_deficits_plain(*x1_h, W)
     pms = (time.perf_counter() - h0) * 1e3
     n_tr = int(x1_in[3].sum())
-    split = launch_split(lambda: dw.trunc_deficits(*x1_in, W),
-                         {"fold": "trunc_deficits"})
+    split, n_tr_x1, lag_x1 = launch_split(
+        lambda: dw.trunc_deficits(*x1_in, W), {"fold": "trunc_deficits"})
     report(f"  X1 inputs: {n_tr} truncating tokens of {tokens}, "
            f"{int((pdefs != 0).sum())} nonzero deficits; the call "
            f"{ms * 1e6 / max(n_tr, 1):.1f} ns a truncating token, its "
            f"kernel alone {split['fold']:.4f} ms, "
-           f"{split['fold'] * 1e6 / max(n_tr, 1):.1f} ns [{card}]")
+           f"{split['fold'] * 1e6 / max(n_tr, 1):.1f} ns ({n_tr_x1} "
+           f"traces, lag {lag_x1} us) [{card}]")
     # the fold reads three words and writes one per truncating token
     kernels.append(dict(
         name="trunc_deficits (X1)", route="cuda",
@@ -2448,7 +2752,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         replaces="tamp_tpu/ops/decode_wavefront.py:358",
         launches=dec_launches["extended", "chase"]["trunc_deficits"],
         max_abs_err=max_abs_err([(defs, pdefs)]), ms=ms, plain_ms=pms,
-        bytes=16 * n_tr + 4 * S, ops=6 * n_tr, launch_ms=split))
+        bytes=16 * n_tr + 4 * S, ops=6 * n_tr, launch_ms=split,
+        launch_traces=n_tr_x1, launch_lag_us=lag_x1))
     del tab, packed, x1_in, x1_h, defs, pdefs
 
     # X2: the serial decode of the main path's payloads
@@ -2494,10 +2799,11 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     n_edges = int(torch.where(inside, 1 + torch.clamp_min(torch.clamp_max(
         flen, minp + 13) - minp + 1, 0), 0).sum())
     report(f"  X3 inputs: {n_edges} edges over {n_raw} positions [{card}]")
-    split = launch_split(lambda: opt_v1_choice(flen, raw_d, nraw_d, **kw),
-                         X3_LAUNCHES)
+    split, n_tr_x3, lag_x3 = launch_split(
+        lambda: opt_v1_choice(flen, raw_d, nraw_d, **kw), X3_LAUNCHES)
     report("  X3 launches: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items()) + f" [{card}]")
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f" ({n_tr_x3} traces, lag {lag_x3} us) [{card}]")
     kernels.append(dict(
         name="opt_v1_choice (X3)", route="cuda",
         source="tamp_tpu_torch/csrc/opt_parse.cu",
@@ -2507,16 +2813,18 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         edges=n_edges,
         # flen and data read once, the int32 choice plane written once
         bytes=9 * S * shard_size + 12 * S, ops=2 * n_edges,
-        launch_ms=split))
+        launch_ms=split, launch_traces=n_tr_x3, launch_lag_us=lag_x3))
     del flen, got, plain, inside
 
     # X4: the optimal path's DP over the host prep of the raw shards
     planes = optimal_batch(shards, optimal_prep(shards, **kw), literal=literal)
     args = on_device(dev, planes)
     ms, got = cuda_ms(lambda: opt_ext_choice(*args, **kw))
-    split = launch_split(lambda: opt_ext_choice(*args, **kw), X4_LAUNCHES)
+    split, n_tr_x4, lag_x4 = launch_split(
+        lambda: opt_ext_choice(*args, **kw), X4_LAUNCHES)
     report("  X4 launches: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{card}]")
+        f"{k} {v:.3f} ms" for k, v in split.items())
+        + f" ({n_tr_x4} traces, lag {lag_x4} us) [{card}]")
     pms, plain = cuda_ms(lambda: opt_ext_choice_plain(*args, **kw), reps=1)
     pk = args[0]
     MP, C = pk.shape[1], planes[3].shape[1]
@@ -2540,7 +2848,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         # the packed plane and the sideband read once, the uint8 choice
         # plane written once
         bytes=5 * S * MP + 8 * S * C + 12 * S, ops=2 * n_edges,
-        launch_ms=split))
+        launch_ms=split, launch_traces=n_tr_x4, launch_lag_us=lag_x4))
     del args, got, plain, pk, room, hi, inside
 
     ops_per_s = int_ops_per_s()  # every kernel's work is integer work
@@ -2601,6 +2909,7 @@ def main() -> int:
     phase_kernels_small(dev, report)
     phase_hazards(dev, report)
     phase_optimal_small(dev, report)
+    phase_device_small(dev, report)
     report(f"phase 2: kernels equal to their plain versions "
            f"({time.perf_counter() - t0:.1f} s)")
 
@@ -2629,7 +2938,12 @@ def main() -> int:
                    f"{base} {ratios[base]:.6f}")
             phase_greedy(dev, report, data, blobs[name], DEFAULT_SHARD_SIZE,
                          card, lazy="lazy" in name)
+        if name == "device":
+            phase_device_split(dev, report, data, blobs[name],
+                               DEFAULT_SHARD_SIZE, card)
     phase_optimal(dev, report, data, blobs, ratios, DEFAULT_SHARD_SIZE, card)
+    phase_device(dev, report, data, blobs, launches, DEFAULT_SHARD_SIZE,
+                 card)
     for fmt in ("extended", "v1", "greedy"):
         if not ratios[f"{fmt} lazy"] < ratios[fmt]:
             fail(f"{fmt}: lazy matching did not beat the greedy parse on "
@@ -2638,7 +2952,7 @@ def main() -> int:
     from tamp_tpu_torch.parallel.shard import compress_sharded
 
     modes_in = {k: v for k, v in blobs.items()
-                if not k.startswith(("greedy", "optimal"))}
+                if not k.startswith(("greedy", "optimal", "device"))}
     modes_in["extended w15"] = compress_sharded(
         data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev)
     report(f"phase 3: extended w15 container encoded in "

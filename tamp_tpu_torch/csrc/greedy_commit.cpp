@@ -1,23 +1,45 @@
-// Host exact-table committer of the greedy-parity extended encode.
+// Host table committer of the device-table encodes.
 //
-// A trimmed copy of the non-planned path of the JAX package's native engine
+// A copy of the one-shot path of the JAX package's native engine
 // (tamp_tpu/_native/tampnative.cpp, Committer and tampn_compress), kept here
 // so the port builds and links nothing of tamp_tpu.  It runs the reference
-// encoder's greedy walk for the EXTENDED format (RLE and extended-match
-// state machines, the growth loop with mid-match relocation, lazy matching
-// with its cache, the flush-drain tail) and packs bits, one shard per call.
-// Behavioral spec: BrianPugh/tamp tamp/compressor.py:281-447 and
-// tamp/_c_src/tamp/compressor.c:437-660.
+// encoder's greedy walk (RLE and extended-match state machines, the growth
+// loop with mid-match relocation, lazy matching with its cache, the
+// flush-drain tail) over per-position match tables and packs bits, one
+// stream per call.  Behavioral spec: BrianPugh/tamp tamp/compressor.py:281-447
+// and tamp/_c_src/tamp/compressor.c:437-660.
 //
-// Tables (the card's cap-16 and probe tables, ops/match_v1.py) are optional.
+// The EXTENDED format only (max pattern minp + 131, RLE and extended
+// symbols); the port's v1 streams come from the card's commit kernels.
+//
+// Tables (the card's cap-16 and probe tables, ops/match_v1.py)
+// are optional; with none the committer is the reference greedy encoder.
 // Before the first window divergence (an RLE or extended-match window write
-// cut short, so the ring stops being the pure input history) a table entry
-// is the answer of the exact search; after it the entry only seeds the
-// exact chain search, so the output is byte-equal to the reference at every
-// configuration.  A length of 0xFF marks a hole (no entry shipped: the
-// speculative pull of ops/greedy_predict.py); the committer searches there.
-// So the stream never depends on which entries arrive.  With no tables the
-// committer is the reference greedy encoder itself.
+// cut short at the ring end, so the ring stops being the history the tables
+// were computed against) an entry is used verbatim.  After it:
+// - exact-table mode (exact_tables = 1, the greedy-parity encode): the
+//   entry only seeds the exact chain search, so the stream is byte-equal
+//   to the reference at every configuration;
+// - table mode (exact_tables = 0, engine="device"): the entry is trusted
+//   once it is validated against the true write history (deleted ranges,
+//   residency, ring-linearity), a "no match" entry of the first search is
+//   trusted as it is, and an entry that cannot stand falls back to the
+//   exact search.
+// A length of 0xFF marks a hole (no entry shipped: the speculative pull of
+// ops/greedy_predict.py); the committer searches there.
+//
+// Options of table mode (engine/encode_extended.py):
+// - divergence avoidance: an extended match that would cross the ring end
+//   is cut to fill the ring exactly (or becomes a basic match when the room
+//   is below an extended token's), and the rest is tokenized again;
+// - the planned mode: run plans (rle_start, end) with khat, the model write
+//   counts of the planned history; tables are indexed by input position but
+//   hold model-history answers, planned runs are forced RLE chunks whose
+//   window writes follow khat, no token crosses a plan's start, RLE tokens
+//   split at the ring end, extended matches are searched once over the
+//   model stream dh (the kept bytes), the lazy rule is the pure-position
+//   one (no cache, steady state only), and the flush drain loops over
+//   split remainders.
 //
 // Also copied, for the optimal extended encode (engine/pipeline_ext.py):
 // the per-position exact tables of the v1 ring model at any cap, with the
@@ -26,9 +48,12 @@
 // the walk that expands the card's choice plane into tokens
 // (tampn_opt_ext_walk).
 //
-// Left out of the copy: the planned mode (run plans, model history, forced
-// RLE, one-shot extended emits), divergence avoidance, the streaming
-// handles and the decoders.  The Huffman encode tables are constant data;
+// Left out of the copy: the v1 format (engine="device" sends v1 to the
+// card's commit kernels, engine/pipeline.encode_v1_device_commit, whose
+// streams are the same reference greedy ones), the streaming handles
+// (incremental write, flush, dictionary reset, progress callbacks), the
+// decoders and the native engine's own dictionary generator (the caller
+// passes the window).  The Huffman encode tables are constant data;
 // nothing global is written, so calls run in parallel threads.
 //
 // Build: c++ -O3 -std=c++17 -shared -fPIC (ops/_build.py).
@@ -116,7 +141,13 @@ struct SearchResult { int idx; int size; };
 struct Committer {
   // config
   int W, wmask, wbits, literal, minp, maxpat;
-  bool lazy;
+  bool lazy = false;
+  // Split extended matches at the ring end instead of truncating the window
+  // write (one more token a ring cycle, no divergence).
+  bool avoid_divergence = false;
+  // After a divergence the table entry only seeds the exact search
+  // (reference byte parity) instead of being trusted once validated.
+  bool exact_tables = false;
   // input
   const uint8_t* data; int64_t N;
   // tables (null -> the table-less exact search)
@@ -144,9 +175,30 @@ struct Committer {
     return (k * 2654435761u) >> (32 - H3_BITS);
   }
   int64_t wpos = 0;  // absolute write position (rebased before int32 wraps)
+  // Run plan (planned mode): runs of >= 9 bytes are RLE'd at fixed
+  // positions, so their window-write truncations are part of the model the
+  // tables were computed against.  khat[t] = model-written bytes among input
+  // positions < t; plan = sorted (rle_start, end) pairs; no token may cross
+  // an rle_start.  A non-null plan with n_plan = 0 is the planned mode
+  // without runs.
+  const uint32_t* khat = nullptr;
+  const int64_t* plan = nullptr; int n_plan = 0;
+  int plan_i = 0;
+  // The model stream dh (the kept bytes, M = khat[N]): planned searches
+  // without a table target it, not the input, since past a plan boundary
+  // the two differ and can flip the lowest-slot tie-break of a capped match.
+  const uint8_t* dh = nullptr; int64_t M = 0;
+  std::vector<uint8_t> dh_own;
+  inline int64_t chat(int64_t p) const {  // input position -> model position
+    return khat ? (int64_t)khat[p] : p;
+  }
+  inline int64_t boundary() const {  // next uncrossable token boundary
+    return plan_i < n_plan ? plan[2 * plan_i] : INT64_MAX;
+  }
 
-  // Divergence bookkeeping: deleted input ranges [from, from + count) (window
-  // writes cut short), sorted and disjoint, with the deleted count before.
+  // Divergence bookkeeping: deleted model-coordinate ranges
+  // [from, from + count) (window writes cut short), sorted and disjoint,
+  // with the deleted count before.
   struct DelEvent { int64_t from, count, cum_prev; };
   bool diverged = false;
   std::vector<DelEvent> dels;
@@ -421,49 +473,75 @@ struct Committer {
     scratch.resize((size_t)wr);
     for (int i = 0; i < wr; i++) scratch[i] = ring[(index + i) & wmask];
     ring_push_run(scratch.data(), wr);
-    if (wr < size) record_deletion(src_input_start + wr, size - wr);
+    if (wr < size) record_deletion(chat(src_input_start) + wr, size - wr);
   }
 
-  // Map a table candidate (ring slot x of the pure input history at input
-  // position tt, length len) onto the true ring.  Returns the slot, or -1
-  // when the candidate cannot stand (it wraps, crosses a deleted range,
-  // has expired, or is no longer linear).
+  // Map a table candidate (ring slot x of the model history at input
+  // position tt, length len) onto the true ring, in model coordinates.
+  // Returns the slot, or -1 when the candidate cannot stand (it wraps,
+  // crosses a deleted range, has expired, or is no longer linear).
   int validate(int64_t tt, int x, int len) {
-    int tau = (int)(tt & wmask);
+    int64_t ct = chat(tt);
+    int tau = (int)(ct & wmask);
     int j = x - tau; if (j < 0) j += W;
     if (j + len > W) return -1;          // wrap-glued candidate
-    int64_t p_src = tt + j - W;          // may be negative: dictionary bytes
+    int64_t p_src = ct + j - W;          // may be negative: dictionary bytes
     int64_t d_lo = p_src > 0 ? del_upto(p_src) : 0;
     int64_t d_hi = del_upto(p_src + len > 0 ? p_src + len : 0);
     if (d_hi != d_lo) return -1;         // a deletion inside the range
     int64_t k_s = p_src - d_lo;
-    int64_t k_now = t - (dels.empty() ? 0 : dels.back().cum_prev +
-                                                dels.back().count);
+    int64_t k_now = chat(t) - (dels.empty() ? 0 : dels.back().cum_prev +
+                                                      dels.back().count);
     if (k_s < k_now - W) return -1;      // expired from the true window
     int slot = (int)(k_s & wmask);
     if (slot + len > W) return -1;       // true ring-linearity
     return slot;
   }
 
-  // One table lookup: the entry verbatim before the first divergence, a
-  // seeded exact search after it, the exact search at a hole.  Tables serve
-  // the steady state only (rem >= 16); the < 16-byte flush drain replays
-  // the reference's shrinking search.
+  // One table lookup: the exact search at a hole, the entry verbatim
+  // before the first divergence; after it a seeded exact search
+  // (exact_tables) or the validated entry, with the exact search where it
+  // cannot stand.  ``first``: the first search trusts a "no match" entry in
+  // table mode (a coverage loss only), the probe does not.
   SearchResult table_search(const uint8_t* lens, const int32_t* idxs,
-                            const uint8_t* target, int tl, int cap) {
+                            const uint8_t* target, int tl, int cap,
+                            bool first) {
     int len = lens[t]; int x = idxs[t];
     if (len == SPARSE_NONE) return chain_search(target, tl, cap, 0);
     if (len > cap) len = cap;
     if (!diverged) return {x, len};
-    int slot = (len >= minp) ? validate(t, x, len) : -1;
-    if (slot >= 0) return chain_search(target, tl, cap, 0, len, slot);
+    if (exact_tables) {
+      int slot = (len >= minp) ? validate(t, x, len) : -1;
+      if (slot >= 0) return chain_search(target, tl, cap, 0, len, slot);
+      return chain_search(target, tl, cap, 0);
+    }
+    if (first && len < minp) return {x, len};
+    if (len >= minp) {
+      int slot = validate(t, x, len);  // probe slots share the t-basis
+      if (slot >= 0) return {slot, len};
+    }
     return chain_search(target, tl, cap, 0);
   }
 
+  // ``rem``: the look-ahead, capped at the next plan boundary in planned
+  // mode.  Without a plan the tables serve the steady state only
+  // (rem >= 16) and the < 16-byte flush drain replays the reference's
+  // shrinking search; in planned mode they serve every position.
   SearchResult first_search(int64_t rem) {
     int cap = (int)(rem < full_cap ? rem : full_cap);
     int tl = (int)(rem < LOOKAHEAD ? rem : LOOKAHEAD);
-    if (flen && rem >= LOOKAHEAD) return table_search(flen, fidx, data + t, tl, cap);
+    if (flen && (plan || rem >= LOOKAHEAD))
+      return table_search(flen, fidx, data + t, tl, cap, true);
+    if (plan && dh) {
+      // The device planner's rule: longest over the model target at full
+      // cap, lowest slot among the longest, then the boundary cap keeping
+      // the slot.
+      int64_t mt = chat(t);
+      int mtl = (int)((M - mt) < LOOKAHEAD ? (M - mt) : LOOKAHEAD);
+      SearchResult r = chain_search(dh + mt, mtl, full_cap, 0);
+      if (r.size > cap) r.size = cap;
+      return r;
+    }
     return chain_search(data + t, tl, cap, 0);
   }
 
@@ -471,8 +549,8 @@ struct Committer {
     int cap = 15 < maxpat ? 15 : maxpat;
     if ((int64_t)(rem - 1) < cap) cap = (int)(rem - 1);
     int tl = (int)((rem - 1) < 15 ? (rem - 1) : 15);
-    if (plen && rem >= LOOKAHEAD)
-      return table_search(plen, pidx, data + t + 1, tl, cap);
+    if (plen && (plan || rem >= LOOKAHEAD))
+      return table_search(plen, pidx, data + t + 1, tl, cap, false);
     return chain_search(data + t + 1, tl, cap, 0);
   }
 
@@ -497,6 +575,30 @@ struct Committer {
     int count = rle_count; rle_count = 0;
     uint8_t b = last_ring_byte();
     if (count == 1) { emit_literal(b); return; }
+    if (plan) {
+      // Planned mode: an RLE window write that would be cut at the ring end
+      // is split there instead.  Steady-state splits happen in step(); this
+      // path sees accumulated counts (the drain), whose remainder stays
+      // accumulated.
+      int wr0 = count < RLE_MAX_WIN ? count : RLE_MAX_WIN;
+      int r = W - pos;
+      if (wr0 > r) {
+        if (r >= 2) {
+          bw->huff(RLE_SYM);
+          bw->ext_value(r - 2, RLE_TRAIL);
+          uint8_t fill[RLE_MAX_WIN];
+          std::memset(fill, b, sizeof fill);
+          ring_push_run(fill, r);  // fills exactly to the ring end
+          rle_count = count - r;
+          rle_start += r;
+          return;
+        }
+        if (!emit_literal(b)) return;  // r == 1: one literal crosses the end
+        rle_count = count - 1;
+        rle_start += 1;
+        return;
+      }
+    }
     bw->huff(RLE_SYM);
     bw->ext_value(count - 2, RLE_TRAIL);
     int wr = count; if (wr > RLE_MAX_WIN) wr = RLE_MAX_WIN;
@@ -504,9 +606,58 @@ struct Committer {
     uint8_t fill[RLE_MAX_WIN];
     std::memset(fill, b, sizeof fill);
     ring_push_run(fill, wr);
-    if (wr < count) record_deletion(rle_start + wr, count - wr);
+    if (wr < count) record_deletion(chat(rle_start) + wr, count - wr);
   }
+
+  // A planned run: cover [t, end) with RLE chunks of at most 241 bytes,
+  // never leaving a single trailing byte (the chunks engine/plan.py put in
+  // the model); each chunk writes khat's kept count into the window, and a
+  // write cut short beyond it is a deletion.
+  void forced_rle(int64_t end) {
+    cached_idx = -1;
+    uint8_t b = last_ring_byte();
+    while (t < end) {
+      int64_t remn = end - t;
+      int count = remn < RLE_MAX ? (int)remn : RLE_MAX;
+      if (remn - count == 1) count--;
+      bw->huff(RLE_SYM);
+      bw->ext_value(count - 2, RLE_TRAIL);
+      int w_plan = (int)(khat[t + count] - khat[t]);
+      int wr = w_plan < (W - pos) ? w_plan : (W - pos);
+      uint8_t fill[RLE_MAX_WIN];
+      std::memset(fill, b, sizeof fill);
+      ring_push_run(fill, wr);
+      if (wr < w_plan) record_deletion(chat(t) + wr, w_plan - wr);
+      t += count;
+    }
+  }
+
+  // Divergence avoidance at the ring end: an extended token of ``room``
+  // bytes that fills the ring exactly, or where the room is below an
+  // extended token's a basic match of at most minp + 11 (its write wraps).
+  // Returns the bytes consumed from ``from``; the rest is tokenized again.
+  int64_t emit_at_ring_end(int idx, int m, int64_t from) {
+    int room = W - pos;
+    if (room >= minp + 12) {
+      bw->huff(EXT_SYM);
+      bw->ext_value(room - minp - 12, EXT_TRAIL);
+      bw->put((uint32_t)idx, wbits);
+      ring_selfcopy_ext(idx, room, from);
+      return room;
+    }
+    int L = m < minp + 11 ? m : minp + 11;
+    bw->huff(L - minp);
+    bw->put((uint32_t)idx, wbits);
+    ring_push_run(data + from, L);
+    return L;
+  }
+
   void emit_ext_match() {
+    if (avoid_divergence && ext_count > W - pos) {
+      t = ext_start + emit_at_ring_end(ext_pos, ext_count, ext_start);
+      ext_count = 0; ext_pos = 0;
+      return;
+    }
     bw->huff(EXT_SYM);
     bw->ext_value(ext_count - minp - 12, EXT_TRAIL);
     bw->put((uint32_t)ext_pos, wbits);
@@ -514,28 +665,64 @@ struct Committer {
     ext_count = 0; ext_pos = 0;
   }
 
+  // Planned-mode extended emit (one-shot, no growth state): the longest
+  // match over the model stream (lowest slot among the longest), capped at
+  // the plan boundary keeping the slot, as the device planner finds it from
+  // one max-length table.  A longer match's prefix is a match at the same
+  // slot, so the cap is valid.
+  void emit_ext_planned(int idx, int m) {
+    if (avoid_divergence && m > W - pos) {
+      t += emit_at_ring_end(idx, m, t);
+      return;
+    }
+    bw->huff(EXT_SYM);
+    bw->ext_value(m - minp - 12, EXT_TRAIL);
+    bw->put((uint32_t)idx, wbits);
+    ring_selfcopy_ext(idx, m, t);
+    t += m;
+  }
+
   // one reference "poll": consume input until one token (or buffer need)
   void step() {
     int64_t rem = N - t;
     if (rem <= 0) return;
+
+    // --- planned-run boundaries ----------------------------------------
+    int64_t B = INT64_MAX;  // no token may extend to or past this position
+    if (plan) {
+      while (plan_i < n_plan && t >= plan[2 * plan_i + 1]) plan_i++;
+      B = boundary();
+      // The forced RLE fires once any pending extended match is out
+      // (tokens stay in stream order).
+      if (!ext_count && plan_i < n_plan && t == plan[2 * plan_i]) {
+        int64_t end = plan[2 * plan_i + 1];
+        plan_i++;
+        forced_rle(end);
+        return;
+      }
+      if (B - t < rem) rem = B - t;  // cap the effective look-ahead
+    }
 
     // --- extended-match continuation -----------------------------------
     if (ext_count) {
       cached_idx = -1;
       // The growth target is exactly the input bytes the match reproduces.
       while (t < N) {
+        if (plan && t >= B) { emit_ext_match(); return; }
         if (ext_pos + ext_count >= W) { emit_ext_match(); return; }
         const uint8_t* target = data + ext_start;
         // In-place extension: ext_pos is the lowest index >= the search
         // start, so when the current location extends it IS the search
         // result (compressor.py:304); skip the chain walk.
-        if (ring[ext_pos + ext_count] == target[ext_count]) {
+        if (!plan && ring[ext_pos + ext_count] == target[ext_count]) {
           t++;
           ext_count++;
           if (ext_count == maxpat) { emit_ext_match(); return; }
           continue;
         }
-        SearchResult r = chain_search(target, ext_count + 1, maxpat, ext_pos);
+        // Relocation search; the planned mode searches the whole window.
+        SearchResult r = chain_search(target, ext_count + 1, maxpat,
+                                      plan ? 0 : ext_pos);
         if (r.size > ext_count) {
           t++;
           ext_count = r.size; ext_pos = r.idx;
@@ -555,6 +742,9 @@ struct Committer {
            rle_count + avail < RLE_MAX) avail++;
     int total = rle_count + avail;
     bool ended = (avail < pend) || (total >= RLE_MAX);
+    // A run reaching a plan boundary cannot continue: emit it now so no
+    // pending count leaks into the forced-RLE region.
+    if (plan && t + avail >= B) ended = true;
     if (!ended && total > 0) {
       cached_idx = -1;
       if (rle_count == 0) rle_start = t;
@@ -571,6 +761,24 @@ struct Committer {
       if (!use_pattern) {
         cached_idx = -1;
         if (rle_count == 0) rle_start = t;
+        if (plan && rle_count == 0) {
+          // Steady-state ring-end split: consume only up to the ring end
+          // so the remainder re-enters the full decision at the next
+          // step, as the device planner's next walk entry does.
+          int wr0 = total < RLE_MAX_WIN ? total : RLE_MAX_WIN;
+          int r = W - pos;
+          if (wr0 > r) {
+            if (r >= 2) {
+              t += r;
+              rle_count = r;
+              emit_rle();
+              return;
+            }
+            if (!emit_literal(data[t])) return;  // r == 1
+            t += 1;
+            return;
+          }
+        }
         t += avail;
         rle_count = total;
         emit_rle();
@@ -593,12 +801,15 @@ struct Committer {
       idx = r.idx; size = r.size;
     }
 
-    if (lazy && size >= minp && size <= 8 && pend > size + 2) {
+    // The planned lazy rule is pure-position (the device planner's): the
+    // deferral fires only in the steady state, and no match is cached.
+    if (lazy && size >= minp && size <= 8 && pend > size + 2 &&
+        (!plan || rem >= LOOKAHEAD)) {
       SearchResult p = probe_search(rem);
       int tau = pos;  // true ring write head == reference window pos
       if (p.size > size && !(p.idx <= tau && tau < p.idx + p.size)) {
         if (!emit_literal(data[t])) return;
-        cached_idx = p.idx; cached_size = p.size;
+        if (!plan) { cached_idx = p.idx; cached_size = p.size; }
         t++;
         return;
       }
@@ -606,6 +817,24 @@ struct Committer {
 
     if (size >= minp) {
       if (size > minp + 11) {
+        if (plan && !from_cache) {
+          // One-shot: the longest match over the model stream, capped at
+          // the plan boundary keeping its slot (emit_ext_planned).
+          SearchResult r;
+          if (dh) {
+            int64_t mt = chat(t);
+            int tl = (int)((M - mt) < (int64_t)maxpat ? (M - mt)
+                                                      : (int64_t)maxpat);
+            r = chain_search(dh + mt, tl, maxpat, 0);
+          } else {
+            r = chain_search(
+                data + t, (int)(N - t < (int64_t)maxpat ? N - t : maxpat),
+                maxpat, 0);
+          }
+          int m = (int)((int64_t)r.size < rem ? (int64_t)r.size : rem);
+          emit_ext_planned(r.idx, m);
+          return;
+        }
         ext_pos = idx; ext_count = size; ext_start = t;
         t += size;
       } else {
@@ -621,15 +850,24 @@ struct Committer {
 
   int run(BitWriter& writer) {
     bw = &writer;
-    while (t < N) {
-      step();
+    while (true) {
+      while (t < N) {
+        step();
+        if (excess_bits) return -2;
+        if (bw->overflow) return -1;
+      }
+      // Flush drain: pending RLE / extended state.  A ring-end split can
+      // leave an RLE remainder, and a divergence-avoiding extended emit can
+      // hand back unconsumed bytes (t < N): keep going.
+      while (rle_count) {
+        emit_rle();
+        if (excess_bits || bw->overflow) break;
+      }
+      if (ext_count) emit_ext_match();
       if (excess_bits) return -2;
       if (bw->overflow) return -1;
+      if (t >= N) break;
     }
-    // flush drain: pending RLE / extended state
-    if (rle_count) emit_rle();
-    if (ext_count) emit_ext_match();
-    if (excess_bits) return -2;
     bw->pad();
     if (bw->overflow) return -1;
     return 0;
@@ -640,24 +878,43 @@ struct Committer {
 
 extern "C" {
 
-// One extended-format Tamp stream (header included) of data[0..n).
-// flen/fidx: the cap-16 table (length, ring slot), 0xFF length = hole; null
-// for the table-less exact search.  plen/pidx: the lazy probe table, the
-// same way (null without tables or without lazy matching).  dict: the
-// initial window, 1 << window bytes; custom_dict sets the header's flag.
-// out_cap >= 16 + n + n * (1 + literal) / 8 always suffices.
-// Returns 0 ok, -1 output full, -2 a literal wider than `literal` bits.
-int tpt_greedy_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
-                        const int32_t* fidx, const uint8_t* plen,
-                        const int32_t* pidx, const uint8_t* dict, int window,
-                        int literal, int lazy, int custom_dict, uint8_t* out,
-                        int64_t out_cap, int64_t* out_len) {
+// One extended-format Tamp stream (header included) of data[0..n) from the
+// card's tables: the arguments of the native engine's tampn_compress with
+// extended and write_header fixed to 1 and dict required (the caller passes
+// the initial window).  flen/fidx: the cap-16 table (nullable), plen/pidx
+// the probe table (nullable); exact_tables: 1 exact-table mode, 0 table
+// mode; khat: n + 1 model write counts (nullable without a plan);
+// plan/n_plan: sorted (rle_start, end) pairs (null: no plan; non-null with
+// n_plan = 0: the planned mode without runs).  out_cap >= 16 + n +
+// n * (1 + literal) / 8 always suffices.  Returns 0 ok, -1 output full, -2
+// a literal wider than `literal` bits, -3 a null dict or a plan without
+// khat.
+int tpt_table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
+                       const int32_t* fidx, const uint8_t* plen,
+                       const int32_t* pidx, const uint8_t* dict, int window,
+                       int literal, int lazy, int custom_dict,
+                       int avoid_divergence, int exact_tables,
+                       const uint32_t* khat, const int64_t* plan, int n_plan,
+                       uint8_t* out, int64_t out_cap, int64_t* out_len) {
+  *out_len = 0;
+  if (!dict || (plan && !khat)) return -3;
   Committer c;
   c.W = 1 << window; c.wmask = c.W - 1; c.wbits = window; c.literal = literal;
   c.minp = min_pattern_size(window, literal);
   c.maxpat = c.minp + 131;
   c.lazy = lazy != 0;
+  c.avoid_divergence = avoid_divergence != 0;
+  c.exact_tables = exact_tables != 0;
   c.data = data; c.N = n;
+  c.khat = khat; c.plan = plan; c.n_plan = n_plan;
+  if (c.plan) {
+    // the model stream of the planned mode's searches (Committer::dh)
+    c.M = (int64_t)khat[n];
+    c.dh_own.resize((size_t)c.M);
+    for (int64_t p = 0; p < n; p++)
+      if (khat[p + 1] > khat[p]) c.dh_own[khat[p]] = data[p];
+    c.dh = c.dh_own.data();
+  }
   c.flen = flen; c.fidx = fidx; c.plen = plen; c.pidx = pidx;
   c.full_cap = LOOKAHEAD;  // min(16, maxpat)
   c.ring.assign(dict, dict + c.W);
@@ -670,6 +927,22 @@ int tpt_greedy_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
   int rc = c.run(bw);
   *out_len = bw.n;
   return rc;
+}
+
+// One extended-format stream of the greedy-parity encode: exact-table mode,
+// no plan.  flen/fidx: the cap-16 table (length, ring slot), 0xFF length =
+// hole; null for the table-less exact search.  plen/pidx: the lazy probe
+// table, the same way (null without tables or without lazy matching).
+// dict: the initial window, 1 << window bytes; custom_dict sets the
+// header's flag.  Returns as tpt_table_compress.
+int tpt_greedy_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
+                        const int32_t* fidx, const uint8_t* plen,
+                        const int32_t* pidx, const uint8_t* dict, int window,
+                        int literal, int lazy, int custom_dict, uint8_t* out,
+                        int64_t out_cap, int64_t* out_len) {
+  return tpt_table_compress(data, n, flen, fidx, plen, pidx, dict, window,
+                            literal, lazy, custom_dict, 0, 1, nullptr, nullptr,
+                            0, out, out_cap, out_len);
 }
 
 // Exact per-position tables of data[0..n) against the v1 ring model

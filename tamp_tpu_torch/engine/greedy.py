@@ -1,24 +1,29 @@
-"""The host exact-table committer of the greedy-parity encode.
+"""The host table committer of the device-table encodes.
 
-Counterpart of the JAX package's ``_native.native_compress(...,
-extended=True, tables=..., exact_tables=True)``: a ctypes binding of the
-port's own copy of the native committer (``csrc/greedy_commit.cpp``, built
-with the host C++ compiler at first use by ops/_build.py).
+A ctypes binding of the port's own copy of the JAX package's native
+committer (``csrc/greedy_commit.cpp``, built with the host C++ compiler at
+first use by ops/_build.py).  Every call releases the GIL, so commits of
+several shards run in parallel threads.
 
-:func:`greedy_compress` writes one extended-format Tamp stream that is
-byte-equal to the reference greedy encoder (``tamp_tpu.compress(data,
-extended=True)``) whatever tables it is given: with none it is that
-encoder; with the card's cap-16 (and probe) tables it reads them where they
-are exact and searches where they are not or where an entry is a hole
-(length ``SPARSE_NONE``).  The call releases the GIL, so commits of several
-shards run in parallel threads.
+:func:`greedy_compress` (counterpart of ``_native.native_compress(...,
+extended=True, tables=..., exact_tables=True)``) writes one extended-format
+Tamp stream that is byte-equal to the reference greedy encoder
+(``tamp_tpu.compress(data, extended=True)``) whatever tables it is given:
+with none it is that encoder; with the card's cap-16 (and probe) tables it
+reads them where they are exact and searches where they are not or where an
+entry is a hole (length ``SPARSE_NONE``).
+
+:func:`table_compress` is the counterpart of ``_native.native_compress``
+in table mode for the extended format, with divergence avoidance and the
+planned mode (run plans and khat): the committer of the extended
+``engine="device"`` (engine/encode_extended.py).
 
 The same library holds the host half of the optimal extended encode
 (engine/pipeline_ext.encode_ext_device_optimal): :func:`host_v1_tables`,
 the exact tables at any cap with forced RLE's write counts (counterpart of
 ``_native.native_v1_tables(..., ext_dict=True, khat=...)``), and
 :func:`opt_ext_walk`, the expansion of the card's choice plane into tokens
-(``_native.native_opt_ext_walk``).  Both release the GIL too.
+(``_native.native_opt_ext_walk``).
 """
 
 from __future__ import annotations
@@ -33,24 +38,17 @@ from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
 from ..ops import _build
 
-__all__ = ["greedy_compress", "host_v1_tables", "opt_ext_walk",
-           "SPARSE_NONE"]
+__all__ = ["greedy_compress", "table_compress", "host_v1_tables",
+           "opt_ext_walk", "window_array", "SPARSE_NONE"]
 
 SPARSE_NONE = 0xFF  # table length of a position with no shipped entry
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("greedy_commit").tpt_greedy_compress
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
-    return fn
-
-
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _HOST_ARGTYPES = {
+    "tpt_greedy_compress": [_P, _I64] + [_P] * 5 + [_I] * 4 + [_P, _I64, _P],
+    "tpt_table_compress": ([_P, _I64] + [_P] * 5 + [_I] * 6
+                           + [_P, _P, _I, _P, _I64, _P]),
     "tpt_v1_tables": [_P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "tpt_opt_ext_walk": [_P, _I64, _I, _P, _I, _P, _P, _P],
 }
@@ -75,6 +73,53 @@ def _ptr(a):
     return None if a is None else a.ctypes.data
 
 
+def window_array(window: int, literal: int, dictionary) -> np.ndarray:
+    """The initial window: ``dictionary`` (bytes or uint8 array) checked
+    against the window size, else the default at ``literal`` (one
+    read-only array shared by every call)."""
+    if dictionary is None:
+        return _default_dictionary(window, literal)
+    arr = np.ascontiguousarray(np.frombuffer(bytes(dictionary), np.uint8))
+    if arr.shape[0] != 1 << window:
+        raise ValueError("Dictionary-window size mismatch.")
+    return arr
+
+
+def _planes(tables, n: int, window: int, lazy: bool) -> list:
+    """The committer's four table pointers' arrays (None where absent) from
+    ``tables``: None, ``(flen, fidx)`` or ``(flen, fidx, plen, pidx)``."""
+    planes = [None] * 4
+    if tables is None:
+        return planes
+    need = 4 if lazy else 2
+    if len(tables) < need:
+        raise ValueError("lazy matching needs the probe tables")
+    for k, a in enumerate(tables[:need]):
+        a = np.ascontiguousarray(a, np.uint8 if k % 2 == 0 else np.int32)
+        if a.shape != (n,):
+            raise ValueError("tables must have one entry per input byte")
+        if k % 2 and n and (a.min() < 0 or a.max() >= 1 << window):
+            raise ValueError("table ring slots must lie in [0, W)")
+        planes[k] = a
+    return planes
+
+
+def _compress(entry: str, arr: np.ndarray, literal: int, *args) -> bytes:
+    """Call ``entry`` on ``arr`` with ``args`` between the input and the
+    output buffer; raise ExcessBitsError on -2, RuntimeError otherwise."""
+    n = arr.shape[0]
+    cap = 16 + n + ((n * (1 + literal)) >> 3)
+    out = np.empty(cap, np.uint8)
+    out_len = ctypes.c_int64(0)
+    rc = _host_entry(entry)(_ptr(arr), n, *args, _ptr(out), cap,
+                            ctypes.addressof(out_len))
+    if rc == -2:
+        raise ExcessBitsError
+    if rc != 0:
+        raise RuntimeError(f"table commit failed: rc={rc}")
+    return out[: out_len.value].tobytes()
+
+
 def greedy_compress(data, *, window: int = 10, literal: int = 8,
                     lazy_matching: bool = False, dictionary=None,
                     tables=None) -> bytes:
@@ -89,38 +134,54 @@ def greedy_compress(data, *, window: int = 10, literal: int = 8,
     wider than ``literal`` bits."""
     compute_min_pattern_size(window, literal)  # validates the config
     arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
+    dict_arr = window_array(window, literal, dictionary)
+    planes = _planes(tables, arr.shape[0], window, lazy_matching)
+    return _compress("tpt_greedy_compress", arr, literal,
+                     *(_ptr(p) for p in planes), _ptr(dict_arr), window,
+                     literal, int(lazy_matching), int(dictionary is not None))
+
+
+def table_compress(data, *, window: int = 10, literal: int = 8,
+                   lazy_matching: bool = False, dictionary=None, tables=None,
+                   khat=None, plan=None,
+                   avoid_divergence: bool = False) -> bytes:
+    """One extended-format Tamp stream of ``data``, header included, from
+    per-position match tables in table mode: the JAX package's
+    ``_native.native_compress(..., extended=True)`` with ``tables`` as
+    arrays.
+
+    ``dictionary``: a full-window custom dictionary, else the default.
+    ``tables``: None, ``(flen, fidx)`` or with lazy matching ``(flen,
+    fidx, plen, pidx)``, uint8 lengths and int32 ring slots, per input
+    position.  ``khat`` (n + 1 model write counts) and ``plan`` ((k, 2)
+    (rle_start, end) pairs; an empty plan is no plan) select the planned
+    mode; ``avoid_divergence`` splits extended matches at the ring end.
+    Raises ExcessBitsError for a byte wider than ``literal`` bits."""
+    compute_min_pattern_size(window, literal)  # validates the config
+    arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
     n = arr.shape[0]
-    if dictionary is None:
-        dict_arr = _default_dictionary(window, literal)
-    else:
-        dict_arr = np.ascontiguousarray(
-            np.frombuffer(bytes(dictionary), np.uint8))
-        if dict_arr.shape[0] != 1 << window:
-            raise ValueError("Dictionary-window size mismatch.")
-    planes = [None] * 4
-    if tables is not None:
-        need = 4 if lazy_matching else 2
-        if len(tables) < need:
-            raise ValueError("lazy matching needs the probe tables")
-        for k, a in enumerate(tables[:need]):
-            a = np.ascontiguousarray(a, np.uint8 if k % 2 == 0 else np.int32)
-            if a.shape != (n,):
-                raise ValueError("tables must have one entry per input byte")
-            if k % 2 and n and (a.min() < 0 or a.max() >= 1 << window):
-                raise ValueError("table ring slots must lie in [0, W)")
-            planes[k] = a
-    cap = 16 + n + ((n * (1 + literal)) >> 3)
-    out = np.empty(cap, np.uint8)
-    out_len = ctypes.c_int64(0)
-    rc = _entry()(_ptr(arr), n, *(_ptr(p) for p in planes), _ptr(dict_arr),
-                  window, literal, int(lazy_matching),
-                  int(dictionary is not None), _ptr(out), cap,
-                  ctypes.addressof(out_len))
-    if rc == -2:
-        raise ExcessBitsError
-    if rc != 0:
-        raise RuntimeError(f"greedy commit failed: rc={rc}")
-    return out[: out_len.value].tobytes()
+    dict_arr = window_array(window, literal, dictionary)
+    planes = _planes(tables, n, window, lazy_matching)
+    kh = pl = None
+    if khat is not None:
+        kh = np.ascontiguousarray(khat, np.uint32)
+        # a decrease wraps to a step above 1 in uint32
+        if kh.shape != (n + 1,) or kh[0] or (np.diff(kh) > 1).any():
+            raise ValueError("khat must hold n + 1 write counts, from 0 in "
+                             "steps of 0 or 1")
+    if plan is not None and len(plan) > 0:
+        if kh is None:
+            raise ValueError("a run plan requires the khat mapping")
+        pl = np.ascontiguousarray(plan, np.int64).reshape(-1)
+        if pl.shape[0] % 2 or pl.min() < 0 or pl.max() > n or (
+                np.diff(pl) < 0).any():
+            raise ValueError("plan must hold sorted (rle_start, end) pairs "
+                             "inside the input")
+    return _compress("tpt_table_compress", arr, literal,
+                     *(_ptr(p) for p in planes), _ptr(dict_arr), window,
+                     literal, int(lazy_matching), int(dictionary is not None),
+                     int(avoid_divergence), 0, _ptr(kh), _ptr(pl),
+                     0 if pl is None else pl.shape[0] // 2)
 
 
 def host_v1_tables(data, *, window: int, literal: int, cap: int,
@@ -135,13 +196,7 @@ def host_v1_tables(data, *, window: int, literal: int, cap: int,
     compute_min_pattern_size(window, literal)  # validates the config
     arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
     n = arr.shape[0]
-    if dictionary is None:
-        dict_arr = _default_dictionary(window, literal)
-    else:
-        dict_arr = np.ascontiguousarray(
-            np.frombuffer(bytes(dictionary), np.uint8))
-        if dict_arr.shape[0] != 1 << window:
-            raise ValueError("Dictionary-window size mismatch.")
+    dict_arr = window_array(window, literal, dictionary)
     kh = None
     if khat is not None:
         kh = np.ascontiguousarray(khat, np.uint32)

@@ -22,11 +22,24 @@ minimum-bit parse on the card (:func:`v1_optimal_stage`: kernel B5's tables
 at cap ``min(16, minp + 13)``, kernel X3's DP, the fields of the chosen
 tokens, kernel B3 walking to the end of each shard), and on the host only
 the header and the bit remainder.  Streams are byte-identical to the JAX
-package's ``encode_v1(parse="optimal")``.  The ``engine="device"``
-one-shot functions of the JAX module are not ported (ROADMAP.md queue A).
+package's ``encode_v1(parse="optimal")``.
+
+:func:`encode_device_batch` is ``engine="device"``, the counterpart of the
+JAX module's ``device_search_fn`` and ``encode_device`` as
+``compress_sharded`` runs them, one shard a call, on a thread pool.
+Extended (engine/encode_extended.py): one call of kernel B5
+(:func:`device_tables`) per batch of shards, the table planes to the host
+in one pull (:func:`card_tables`), then the host table committer
+(engine/greedy.table_compress) on one thread a shard.  v1: the card's own
+v1 encode (:func:`encode_v1_device_commit`), whose streams are the ones
+the JAX package's table committer writes (both the reference greedy
+encoder's).  :func:`encode_device` is the one-shot form, a batch of one.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,7 +62,9 @@ from .encode import bits_to_bytes, build_header, model_history
 __all__ = ["encode_v1_device_commit", "encode_v1_device_optimal",
            "v1_optimal_stage", "optimal_fields_v1", "optimal_streams_v1",
            "finish_streams",
-           "pad_shards", "pull_body_bytes"]
+           "pad_shards", "pull_body_bytes", "per_shard", "device_tables",
+           "pack_tables", "unpack_tables", "card_tables",
+           "encode_device_batch", "encode_device"]
 
 
 def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
@@ -290,3 +305,95 @@ def optimal_streams_v1(bodies, state: np.ndarray, *, window: int,
     return [bytes([hv]) + body.tobytes()
             + bits_to_bytes((), int(st[S_ACC]), int(st[S_AN]))
             for body, st in zip(bodies, state)]
+
+
+def per_shard(fn, n: int, workers: int | None = None) -> list:
+    """``[fn(i) for i in range(n)]``, one thread per shard, at most
+    ``workers`` at a time (default: the CPU count); the host committer,
+    table search and choice walk release the GIL."""
+    if n <= 1:
+        return [fn(i) for i in range(n)]
+    with ThreadPoolExecutor(max_workers=workers or os.cpu_count() or 4) as ex:
+        return list(ex.map(fn, range(n)))
+
+
+def device_tables(rows: torch.Tensor, npos: torch.Tensor,
+                  dict_arr: torch.Tensor, *, window: int, lazy: bool):
+    """Kernel B5's tables of the extended ``engine="device"`` (the JAX
+    module's ``device_search_fn``): ``rows`` (S, NP) uint8 against
+    ``dict_arr`` at cap 16, and with ``lazy`` the probe family.  Returns
+    (flen, fidx[, plen, pidx]), (S, NP) int32."""
+    return v1_tables(rows, npos, dict_arr, window_bits=window, cap=16,
+                     probe=lazy)
+
+
+def pack_tables(tabs, window: int) -> torch.Tensor:
+    """The tables packed for one pull: each family as ``len | idx << 5``
+    (int16 at window <= 10, int32 above), stacked into one (F, S, NP)
+    tensor on the tables' device."""
+    dt = torch.int16 if window <= 10 else torch.int32
+    return torch.stack([(tabs[k] | (tabs[k + 1] << 5)).to(dt)
+                        for k in range(0, len(tabs), 2)])
+
+
+def unpack_tables(planes: np.ndarray) -> tuple:
+    """A shard's committer tables from its (F, n) rows of
+    :func:`pack_tables`' planes: (flen uint8, fidx int32[, plen, pidx])."""
+    out = []
+    for p in planes:
+        out += [(p & 31).astype(np.uint8), (p >> 5).astype(np.int32)]
+    return tuple(out)
+
+
+def card_tables(rows, dict_arr: np.ndarray, dev, *, window: int,
+                lazy: bool) -> np.ndarray:
+    """One batch on the card: ``rows`` (uint8 arrays) padded by
+    :func:`pad_shards`, kernel B5 (:func:`device_tables`) in one launch,
+    and its packed planes (:func:`pack_tables`) pulled in one copy."""
+    batch, npos = pad_shards(rows)
+    tabs = device_tables(
+        torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
+        torch.from_numpy(np.array(dict_arr)).to(dev), window=window,
+        lazy=lazy)
+    return pack_tables(tabs, window).cpu().numpy()
+
+
+def encode_device_batch(shards, *, window: int = 10, literal: int = 8,
+                        extended: bool = True, lazy_matching: bool = False,
+                        dictionary: bytes | None = None, device=None,
+                        workers: int | None = None) -> list[bytes]:
+    """``engine="device"`` on a batch of shards, one Tamp stream each.
+
+    Extended (engine/encode_extended.py): kernel B5 once for the batch on
+    the model histories, then the host table committer on one thread a
+    shard (``workers`` at a time, default the CPU count); streams
+    byte-identical to the JAX package's ``encode_extended``.  v1:
+    :func:`encode_v1_device_commit` (B5 once for the batch, then the
+    card's commit kernel); the JAX package's table committer writes the
+    same stream there, the reference greedy encoder's (``encode_v1``).
+    ``dictionary``: a full-window custom dictionary, else the format's
+    default (v1: literal 8).  ``device``: None for the CUDA card;
+    ``"cpu"`` runs the plain versions.  Nothing falls back to a host
+    search: without a card ``device=None`` raises."""
+    if not extended:
+        return encode_v1_device_commit(
+            shards, window=window, literal=literal,
+            lazy_matching=lazy_matching, dictionary=dictionary,
+            device=device)
+    from .encode_extended import encode_extended_batch
+
+    return encode_extended_batch(
+        [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards],
+        window=window, literal=literal, lazy_matching=lazy_matching,
+        dictionary=dictionary, device=device, workers=workers)
+
+
+def encode_device(data, *, window: int = 10, literal: int = 8,
+                  extended: bool = True, lazy_matching: bool = False,
+                  dictionary=None, device=None) -> bytes:
+    """One Tamp stream of ``engine="device"`` (the JAX module's
+    ``encode_device``): :func:`encode_device_batch` on a batch of one."""
+    return encode_device_batch(
+        [data], window=window, literal=literal, extended=extended,
+        lazy_matching=lazy_matching, dictionary=dictionary,
+        device=device)[0]

@@ -41,15 +41,11 @@ package's ``encode_extended_optimal``.
 
 from __future__ import annotations
 
-import os
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import torch
 
 from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from ..device import resolve_device
-from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
 from ..ops.encode_commit import (
     ERR_EXCESS, S_ACC, S_AN, S_ERR, S_T, TILE, commit_fields,
@@ -63,8 +59,12 @@ from ..ops.plan_ext import (
     MAX_PLAN_WINDOW, SPLIT_WINDOW, derive_region_arrays, plan_fields_ext,
 )
 from .encode import build_header, opt_ext_emit, opt_ext_runs
-from .greedy import SPARSE_NONE, greedy_compress, host_v1_tables, opt_ext_walk
-from .pipeline import pad_shards, pull_body_bytes
+from .greedy import (
+    SPARSE_NONE, greedy_compress, host_v1_tables, opt_ext_walk, window_array,
+)
+from .pipeline import (
+    pack_tables, pad_shards, per_shard, pull_body_bytes, unpack_tables,
+)
 from .plan import ext_prep
 from .tail import TAIL_ROWS, ext_tail_bits
 
@@ -140,16 +140,6 @@ def prepare_batch(datas, *, window: int):
     return prep, dh, rc, npos
 
 
-def _window_dict(window: int, literal: int, dictionary) -> np.ndarray:
-    W = 1 << window
-    if dictionary is None:
-        return dictionary_array(W, literal=literal)
-    arr = np.frombuffer(bytes(dictionary), np.uint8)
-    if arr.shape[0] != W:
-        raise ValueError("Dictionary-window size mismatch.")
-    return arr
-
-
 def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
                              lazy_matching: bool = False,
                              dictionary: bytes | None = None,
@@ -167,7 +157,7 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
             f"device extended encode supports window <= {MAX_PLAN_WINDOW}")
     compute_min_pattern_size(window, literal)  # validates the config
     dev = resolve_device(device)
-    dict_arr = _window_dict(window, literal, dictionary)
+    dict_arr = window_array(window, literal, dictionary)
     datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
     S = len(datas)
     if S == 0:
@@ -257,15 +247,11 @@ def pull_sparse(bm: torch.Tensor, ent: torch.Tensor, lazy: bool):
 
 def greedy_dense_stage(dh_u8: torch.Tensor, npos: torch.Tensor,
                        dict_u8: torch.Tensor, *, window: int, lazy: bool):
-    """Device half of the dense pull for one batch: the tables packed as
-    ``len16 | idx16 << 5`` (and ``plen | pidx << 4``), int16 when window
-    <= 10 (15 and 14 bits suffice), int32 otherwise."""
-    tabs = greedy_tables(dh_u8, npos, dict_u8, window=window, lazy=lazy)
-    dt = torch.int16 if window <= 10 else torch.int32
-    out = [(tabs[0] | (tabs[1] << 5)).to(dt)]
-    if lazy:
-        out.append((tabs[2] | (tabs[3] << 4)).to(dt))
-    return out
+    """Device half of the dense pull for one batch: the tables packed for
+    one pull by engine/pipeline.pack_tables (``len | idx << 5`` a family,
+    int16 when window <= 10, int32 otherwise)."""
+    return pack_tables(greedy_tables(dh_u8, npos, dict_u8, window=window,
+                                     lazy=lazy), window)
 
 
 def sparse_tables(bits: np.ndarray, ent: np.ndarray, n: int, lazy: bool):
@@ -288,31 +274,12 @@ def sparse_tables(bits: np.ndarray, ent: np.ndarray, n: int, lazy: bool):
     return flen, fidx, plen, pidx
 
 
-def _dense_tables(planes, n: int, lazy: bool):
-    """Committer tables of one shard from its rows of the dense pull."""
-    main = planes[0][:n]
-    tabs = [(main & 31).astype(np.uint8), (main >> 5).astype(np.int32)]
-    if lazy:
-        pr = planes[1][:n]
-        tabs += [(pr & 15).astype(np.uint8), (pr >> 4).astype(np.int32)]
-    return tuple(tabs)
-
-
-def _per_shard(fn, n: int) -> list:
-    """``[fn(i) for i in range(n)]``, one thread per shard (the host
-    committer, table search and choice walk release the GIL)."""
-    if n <= 1:
-        return [fn(i) for i in range(n)]
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
-        return list(ex.map(fn, range(n)))
-
-
 def greedy_commits(datas, tables, *, window: int = 10, literal: int = 8,
                    lazy_matching: bool = False, dictionary=None) -> list[bytes]:
     """The host committer on each shard of ``datas`` (uint8 arrays), one
     thread per shard; ``tables(i)`` makes shard i's committer tables in its
     thread (None: the table-less exact search)."""
-    return _per_shard(lambda i: greedy_compress(
+    return per_shard(lambda i: greedy_compress(
         datas[i], window=window, literal=literal,
         lazy_matching=lazy_matching, dictionary=dictionary,
         tables=tables(i)), len(datas))
@@ -353,7 +320,7 @@ def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
         raise ValueError("pull must be 'sparse' or 'dense'")
     compute_min_pattern_size(window, literal)  # validates the config
     dev = resolve_device(device)
-    dict_arr = _window_dict(window, literal, dictionary)
+    dict_arr = window_array(window, literal, dictionary)
     datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
     if not datas:
         return []
@@ -363,12 +330,11 @@ def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
     dict_d = torch.from_numpy(dict_arr.copy()).to(dev)
     lazy = lazy_matching
     if pull == "dense":
-        planes = [p.cpu().numpy().astype(np.int32) for p in greedy_dense_stage(
-            dh_d, npos_d, dict_d, window=window, lazy=lazy)]
+        planes = greedy_dense_stage(dh_d, npos_d, dict_d, window=window,
+                                    lazy=lazy).cpu().numpy()
 
         def tables(i):
-            return _dense_tables([p[i] for p in planes], datas[i].shape[0],
-                                 lazy)
+            return unpack_tables(planes[:, i, : datas[i].shape[0]])
     else:
         bm, ent, _state = greedy_sparse_stage(
             dh_d, npos_d, dict_d, window=window, literal=literal, lazy=lazy)
@@ -383,7 +349,7 @@ def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
 def optimal_prep(datas, *, window: int, literal: int, dictionary=None):
     """Host prep of kernel X4's inputs: :func:`optimal_prep_shard` of each
     shard of ``datas`` (uint8 arrays), one thread per shard."""
-    return _per_shard(lambda i: optimal_prep_shard(
+    return per_shard(lambda i: optimal_prep_shard(
         datas[i], window=window, literal=literal, dictionary=dictionary),
         len(datas))
 
@@ -467,7 +433,7 @@ def optimal_emit(datas, prep, choice: np.ndarray, *, window: int,
         return opt_ext_emit(arr, sizes, kinds, fidx, window=window,
                             literal=literal, custom_dict=custom_dict)
 
-    return _per_shard(one, len(datas))
+    return per_shard(one, len(datas))
 
 
 def encode_ext_device_optimal(shards, *, window: int = 10, literal: int = 8,
@@ -490,7 +456,7 @@ def encode_ext_device_optimal(shards, *, window: int = 10, literal: int = 8,
     dev = resolve_device(device)
     dict_arr = None
     if dictionary is not None:
-        dict_arr = _window_dict(window, literal, dictionary)
+        dict_arr = window_array(window, literal, dictionary)
     datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
     if not datas:
         return []

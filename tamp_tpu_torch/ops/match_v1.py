@@ -71,7 +71,7 @@ def families_plain(row: torch.Tensor, npos: torch.Tensor,
     S, MP = row.shape
     W = 1 << window_bits
     dev = row.device
-    T = max(64, min(4096, (1 << 22) // W))  # positions per chunk
+    T = max(64, min(4096, (1 << 22) // W, MP))  # positions per chunk
     R = T + LMAX + 1
     n = npos.to(device=dev, dtype=torch.int64).view(S, 1)
     clen = W + MP + R

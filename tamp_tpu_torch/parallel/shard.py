@@ -18,10 +18,11 @@ Either package reads the containers the other writes.
 
 from __future__ import annotations
 
+import os
 import struct
 
-__all__ = ["compress_sharded", "decompress_sharded_device",
-           "DEFAULT_SHARD_SIZE"]
+__all__ = ["compress_sharded", "compress_file_sharded",
+           "decompress_sharded_device", "DEFAULT_SHARD_SIZE"]
 
 MAGIC = b"TTPU"
 DEFAULT_SHARD_SIZE = 1 << 20
@@ -69,6 +70,7 @@ def compress_sharded(
     shard_size: int = DEFAULT_SHARD_SIZE,
     engine: str = "device-commit",
     device=None,
+    workers: int | None = None,
 ) -> bytes:
     """Compress ``data`` as a TTPU container, all shards batched on the card.
 
@@ -87,11 +89,26 @@ def compress_sharded(
     ``encode_extended_optimal``) or v1 (engine/pipeline.
     encode_v1_device_optimal, streams equal to
     ``encode_v1(parse="optimal")``); ``lazy_matching`` does not apply.
-    ``engine="device"`` is not ported (NotImplementedError).
+    ``engine="device"``, byte-identical to the JAX package's
+    ``compress_sharded(engine="device")`` on its Pallas search, with or
+    without ``lazy_matching`` (engine/pipeline.encode_device_batch):
+    extended, kernel B5's tables of the model histories on the card, one
+    launch for all shards, then the host table committer on ``workers``
+    threads (default: the CPU count; engine/encode_extended.py, streams
+    equal to ``encode_extended``); v1, the ``"device-commit"`` encode,
+    whose streams are the same reference greedy ones (``encode_v1``).  The JAX
+    package's host engines (``"native"``, ``"tables"``) are not ported
+    (NotImplementedError), and nothing falls back to them.
     ``dictionary`` (a full-window custom dictionary) seeds every shard's
     window; pass the same one to the decode side.  ``device``: None for
     the CUDA card, ``"cpu"`` for the plain versions."""
-    if engine == "device-optimal":
+    if engine == "device":
+        from ..engine.pipeline import encode_device_batch
+
+        def encode(shards, **kw):
+            return encode_device_batch(shards, extended=extended,
+                                       workers=workers, **kw)
+    elif engine == "device-optimal":
         if extended:
             from ..engine.pipeline_ext import (
                 encode_ext_device_optimal as optimal,
@@ -109,9 +126,9 @@ def compress_sharded(
         from ..engine.pipeline_ext import encode_ext_device_greedy as encode
     elif engine != "device-commit":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported: the port has "
-            "'device-commit', 'device-greedy' and 'device-optimal' "
-            "(engine='device' is ROADMAP.md queue A)")
+            f"engine={engine!r} is not ported: the port has the device "
+            "engines 'device-commit', 'device-greedy', 'device-optimal' "
+            "and 'device'; the JAX package's host engines stay there")
     elif extended:
         from ..engine.pipeline_ext import encode_ext_device_commit as encode
     else:
@@ -124,6 +141,99 @@ def compress_sharded(
         shards, window=window, literal=literal, lazy_matching=lazy_matching,
         dictionary=dictionary, device=device)
     return _pack_frame(blobs, len(data), shard_size)
+
+
+def compress_file_sharded(
+    src,
+    dst,
+    *,
+    window: int = 10,
+    literal: int = 8,
+    extended: bool = True,
+    lazy_matching: bool = False,
+    dictionary: bytes | None = None,
+    shard_size: int = DEFAULT_SHARD_SIZE,
+    workers: int | None = None,
+    engine: str = "device",
+    device=None,
+) -> int:
+    """Bounded-memory TTPU compression of a file (files larger than RAM),
+    the JAX package's ``compress_file_sharded`` with ``engine="device"``.
+
+    Reads ``src`` shard by shard, up to ``2 * workers`` shards at a time
+    (default ``workers``: the CPU count + 2, as in the JAX package),
+    encodes each such batch with one launch of kernel B5 and the host
+    committer on ``workers`` threads (engine/pipeline.encode_device_batch),
+    and writes the streams to ``dst`` in order: the frame header and a
+    zeroed sizes table go out first and the sizes are patched in place at
+    the end, so ``dst`` must be seekable (a path or a binary file).  The
+    output is byte-identical to ``compress_sharded(engine="device")`` on
+    the whole file.  Returns the bytes written.
+
+    Memory, in bytes a byte of one batch (B = 2·workers·shard_size input
+    bytes; extended): on the host about 8-14 B held for the batch (the
+    input 1, khat 4, the model stream 1, B5's packed planes 2 at window
+    <= 10 and 4 above, twice that with the probe, the streams ~1), and
+    in each of the ``workers`` threads, for its shard, transients of about
+    30 B more (the run plan's int64 indices, the gathered and unpacked
+    tables at 5 B a family, the committer's output buffer): ~20-30x B in
+    all.  The card holds the batch's rows and B5's int32 planes, 8 B a
+    position (16 with lazy matching's probe), until the one pull.  v1
+    holds the input, its padded copy and the streams on the host.
+
+    Only ``engine="device"`` streams: ``"device-commit"`` (and the other
+    engines, which batch whole containers) raise ValueError.  The JAX
+    package's own function writes its ``"tables"`` container for any
+    engine name it does not know; the port refuses them instead."""
+    if engine == "device-commit":
+        raise ValueError(
+            "device-commit batches whole containers; use compress_sharded, "
+            "or engine='device' for the per-shard device search pipeline")
+    if engine != "device":
+        raise ValueError(
+            f"compress_file_sharded streams engine='device' only; use "
+            f"compress_sharded for engine={engine!r}")
+    from ..device import resolve_device
+    from ..engine.pipeline import encode_device_batch
+
+    dev = resolve_device(device)
+    if workers is None:
+        workers = (os.cpu_count() or 4) + 2
+    close_src = close_dst = False
+    if not hasattr(src, "read"):
+        src, close_src = open(str(src), "rb"), True
+    try:
+        if not hasattr(dst, "write"):
+            dst, close_dst = open(str(dst), "wb"), True
+        pos0 = src.tell()
+        raw_size = src.seek(0, 2) - pos0
+        src.seek(pos0)
+        n_shards = max(1, -(-raw_size // shard_size))
+        head_at = dst.tell()
+        dst.write(MAGIC + struct.pack(
+            "<BBIQQ", 2, 0, n_shards, raw_size, shard_size))
+        sizes_at = dst.tell()
+        dst.write(b"\x00" * (4 * n_shards))
+        sizes = []
+        for first in range(0, n_shards, 2 * workers):
+            batch = [src.read(shard_size)
+                     for _ in range(min(2 * workers, n_shards - first))]
+            for blob in encode_device_batch(
+                    batch, window=window, literal=literal, extended=extended,
+                    lazy_matching=lazy_matching, dictionary=dictionary,
+                    device=dev, workers=workers):
+                sizes.append(len(blob))
+                dst.write(blob)
+        end_at = dst.tell()
+        dst.seek(sizes_at)
+        dst.write(struct.pack(f"<{n_shards}I", *sizes))
+        dst.seek(end_at)
+        return end_at - head_at
+    finally:
+        if close_src:
+            src.close()
+        if close_dst:
+            dst.close()
 
 
 def decompress_sharded_device(blob: bytes, shard_size: int | None = None,

@@ -1210,3 +1210,60 @@ def test_optimal_entry_points_round_trip_and_match_plain(cuda, extended):
                                         extended=extended,
                                         engine="device-optimal", device="cpu")
         assert bytes(decompress_sharded_device(blob)) == data
+
+
+@pytest.mark.parametrize("extended", [True, False])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_device_engine_equals_plain(cuda, extended, lazy):
+    """engine="device": kernel B5 and the host table committer, the
+    one-shot form and the container, on the card equal to device="cpu"
+    (B5's plain version), and B5 launched once a batch."""
+    from tamp_tpu_torch.engine.pipeline import encode_device
+
+    kw = dict(extended=extended, lazy_matching=lazy)
+    data = _text(30000, 12) + b"\x05" * 2000 + _text(3000, 13)
+    before = v1_tables.launches
+    got = encode_device(data, **kw)
+    assert v1_tables.launches == before + 1
+    assert got == encode_device(data, device="cpu", **kw)
+    for window, literal in ((8, 6), (15, 8)):
+        lmask = (1 << literal) - 1
+        raw = bytes(b & lmask for b in data[: 6000 >> (window - 8) // 7])
+        one = encode_device(raw, window=window, literal=literal, **kw)
+        assert one == encode_device(raw, window=window, literal=literal,
+                                    device="cpu", **kw)
+    before = v1_tables.launches
+    blob = compress_sharded(data, engine="device", shard_size=4096, **kw)
+    assert v1_tables.launches == before + 1
+    assert blob == compress_sharded(data, engine="device", shard_size=4096,
+                                    device="cpu", **kw)
+    assert bytes(decompress_sharded_device(blob)) == data
+
+
+@pytest.mark.parametrize("S", [1, 7, 203])
+def test_b5_kernel_at_the_file_path_batch_shapes(cuda, S):
+    """The file path's batches: up to 2 * workers shards, a short last
+    one; extended rows are model histories.  B5 at cap 16 with the probe
+    against its plain version, and compress_file_sharded's container
+    against compress_sharded's."""
+    import io
+
+    from tamp_tpu_torch.parallel.shard import compress_file_sharded
+
+    rng = np.random.default_rng(S)
+    lens = rng.integers(1, 1024, S).astype(np.int32)
+    lens[-1] = 17
+    data = torch.from_numpy(rng.integers(97, 101, (S, 1024)).astype(np.uint8))
+    npos = torch.from_numpy(lens)
+    d = torch.from_numpy(dictionary_array(1 << 10))
+    kw = dict(window_bits=10, cap=16, probe=True)
+    want = v1_tables_plain(data, npos, d, **kw)
+    got = v1_tables(data.to(cuda), npos.to(cuda), d.to(cuda), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    raw = _text(S * 300 + 100, S)
+    dst = io.BytesIO()
+    compress_file_sharded(io.BytesIO(raw), dst, shard_size=300,
+                          workers=max(1, S // 2))
+    assert dst.getvalue() == compress_sharded(raw, engine="device",
+                                              shard_size=300)
