@@ -101,7 +101,16 @@ Phases (any failure raises, and the script exits non-zero):
    ``TAMP_TPU_DECODE`` set to commit, chase and xla, and with
    ``algorithm="serial"``: the output equal to the input, the launch
    counts of that one decode (B8 and X1 on chase, X1 on xla, X2 on serial,
-   B4 on none of the three), and the rate;
+   B4 on none of the three), and the rate; then the mesh layer: in a
+   world of one process (this one) ``make_mesh``, the search step on the
+   corpus as (8, 1 MiB) at w10 l8 (B5 once, its tables equal to B5's plain
+   version, the estimate to the plain tables'; its ms and a stage split)
+   and the decode step on the main path's 8 streams in modes commit (B4
+   once) and xla (X1), the corpus back, MB/s, a stream reading past the
+   window end refused; then ``compress_distributed`` in a world of two
+   child processes sharing the card (host gathers only), rank 0's
+   containers for ``engine="device-commit"`` and ``"device"`` equal to the
+   round trips', their rates beside one process's;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
@@ -183,6 +192,10 @@ FIRST_PORT_MS = {
         "0.990-1.064 (pass 1 0.43, combine 0.22, pass 2 0.28)",
     "opt_ext_choice (X4)":
         "7.060-7.110 (pass 1 4.40, combine 0.87, pass 2 1.26)"}
+# the engines of phase 3's two-process compress_distributed, and how long
+# its children may run
+DIST_ENGINES = ("device-commit", "device")
+DIST_TIMEOUT_S = 300
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -1740,14 +1753,7 @@ def phase_device_split(dev, report, data, blob, shard_size: int, card: str):
     datas = [np.frombuffer(data[i : i + shard_size], np.uint8)
              for i in range(0, len(data), shard_size)]
     stages: dict[str, list[float]] = {}
-
-    def timed(stage, fn):
-        sync(dev)
-        t = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
-        return out
+    timed = timed_stages(dev, stages)
 
     commits = "gather + two commits a shard (a thread a shard)"
     for _ in range(4):
@@ -1933,6 +1939,249 @@ def phase_decode_modes(dev, report, data, blobs, shard_size: int,
     return launches, rates
 
 
+def timed_stages(dev, stages: dict):
+    """``timed(stage, fn)``: ``fn()`` between two synchronizes, its host
+    ms appended to ``stages[stage]``."""
+    def timed(stage, fn):
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
+        return out
+    return timed
+
+
+def phase_mesh(dev, report, data, blobs, card: str):
+    """Phase 3, the mesh layer (``parallel/shard.make_mesh`` and its two
+    steps) in a world of one process, this one, on the card: the search
+    step on the corpus as (8, 1 MiB) at w10 l8 (B5 once, its tables equal
+    to B5's plain version on the card, the estimate equal to the plain
+    tables' at rel 1e-5; its ms, median of 3 after a warm-up, and a stage
+    split); the decode step on the main path's 8 streams in modes commit
+    (B4 once) and xla (X1, no B4): the corpus back, its total, its MB/s; a
+    stream reading past the window end raises ValueError.  The group is
+    destroyed at the end.  Returns the launch counts of each step by
+    name."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline import pad_shards
+    from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
+    from tamp_tpu_torch.parallel.shard import (
+        _gather_rows, _parse_frame, estimate_bits, make_mesh,
+        sharded_decode_step, sharded_search_step,
+    )
+
+    window, literal = 10, 8
+    arr = np.frombuffer(data, np.uint8).reshape(8, -1)
+    mesh = make_mesh()
+    report(f"phase 3, mesh: {mesh} on {dev}, backend "
+           f"{dist.get_backend_config()}")
+    fns = counters()
+    launches = {}
+
+    def counted(name, fn):
+        for f in fns.values():
+            f.launches = 0
+        out = fn()
+        launches[name] = {k: f.launches for k, f in fns.items()}
+        return out
+
+    out = counted("search", lambda: sharded_search_step(mesh, arr, window,
+                                                        literal))
+    ran = {k: n for k, n in launches["search"].items() if n}
+    if ran != {"v1_tables": 1}:
+        fail(f"mesh search step: launches {ran}, not B5 once")
+    rows, npos = pad_shards(list(arr))
+    args = (torch.from_numpy(rows).to(dev), torch.from_numpy(npos).to(dev),
+            torch.from_numpy(dictionary_array(1 << window, literal)).to(dev))
+    plain = v1_tables_plain(*args, window_bits=window, cap=16)
+    err = max_abs_err([(out["len16"], plain[0]), (out["idx16"], plain[1])])
+    est = float(estimate_bits(plain[0], window, literal).sum())
+    got = float(out["est_bits_total"])
+    if err or abs(got - est) > 1e-5 * abs(est):
+        fail(f"mesh search step: tables max_abs_err {err}, estimate {got} "
+             f"beside the plain tables' {est}")
+    del out, plain
+    ms, _ = cuda_ms(lambda: sharded_search_step(mesh, arr, window, literal))
+    # the step's stages, as sharded_search_step runs them
+    stages: dict[str, list[float]] = {}
+    timed = timed_stages(dev, stages)
+    group = mesh.get_group()
+    for _ in range(4):
+        rows, npos = timed("host pad", lambda: pad_shards(list(arr)))
+        args = timed("host->device", lambda: (
+            torch.from_numpy(rows).to(dev), torch.from_numpy(npos).to(dev),
+            torch.from_numpy(dictionary_array(1 << window, literal))
+            .to(dev)))
+        tabs = timed("B5 v1_tables (cap 16)", lambda: v1_tables(
+            *args, window_bits=window, cap=16))
+        est_t = timed("estimate", lambda: estimate_bits(
+            tabs[0], window, literal).sum())
+        timed("collectives (all_reduce, two all_gathers)", lambda: (
+            dist.all_reduce(est_t, group=group),
+            _gather_rows(tabs[0], group), _gather_rows(tabs[1], group)))
+        del tabs, args
+    split = {k: statistics.median(v[1:]) for k, v in stages.items()}
+    b5 = split["B5 v1_tables (cap 16)"]
+    report(f"  mesh search step (8 x {arr.shape[1]}, w10 l8): equal to B5's "
+           f"plain version, estimate {got:.1f} bits; {ms:.3f} ms, B5 "
+           f"{b5:.3f} ms ({b5 / ms:.3f} of the step) [{card}]")
+    for stage, t in split.items():
+        report(f"  mesh search step {stage}: {t:.3f} ms [{card}]")
+
+    _r, _s, pieces = _parse_frame(blobs["extended"])
+    shard = len(data) // len(pieces)
+    for mode, kernel in (("commit", "commit_decode"),
+                         ("xla", "trunc_deficits")):
+        os.environ["TAMP_TPU_DECODE"] = mode
+        try:
+            outs, lens, total = counted(
+                f"decode {mode}", lambda: sharded_decode_step(
+                    mesh, pieces, max_out=shard))
+            ran = {k: n for k, n in launches[f"decode {mode}"].items() if n}
+            b4 = 1 if mode == "commit" else 0
+            if ran.get(kernel, 0) < 1 or ran.get("commit_decode", 0) != b4:
+                fail(f"mesh decode step, mode {mode}: launches {ran}")
+            lens_h = lens.cpu().tolist()
+            back = b"".join(bytes(outs[i, :n].cpu().numpy())
+                            for i, n in enumerate(lens_h))
+            if back != data or int(total) != len(data):
+                fail(f"mesh decode step, mode {mode}: the output differs "
+                     f"from the corpus (total {int(total)})")
+            del outs, lens
+            dms, _ = cuda_ms(lambda: sharded_decode_step(mesh, pieces,
+                                                         max_out=shard))
+        finally:
+            del os.environ["TAMP_TPU_DECODE"]
+        report(f"  mesh decode step, mode {mode}: equal, total {int(total)}, "
+               f"{len(data) / dms / 1e3:.2f} MB/s ({dms:.1f} ms), launches "
+               f"{ran} [{card}]")
+    try:
+        sharded_decode_step(mesh, pieces[:-1] + [oob_stream()],
+                            max_out=shard)
+    except ValueError:
+        report("  mesh decode step: a stream reading past the window end "
+               "raises ValueError")
+    else:
+        fail("mesh decode step: a stream reading past the window end did "
+             "not raise")
+    dist.destroy_process_group()
+    return launches
+
+
+def phase_distributed(dev, report, data, blobs, card: str):
+    """Phase 3, ``compress_distributed`` in a world of two processes
+    sharing the card (``--dist-child``, joined over loopback; host
+    gathers only: NCCL takes no two ranks on one GPU): rank 0's
+    containers for ``engine="device-commit"`` and ``"device"`` equal to
+    the round trips' (``extended``, ``device``), its rate (median of 3
+    between barriers, after a warm-up) beside this process's
+    ``compress_sharded`` rate, timed the same way.  One card: the two
+    processes share its SMs, so this shows no scaling across cards."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    from tamp_tpu_torch.parallel.shard import compress_sharded
+
+    one = {}
+    for engine in DIST_ENGINES:
+        ts = []
+        for _ in range(4):
+            sync(dev)
+            t = time.perf_counter()
+            compress_sharded(data, engine=engine, device=dev)
+            sync(dev)
+            ts.append((time.perf_counter() - t) * 1e3)
+        one[engine] = statistics.median(ts[1:])
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+             str(rank), addr, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            fail(f"compress_distributed: a child ran past {DIST_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"compress_distributed: rank {rank} exited "
+                     f"{p.returncode}:\n{out[-4000:]}")
+        times = json.loads(Path(tmp, "times.json").read_text())
+        for engine, name in zip(DIST_ENGINES, ("extended", "device")):
+            if Path(tmp, f"{engine}.ttpu").read_bytes() != blobs[name]:
+                fail(f"compress_distributed, engine={engine}: rank 0's "
+                     f"container differs from the one-process {name} one")
+            ms = statistics.median(times[engine])
+            report(f"  compress_distributed, engine={engine}, 2 processes on "
+                   f"one card: container equal to compress_sharded's; "
+                   f"{len(data) / ms / 1e3:.2f} MB/s ({ms:.1f} ms; runs "
+                   f"{', '.join(f'{t:.1f}' for t in times[engine])}) beside "
+                   f"one process {len(data) / one[engine] / 1e3:.2f} MB/s "
+                   f"({one[engine]:.1f} ms): "
+                   f"{one[engine] / ms:.2f}x [{card}]")
+        report(f"  compress_distributed: the children ran "
+               f"{time.perf_counter() - t0:.1f} s")
+
+
+def dist_child(rank: int, addr: str, out_dir: str) -> int:
+    """Rank ``rank`` of ``phase_distributed``'s two-process world: join
+    over ``addr``, time ``compress_distributed`` for each engine of
+    DIST_ENGINES on the corpus (a warm-up, then 3 runs, each between two
+    barriers: host all_reduces, gloo), and on rank 0 write the containers
+    and the times to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from tamp_tpu_torch.parallel.distributed import (
+        compress_distributed, initialize,
+    )
+    from tamp_tpu_torch.parallel.shard import DEFAULT_SHARD_SIZE
+
+    initialize(addr, 2, rank)
+    data = corpus(8 * DEFAULT_SHARD_SIZE)
+    barrier = torch.zeros(1)  # a host tensor: the gloo backend
+    times = {}
+    for engine in DIST_ENGINES:
+        ts = []
+        for _ in range(4):
+            dist.all_reduce(barrier)
+            t = time.perf_counter()
+            blob = compress_distributed(data, engine=engine)
+            dist.all_reduce(barrier)
+            ts.append((time.perf_counter() - t) * 1e3)
+        times[engine] = ts[1:]
+        if rank == 0:
+            Path(out_dir, f"{engine}.ttpu").write_bytes(blob)
+        elif blob is not None:
+            fail(f"compress_distributed returned a container on rank {rank}")
+    if rank == 0:
+        Path(out_dir, "times.json").write_text(json.dumps(times))
+    dist.destroy_process_group()
+    return 0
+
+
 def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
                     lazy: bool = False):
     """Where an extended encode's time goes (the main path's, or with
@@ -1969,13 +2218,7 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
                    f"{pre} host->device", fields, f"{pre} B3 commit_fields"]
     whole = f"{pre} whole call (prep .. tail, for the rest)"
 
-    def timed(name, fn):
-        sync(dev)
-        t = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
-        return out
+    timed = timed_stages(dev, stages)
 
     for _ in range(4):
         _p, dh, rc, npos = timed(stage_names[0],
@@ -2053,14 +2296,7 @@ def phase_v1_split(dev, report, data, blob, shard_size: int, card: str,
     datas = [np.frombuffer(data[i : i + shard_size], np.uint8)
              for i in range(0, len(data), shard_size)]
     stages: dict[str, list[float]] = {}
-
-    def timed(stage, fn):
-        sync(dev)
-        t = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
-        return out
+    timed = timed_stages(dev, stages)
 
     b5 = "B5 v1_tables" + (" with the probe" if lazy else "")
     fused = "fused device call (B5, pack, " + ("B6)" if lazy else
@@ -2246,14 +2482,7 @@ def phase_greedy(dev, report, data, blob, shard_size: int, card: str,
               for i in range(0, len(data), shard_size)]
     datas = [np.frombuffer(x, np.uint8) for x in pieces]
     stages: dict[str, list[float]] = {}
-
-    def timed(stage, fn):
-        sync(dev)
-        t = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
-        return out
+    timed = timed_stages(dev, stages)
 
     pulled = 0
     for _ in range(4):
@@ -2448,12 +2677,13 @@ def stream_tokens(dev, blob, window: int, literal: int, extended: bool):
 
 
 def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
-                       shard_size: int, card: str):
+                       mesh_launches, shard_size: int, card: str):
     """Phase 4: each kernel at its path's shapes against its plain
     version: times, results, bounds.  ``blobs`` and ``launches``: the
     containers and launch counts of phase 3, by path; ``dec_launches``:
-    those of its decode modes, by (container, mode).  Returns the
-    ``kernels`` records."""
+    those of its decode modes, by (container, mode); ``mesh_launches``:
+    those of the mesh steps, by step (B5's, B4's and X1's rows carry them
+    as ``mesh_launches``).  Returns the ``kernels`` records."""
     import numpy as np
     import torch
 
@@ -2574,6 +2804,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         source="tamp_tpu_torch/csrc/decode_commit.cu",
         replaces="tamp_tpu/ops/decode_commit_pallas.py:87",
         launches=launches["extended"]["commit_decode"],
+        mesh_launches=mesh_launches["decode commit"]["commit_decode"],
         max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
         steps=tokens,
         bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes))
@@ -2597,6 +2828,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         source="tamp_tpu_torch/csrc/match_ext.cu",
         replaces="tamp_tpu/ops/match_pallas.py:75",
         launches=launches["v1"]["v1_tables"],
+        mesh_launches=mesh_launches["search"]["v1_tables"],
         max_abs_err=max_abs_err(zip(tabs, ptabs)), ms=ms, plain_ms=pms,
         bytes=S * shard_size + W + 4 * S + 2 * 4 * S * shard_size,
         ops=n_raw * slot_words))
@@ -2751,6 +2983,7 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         source="tamp_tpu_torch/csrc/decode_wavefront.cu",
         replaces="tamp_tpu/ops/decode_wavefront.py:358",
         launches=dec_launches["extended", "chase"]["trunc_deficits"],
+        mesh_launches=mesh_launches["decode xla"]["trunc_deficits"],
         max_abs_err=max_abs_err([(defs, pdefs)]), ms=ms, plain_ms=pms,
         bytes=16 * n_tr + 4 * S, ops=6 * n_tr, launch_ms=split,
         launch_traces=n_tr_x1, launch_lag_us=lag_x1))
@@ -2867,10 +3100,12 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
             steps = f", {k['edges']} edges"
         if k["name"] in FIRST_PORT_MS:
             steps += f" (first port: {FIRST_PORT_MS[k['name']]} ms)"
+        mesh = (f" (mesh step {k['mesh_launches']})" if "mesh_launches" in k
+                else "")
         report(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
                f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
-               f"launches {k['launches']}, max_abs_err {k['max_abs_err']}"
-               f"{steps} [{card}]")
+               f"launches {k['launches']}{mesh}, max_abs_err "
+               f"{k['max_abs_err']}{steps} [{card}]")
         if not k["equal_plain"]:
             fail(f"{k['name']} differs from its plain version at the main "
                  "path's shapes")
@@ -2960,11 +3195,16 @@ def main() -> int:
            f"{len(modes_in['extended w15']) / len(data):.6f}")
     dec_launches, _rates = phase_decode_modes(
         dev, report, data, modes_in, DEFAULT_SHARD_SIZE, card)
+    t1 = time.perf_counter()
+    mesh_launches = phase_mesh(dev, report, data, blobs, card)
+    phase_distributed(dev, report, data, blobs, card)
+    report(f"phase 3: mesh layer done ({time.perf_counter() - t1:.1f} s)")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     kernels = phase_kernel_times(dev, report, data, modes_in, launches,
-                                 dec_launches, DEFAULT_SHARD_SIZE, card)
+                                 dec_launches, mesh_launches,
+                                 DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
 
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2976,4 +3216,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

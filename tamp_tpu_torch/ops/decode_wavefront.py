@@ -57,9 +57,10 @@ from .decode_commit import (
 )
 from .token_chase import token_table_chase
 
-__all__ = ["decode_shards_wavefront", "decode_group", "payload_parse",
-           "speculative_parse", "wavefront_finish", "fold_inputs",
-           "trunc_deficits", "trunc_deficits_plain", "resolve_mode", "MODES"]
+__all__ = ["decode_shards_wavefront", "decode_group", "payload_groups",
+           "payload_parse", "speculative_parse", "wavefront_finish",
+           "fold_inputs", "trunc_deficits", "trunc_deficits_plain",
+           "resolve_mode", "MODES"]
 
 _M32 = 0xFFFFFFFF
 GROUP_PAYLOAD_BYTES = 1 << 23  # payload bytes parsed in one device group
@@ -558,6 +559,25 @@ def split_streams(shards, dictionary):
     return window, literal, extended, more, dict_init, default_dict, payloads
 
 
+def payload_groups(payloads) -> list[tuple[int, int]]:
+    """Index ranges ``[i, j)`` of consecutive payloads, each group at most
+    ``GROUP_PAYLOAD_BYTES`` payload bytes (a longer payload alone), which
+    caps the per-bit working set (~100 bytes of device memory per payload
+    bit)."""
+    groups = []
+    i = 0
+    while i < len(payloads):
+        j = i + 1
+        budget = len(payloads[i])
+        while j < len(payloads) and budget + len(payloads[j]) \
+                <= GROUP_PAYLOAD_BYTES:
+            budget += len(payloads[j])
+            j += 1
+        groups.append((i, j))
+        i = j
+    return groups
+
+
 def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
                             device=None, mode: str | None = None
                             ) -> list[bytes]:
@@ -567,9 +587,7 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
     guarantees it); ``max_out`` bounds each shard's decoded size.  ``mode``
     is ``"commit"``, ``"chase"`` or ``"xla"`` (see the module docstring);
     None takes ``TAMP_TPU_DECODE`` where it names a mode, else ``"commit"``.
-    Shards are batched into groups of at most ``GROUP_PAYLOAD_BYTES``
-    payload bytes to cap the per-bit working set (~100 bytes of device
-    memory per payload bit)."""
+    Shards are decoded in the groups of :func:`payload_groups`."""
     mode = resolve_mode(mode)
     dev = resolve_device(device)
     if not shards:
@@ -577,20 +595,9 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
     (window, literal, extended, more, dict_init, default_dict,
      payloads) = split_streams(shards, dictionary)
 
-    groups: list[list[bytes]] = []
-    i = 0
-    while i < len(payloads):
-        j = i + 1
-        budget = len(payloads[i])
-        while j < len(payloads) and budget + len(payloads[j]) \
-                <= GROUP_PAYLOAD_BYTES:
-            budget += len(payloads[j])
-            j += 1
-        groups.append(payloads[i:j])
-        i = j
-
     out: list[bytes] = []
-    for group in groups:
+    for i, j in payload_groups(payloads):
+        group = payloads[i:j]
         if all(len(p) == 0 for p in group):
             out.extend(b"" for _ in group)
             continue

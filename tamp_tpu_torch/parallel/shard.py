@@ -14,6 +14,12 @@ boundaries.  Any single shard is a spec-conforming Tamp stream.
     bytes   concatenated Tamp streams
 
 Either package reads the containers the other writes.
+
+The mesh layer (the JAX module's ``make_mesh``, ``sharded_search_step``
+and ``sharded_decode_step``) runs on ``torch.distributed``: one process a
+device, a 1-D ``DeviceMesh`` for the data-parallel axis, ``all_reduce``
+where the JAX steps ``psum`` and list-form ``all_gather`` where
+``np.asarray`` of their sharded results gathers the blocks.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from __future__ import annotations
 import os
 import struct
 
-__all__ = ["compress_sharded", "compress_file_sharded",
+__all__ = ["make_mesh", "sharded_search_step", "sharded_decode_step",
+           "compress_sharded", "compress_file_sharded",
            "decompress_sharded_device", "DEFAULT_SHARD_SIZE"]
 
 MAGIC = b"TTPU"
@@ -57,6 +64,45 @@ def _parse_frame(blob):
         pieces.append(blob[off : off + sz])
         off += sz
     return raw_size, shard_size, pieces
+
+
+def _encoder(engine: str, extended: bool, workers: int | None):
+    """The batch encoder of ``engine`` (see :func:`compress_sharded`):
+    ``encode(shards, *, window, literal, lazy_matching, dictionary,
+    device) -> list[bytes]``, one Tamp stream a shard.  Raises
+    NotImplementedError for the JAX package's host engines."""
+    if engine == "device":
+        from ..engine.pipeline import encode_device_batch
+
+        def encode(shards, **kw):
+            return encode_device_batch(shards, extended=extended,
+                                       workers=workers, **kw)
+    elif engine == "device-optimal":
+        if extended:
+            from ..engine.pipeline_ext import (
+                encode_ext_device_optimal as optimal,
+            )
+        else:
+            from ..engine.pipeline import encode_v1_device_optimal as optimal
+
+        def encode(shards, *, lazy_matching, **kw):
+            return optimal(shards, **kw)
+    elif engine == "device-greedy":
+        if not extended:
+            raise ValueError("device-greedy is the extended-format mode; "
+                             "v1 engine='device-commit' is already "
+                             "reference-exact")
+        from ..engine.pipeline_ext import encode_ext_device_greedy as encode
+    elif engine != "device-commit":
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported: the port has the device "
+            "engines 'device-commit', 'device-greedy', 'device-optimal' "
+            "and 'device'; the JAX package's host engines stay there")
+    elif extended:
+        from ..engine.pipeline_ext import encode_ext_device_commit as encode
+    else:
+        from ..engine.pipeline import encode_v1_device_commit as encode
+    return encode
 
 
 def compress_sharded(
@@ -102,38 +148,7 @@ def compress_sharded(
     ``dictionary`` (a full-window custom dictionary) seeds every shard's
     window; pass the same one to the decode side.  ``device``: None for
     the CUDA card, ``"cpu"`` for the plain versions."""
-    if engine == "device":
-        from ..engine.pipeline import encode_device_batch
-
-        def encode(shards, **kw):
-            return encode_device_batch(shards, extended=extended,
-                                       workers=workers, **kw)
-    elif engine == "device-optimal":
-        if extended:
-            from ..engine.pipeline_ext import (
-                encode_ext_device_optimal as optimal,
-            )
-        else:
-            from ..engine.pipeline import encode_v1_device_optimal as optimal
-
-        def encode(shards, *, lazy_matching, **kw):
-            return optimal(shards, **kw)
-    elif engine == "device-greedy":
-        if not extended:
-            raise ValueError("device-greedy is the extended-format mode; "
-                             "v1 engine='device-commit' is already "
-                             "reference-exact")
-        from ..engine.pipeline_ext import encode_ext_device_greedy as encode
-    elif engine != "device-commit":
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported: the port has the device "
-            "engines 'device-commit', 'device-greedy', 'device-optimal' "
-            "and 'device'; the JAX package's host engines stay there")
-    elif extended:
-        from ..engine.pipeline_ext import encode_ext_device_commit as encode
-    else:
-        from ..engine.pipeline import encode_v1_device_commit as encode
-
+    encode = _encoder(engine, extended, workers)
     data = bytes(data)
     shards = [data[i : i + shard_size]
               for i in range(0, len(data), shard_size)] or [b""]
@@ -268,3 +283,169 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
     if len(out) != raw_size:
         raise ValueError("container raw-size mismatch")
     return out
+
+
+def make_mesh(n_devices: int | None = None, axis: str = "dp", *,
+              device=None):
+    """A 1-D ``DeviceMesh`` named ``axis`` over the processes of the world,
+    one device each (the JAX module's ``make_mesh``).
+
+    ``device``: None for the CUDA card, each process on ``cuda:{local rank
+    % device count}``; ``"cpu"`` for a CPU world.  Without a default
+    process group this makes a world of one process (no port: a
+    ``HashStore``); a world of several comes from
+    :func:`tamp_tpu_torch.parallel.distributed.initialize`.  ``n_devices``,
+    where given, must be the world size (ValueError)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..device import resolve_device
+    from .distributed import backend, local_rank
+
+    dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"requested {n_devices} devices, the world has "
+                         f"{world} processes")
+    if not dist.is_initialized():
+        dist.init_process_group(backend(dev), store=dist.HashStore(),
+                                rank=0, world_size=1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(local_rank() % torch.cuda.device_count())
+    return init_device_mesh(dev.type, (world,), mesh_dim_names=(axis,))
+
+
+def _mesh_block(mesh, n_rows: int):
+    """(group, device, rows of this rank) of a 1-D mesh: rank r holds the
+    contiguous rows ``[r * n_rows / n, (r + 1) * n_rows / n)``, as
+    ``PartitionSpec(axis)`` places them.  ``n_rows`` must divide over the
+    mesh (ValueError, on every rank: no collective has run)."""
+    import torch
+
+    n = mesh.size()
+    if n_rows == 0 or n_rows % n:
+        raise ValueError(f"{n_rows} shards do not divide over a mesh of "
+                         f"{n} devices")
+    k = n_rows // n
+    r = mesh.get_local_rank()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return mesh.get_group(), dev, slice(r * k, (r + 1) * k)
+
+
+def _gather_rows(t, group):
+    """The (n * k, ...) concatenation of every rank's (k, ...) ``t``."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def estimate_bits(len16, window_bits: int, literal_bits: int):
+    """Each shard's estimate of its compressed bits from its (k, L) cap-16
+    lengths, in float32 (the JAX search step's): every position costs the
+    cheaper of a literal (``1 + literal_bits``) and, where ``len16 >=
+    minp``, its share of the cheapest match token, ``(2 + window_bits) /
+    len16``; plus 8 for the header.  Returns (k,) float32."""
+    import torch
+
+    from ..constants import compute_min_pattern_size
+
+    minp = compute_min_pattern_size(window_bits, literal_bits)
+    lit = torch.tensor(1 + literal_bits, dtype=torch.float32,
+                       device=len16.device)
+    mcost = torch.where(
+        len16 >= minp,
+        (2 + window_bits) / torch.clamp_min(len16, 1).to(torch.float32), lit)
+    return torch.minimum(mcost, lit).sum(1) + 8.0
+
+
+def sharded_search_step(mesh, data, window_bits: int, literal_bits: int):
+    """One data-parallel search step (the JAX module's
+    ``sharded_search_step``): per-shard match tables and a cost estimate.
+
+    ``data`` is the whole (S, L) uint8 array on every rank, S divisible by
+    the mesh size.  Each rank runs kernel B5 once on its block of rows:
+    the cap-16 v1 tables ``len16``, ``idx16`` against
+    ``dictionary_array(W, literal=literal_bits)``, which equal the JAX
+    step's ``mxu_chunk`` tables, and each shard's :func:`estimate_bits`.
+    Returns ``{"len16", "idx16"}`` as the full (S, L) int32 tensors
+    (``all_gather``) and ``"est_bits_total"``, the estimates' sum over
+    every shard (``all_reduce``), a float32 scalar, on every rank's
+    device."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..constants import compute_min_pattern_size
+    from ..dictionary import dictionary_array
+    from ..engine.pipeline import pad_shards
+    from ..ops.match_v1 import v1_tables
+
+    data = np.asarray(data, dtype=np.uint8)
+    if data.ndim != 2:
+        raise ValueError("data must be an (S, L) uint8 array")
+    compute_min_pattern_size(window_bits, literal_bits)  # validates both
+    group, dev, mine = _mesh_block(mesh, data.shape[0])
+    L = data.shape[1]
+    rows, npos = pad_shards(list(data[mine]))
+    dict_arr = dictionary_array(1 << window_bits, literal=literal_bits)
+    len16, idx16 = (t[:, :L] for t in v1_tables(
+        torch.from_numpy(rows).to(dev), torch.from_numpy(npos).to(dev),
+        torch.from_numpy(dict_arr).to(dev), window_bits=window_bits,
+        cap=16))
+    est = estimate_bits(len16, window_bits, literal_bits).sum()
+    dist.all_reduce(est, group=group)
+    return {"len16": _gather_rows(len16, group),
+            "idx16": _gather_rows(idx16, group), "est_bits_total": est}
+
+
+def sharded_decode_step(mesh, streams, *, max_out: int):
+    """One data-parallel decode step (the JAX module's
+    ``sharded_decode_step``).
+
+    ``streams``: every rank's same list of same-header Tamp streams (default
+    dictionary), their count divisible by the mesh size.  Each rank decodes
+    its contiguous block in the groups of ``payload_groups`` with
+    ``decode_group`` in ``resolve_mode()``'s mode: ``commit`` (kernel B4)
+    unless ``TAMP_TPU_DECODE`` names another (``xla``: kernel X1's fold, the
+    JAX step's mode).  One ``all_reduce`` sums the decoded lengths and the
+    ranks' error flags: if any shard failed, every rank raises ValueError.
+    Returns (outs (S, W) uint8, W = ``max_out``'s power-of-two bucket of
+    at least 1024; lens (S,) int32; the total of lens, an int64 scalar),
+    gathered on every rank's device."""
+    import torch
+    import torch.distributed as dist
+
+    from ..ops.decode_wavefront import (
+        _pow2_bucket, decode_group, payload_groups, resolve_mode,
+        split_streams,
+    )
+
+    mode = resolve_mode()
+    group, dev, mine = _mesh_block(mesh, len(streams))
+    (window, literal, extended, more, dict_init, default_dict,
+     payloads) = split_streams(streams, None)
+    payloads = payloads[mine]
+    outs = torch.zeros((len(payloads), _pow2_bucket(max_out, 1024)),
+                       dtype=torch.uint8, device=dev)
+    lens = torch.zeros(len(payloads), dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for i, j in payload_groups(payloads):
+        if all(len(p) == 0 for p in payloads[i:j]):
+            continue
+        outs[i:j], lens[i:j], errs = decode_group(
+            payloads[i:j], window=window, literal=literal, extended=extended,
+            more=more, dict_init=dict_init, dict_reset=default_dict,
+            max_out=max_out, device=dev, mode=mode)
+        bad += (errs != 0).sum()
+    # one collective for both: a rank that raised alone would leave the
+    # others waiting in it
+    sums = torch.stack([bad, lens.sum(dtype=torch.int64)])
+    dist.all_reduce(sums, group=group)
+    if int(sums[0]):
+        raise ValueError("invalid tamp stream in sharded decode")
+    return _gather_rows(outs, group), _gather_rows(lens, group), sums[1]

@@ -1267,3 +1267,60 @@ def test_b5_kernel_at_the_file_path_batch_shapes(cuda, S):
                           workers=max(1, S // 2))
     assert dst.getvalue() == compress_sharded(raw, engine="device",
                                               shard_size=300)
+
+
+@pytest.fixture
+def mesh1(cuda):
+    """A world of one process on the card, torn down after the test."""
+    import torch.distributed as tdist
+
+    from tamp_tpu_torch.parallel.shard import make_mesh
+
+    mesh = make_mesh()
+    yield mesh
+    tdist.destroy_process_group()
+
+
+def test_mesh_steps_launch_b5_b4_and_x1(cuda, mesh1, monkeypatch):
+    """The mesh steps in a world of one process: the search step launches
+    B5 once, its tables equal B5's plain version and its estimate the
+    plain tables'; the decode step launches B4 once in mode commit and X1
+    (not B4) in mode xla, gives the input back, and raises on a stream
+    that reads past the window end."""
+    from tamp_tpu_torch.parallel.shard import (
+        estimate_bits, sharded_decode_step, sharded_search_step,
+    )
+
+    raw = _text(4 * 4096, 40)[: 4 * 4096]
+    data = np.frombuffer(raw, np.uint8).reshape(4, 4096)
+    v1_tables.launches = 0
+    out = sharded_search_step(mesh1, data, 10, 8)
+    assert v1_tables.launches == 1
+    want = v1_tables_plain(
+        torch.from_numpy(data.copy()).to(cuda),
+        torch.full((4,), 4096, dtype=torch.int32, device=cuda),
+        torch.from_numpy(dictionary_array(1 << 10)).to(cuda),
+        window_bits=10, cap=16)
+    assert torch.equal(out["len16"], want[0])
+    assert torch.equal(out["idx16"], want[1])
+    est = float(estimate_bits(want[0], 10, 8).sum())
+    assert float(out["est_bits_total"]) == pytest.approx(est, rel=1e-5)
+
+    _r, _s, pieces = _parse_frame(compress_sharded(raw, shard_size=4096))
+    for mode, kernel in (("commit", dc.commit_decode),
+                         ("xla", dw.trunc_deficits)):
+        monkeypatch.setenv("TAMP_TPU_DECODE", mode)
+        dc.commit_decode.launches = dw.trunc_deficits.launches = 0
+        outs, lens, total = sharded_decode_step(mesh1, pieces, max_out=4096)
+        assert kernel.launches >= 1
+        assert dc.commit_decode.launches == (mode == "commit")
+        assert int(total) == len(raw)
+        assert b"".join(outs[i, : lens[i]].cpu().numpy().tobytes()
+                        for i in range(4)) == raw
+    oob = _Bits()
+    oob.put(pieces[0][0], 8)  # the same header: w10, l8, extended
+    oob.put(0x100 | 0x41, 9)
+    oob.put(HUFFMAN_CODES[11], HUFFMAN_LENGTHS[11])  # 13 bytes at 1020
+    oob.put(1020, 10)
+    with pytest.raises(ValueError):
+        sharded_decode_step(mesh1, pieces[:3] + [oob.bytes()], max_out=4096)
