@@ -110,7 +110,18 @@ Phases (any failure raises, and the script exits non-zero):
    window end refused; then ``compress_distributed`` in a world of two
    child processes sharing the card (host gathers only), rank 0's
    containers for ``engine="device-commit"`` and ``"device"`` equal to the
-   round trips', their rates beside one process's;
+   round trips', their rates beside one process's; then
+   ``decompress_file_sharded`` of the main path's container and of the
+   ``engine="device"`` file that ``compress_file_sharded`` writes, from
+   temporary files, in modes commit, chase and xla and by the serial
+   algorithm, at the default ``workers`` (one batch) and ``workers=2``
+   (two of 4): the corpus back, each mode's kernels once a batch, the peak
+   device memory, the main path's rates beside
+   ``decompress_sharded_device``'s, and a raw size off by one and a v1
+   shard in the second batch refused; ``entry()``'s six tables equal to
+   B5's plain version from two B5 launches, and its ms; and
+   ``dryrun_multichip`` over every card (a world of one), its seconds and
+   launches;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
@@ -127,7 +138,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``launch_lag_us``), X1 is timed alone beside its
    call (the call zero-fills the (S, T_max) output) and in ns a truncating
    token, and the X1, X2, X3 and X4 rows print their first ports' times
-   (FIRST_PORT_MS) beside.
+   (FIRST_PORT_MS) beside; the rows of the kernels that phase 3's file
+   decodes, ``entry()`` and the dry run launched carry those counts too
+   (``file_launches``, ``entry_launches``, ``dryrun_launches``).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -196,6 +209,20 @@ FIRST_PORT_MS = {
 # its children may run
 DIST_ENGINES = ("device-commit", "device")
 DIST_TIMEOUT_S = 300
+# phase 3's file decodes: default workers (one batch of the 8 shards on a
+# host of 4 or more cores) and workers=2 (two batches of 4); each mode with
+# its algorithm and the kernels (wrapper names) it must launch once a batch
+FILE_WORKERS = (None, 2)
+FILE_DECODES = (
+    ("commit", "wavefront", ("commit_decode",)),
+    ("chase", "wavefront", ("token_table_chase", "trunc_deficits")),
+    ("xla", "wavefront", ("trunc_deficits",)),
+    ("serial", "serial", ("serial_decode",)),
+)
+# the kernels (wrapper names) the dry run must launch
+DRYRUN_KERNELS = ("v1_tables", "ext_tables", "commit_fields",
+                  "greedy_predict_batch", "opt_v1_choice", "opt_ext_choice",
+                  "commit_decode", "serial_decode")
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -2144,6 +2171,154 @@ def phase_distributed(dev, report, data, blobs, card: str):
                f"{time.perf_counter() - t0:.1f} s")
 
 
+def phase_file_entry(dev, report, data, blobs, card: str):
+    """Phase 3, the file decode and the port's entry points.
+    ``decompress_file_sharded`` of the main path's container and of the
+    ``engine="device"`` file that ``compress_file_sharded`` writes (equal
+    to the round trip's), each in modes commit, chase and xla and by the
+    serial algorithm, at FILE_WORKERS: the corpus back, each mode's kernels
+    once a batch (B4 and X2 exactly), the peak device memory of each
+    decode, and for the main path's container the rate (median of 3 after
+    a warm-up) beside the same mode's ``decompress_sharded_device``; a
+    raw size off by one and a v1 shard in the second batch raise
+    ValueError.  ``entry()``: its six tables equal B5's plain version on
+    the card, from two B5 launches; fn's ms.  ``dryrun_multichip`` over
+    every card (a world of one on one card) runs to its end, launching
+    DRYRUN_KERNELS; its seconds.  Returns the launch counts of these paths
+    by wrapper name, as extra keys of their kernels' rows."""
+    import os
+    import struct
+    import tempfile
+
+    import torch
+
+    from tamp_tpu_torch.entry import (
+        ENTRY_T, ENTRY_WINDOW, dryrun_multichip, entry,
+    )
+    from tamp_tpu_torch.ops.match_v1 import v1_tables_plain
+    from tamp_tpu_torch.parallel.shard import (
+        _pack_frame, _parse_frame, compress_file_sharded,
+        decompress_file_sharded, decompress_sharded_device,
+    )
+
+    fns = counters()
+    extra: dict[str, dict] = {}
+
+    def counted(fn):
+        for f in fns.values():
+            f.launches = 0
+        out = fn()
+        return out, {k: f.launches for k, f in fns.items() if f.launches}
+
+    raw_size, shard_size, pieces = _parse_frame(blobs["extended"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, back = tmp / "corpus.bin", tmp / "back.bin"
+        src.write_bytes(data)
+        files = {"device-commit": tmp / "extended.ttpu",
+                 "device": tmp / "device.ttpu"}
+        files["device-commit"].write_bytes(blobs["extended"])
+        compress_file_sharded(src, files["device"], shard_size=shard_size,
+                              device=dev)
+        if files["device"].read_bytes() != blobs["device"]:
+            fail("compress_file_sharded: the file differs from the device "
+                 "round trip's container")
+        for mode, alg, kernels in FILE_DECODES:
+            os.environ["TAMP_TPU_DECODE"] = mode if alg == "wavefront" \
+                else "commit"
+            try:
+                for workers in FILE_WORKERS:
+                    batches = -(-len(pieces)
+                                // (2 * (workers or os.cpu_count() or 4)))
+                    for name, path in files.items():
+                        if dev.type == "cuda":
+                            torch.cuda.reset_peak_memory_stats()
+                        n, ran = counted(lambda: decompress_file_sharded(
+                            path, back, workers, algorithm=alg, device=dev))
+                        peak = (torch.cuda.max_memory_allocated() / 2**30
+                                if dev.type == "cuda" else 0.0)
+                        if n != len(data) or back.read_bytes() != data:
+                            fail(f"file decode {name}, mode {mode}, workers "
+                                 f"{workers}: the output differs")
+                        for k in kernels:
+                            if ran.get(k, 0) < batches or (
+                                    k in ("commit_decode", "serial_decode")
+                                    and ran[k] != batches):
+                                fail(f"file decode {name}, mode {mode}: "
+                                     f"launches {ran} for {batches} batches")
+                        if mode != "commit" and ran.get("commit_decode"):
+                            fail(f"file decode {name}, mode {mode}: B4 ran")
+                        report(f"  file decode {name}, mode {mode}, workers "
+                               f"{workers} ({batches} batches): equal, "
+                               f"launches {ran}, peak device memory "
+                               f"{peak:.2f} GiB [{card}]")
+                        if name == "device-commit":
+                            for k in kernels:
+                                extra.setdefault(k, {}).setdefault(
+                                    "file_launches", {})[
+                                    f"{mode}, {batches} batches"] = ran.get(k, 0)
+                    ms, _ = cuda_ms(lambda: decompress_file_sharded(
+                        files["device-commit"], back, workers, algorithm=alg,
+                        device=dev))
+                    report(f"  file decode rate, mode {mode}, workers "
+                           f"{workers}: {len(data) / ms / 1e3:.2f} MB/s "
+                           f"({ms:.1f} ms) [{card}]")
+                ms, _ = cuda_ms(lambda: decompress_sharded_device(
+                    blobs["extended"], algorithm=alg, device=dev))
+                report(f"  decompress_sharded_device, mode {mode}, the same "
+                       f"call: {len(data) / ms / 1e3:.2f} MB/s ({ms:.1f} ms) "
+                       f"[{card}]")
+            finally:
+                del os.environ["TAMP_TPU_DECODE"]
+        off = bytearray(blobs["extended"])
+        struct.pack_into("<Q", off, 10, raw_size + 1)
+        v1_shard = _parse_frame(blobs["v1"])[2][5]
+        mixed = _pack_frame(pieces[:5] + [v1_shard] + pieces[6:], raw_size,
+                            shard_size)
+        for name, blob in (("a raw size off by one", bytes(off)),
+                           ("a v1 shard in the second batch", mixed)):
+            bad = tmp / "bad.ttpu"
+            bad.write_bytes(blob)
+            try:
+                decompress_file_sharded(bad, back, 2, device=dev)
+            except ValueError as e:
+                report(f"  file decode of {name}: ValueError ({e})")
+            else:
+                fail(f"file decode of {name} did not raise")
+    report(f"phase 3: file decodes done ({time.perf_counter() - t0:.1f} s)")
+
+    fn, args = entry()
+    got, ran = counted(lambda: fn(*args))
+    if ran != {"v1_tables": 2}:
+        fail(f"entry(): launches {ran}, not B5 twice")
+    kw = dict(window_bits=ENTRY_WINDOW)
+    l15, i15, pl, pi = v1_tables_plain(*args, cap=15, probe=True, **kw)
+    l16, i16 = v1_tables_plain(*args, cap=16, **kw)
+    err = max_abs_err(zip(got, (t[0, :ENTRY_T]
+                                for t in (l15, i15, l16, i16, pl, pi))))
+    if err:
+        fail(f"entry(): tables differ from B5's plain version by {err}")
+    ms, _ = cuda_ms(lambda: fn(*args))
+    extra.setdefault("v1_tables", {})["entry_launches"] = ran.get(
+        "v1_tables", 0)
+    report(f"  entry(): six tables equal to B5's plain version, launches "
+           f"{ran}; fn {ms:.4f} ms [{card}]")
+
+    n_dev = torch.cuda.device_count()
+    t = time.perf_counter()
+    _, ran = counted(lambda: dryrun_multichip(n_dev))
+    secs = time.perf_counter() - t
+    missing = [k for k in DRYRUN_KERNELS if not ran.get(k)]
+    if missing:
+        fail(f"dryrun_multichip: kernels {missing} were not launched")
+    for k, n in ran.items():
+        extra.setdefault(k, {})["dryrun_launches"] = n
+    report(f"  dryrun_multichip({n_dev}): ran to its end in {secs:.2f} s; "
+           f"launches {ran} [{card}]")
+    return extra
+
+
 def dist_child(rank: int, addr: str, out_dir: str) -> int:
     """Rank ``rank`` of ``phase_distributed``'s two-process world: join
     over ``addr``, time ``compress_distributed`` for each engine of
@@ -3199,6 +3374,10 @@ def main() -> int:
     mesh_launches = phase_mesh(dev, report, data, blobs, card)
     phase_distributed(dev, report, data, blobs, card)
     report(f"phase 3: mesh layer done ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    new_launches = phase_file_entry(dev, report, data, blobs, card)
+    report(f"phase 3: file decode and entry points done "
+           f"({time.perf_counter() - t1:.1f} s)")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -3206,6 +3385,13 @@ def main() -> int:
                                  dec_launches, mesh_launches,
                                  DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
+    # the file decode's, entry()'s and the dry run's launches join the row
+    # of their kernel (B5's first row for v1_tables)
+    rows = {}
+    for k in kernels:
+        rows.setdefault(k["name"].split()[0], k)
+    for wrapper, keys in new_launches.items():
+        rows[wrapper].update(keys)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

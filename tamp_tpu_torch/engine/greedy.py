@@ -143,8 +143,8 @@ def greedy_compress(data, *, window: int = 10, literal: int = 8,
 
 def table_compress(data, *, window: int = 10, literal: int = 8,
                    lazy_matching: bool = False, dictionary=None, tables=None,
-                   khat=None, plan=None,
-                   avoid_divergence: bool = False) -> bytes:
+                   khat=None, plan=None, avoid_divergence: bool = False,
+                   force_planned: bool = False) -> bytes:
     """One extended-format Tamp stream of ``data``, header included, from
     per-position match tables in table mode: the JAX package's
     ``_native.native_compress(..., extended=True)`` with ``tables`` as
@@ -155,8 +155,10 @@ def table_compress(data, *, window: int = 10, literal: int = 8,
     fidx, plen, pidx)``, uint8 lengths and int32 ring slots, per input
     position.  ``khat`` (n + 1 model write counts) and ``plan`` ((k, 2)
     (rle_start, end) pairs; an empty plan is no plan) select the planned
-    mode; ``avoid_divergence`` splits extended matches at the ring end.
-    Raises ExcessBitsError for a byte wider than ``literal`` bits."""
+    mode; ``force_planned`` selects it without runs too (the native
+    committer's ``force_planned``, which needs ``khat``);
+    ``avoid_divergence`` splits extended matches at the ring end.  Raises
+    ExcessBitsError for a byte wider than ``literal`` bits."""
     compute_min_pattern_size(window, literal)  # validates the config
     arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
     n = arr.shape[0]
@@ -169,19 +171,23 @@ def table_compress(data, *, window: int = 10, literal: int = 8,
         if kh.shape != (n + 1,) or kh[0] or (np.diff(kh) > 1).any():
             raise ValueError("khat must hold n + 1 write counts, from 0 in "
                              "steps of 0 or 1")
-    if plan is not None and len(plan) > 0:
-        if kh is None:
-            raise ValueError("a run plan requires the khat mapping")
+    has_plan = plan is not None and len(plan) > 0
+    if (has_plan or force_planned) and kh is None:
+        raise ValueError("a run plan requires the khat mapping")
+    n_plan = 0
+    if has_plan:
         pl = np.ascontiguousarray(plan, np.int64).reshape(-1)
         if pl.shape[0] % 2 or pl.min() < 0 or pl.max() > n or (
                 np.diff(pl) < 0).any():
             raise ValueError("plan must hold sorted (rle_start, end) pairs "
                              "inside the input")
+        n_plan = pl.shape[0] // 2
+    elif force_planned:
+        pl = np.zeros(2, np.int64)  # a plan pointer holding no pairs
     return _compress("tpt_table_compress", arr, literal,
                      *(_ptr(p) for p in planes), _ptr(dict_arr), window,
                      literal, int(lazy_matching), int(dictionary is not None),
-                     int(avoid_divergence), 0, _ptr(kh), _ptr(pl),
-                     0 if pl is None else pl.shape[0] // 2)
+                     int(avoid_divergence), 0, _ptr(kh), _ptr(pl), n_plan)
 
 
 def host_v1_tables(data, *, window: int, literal: int, cap: int,

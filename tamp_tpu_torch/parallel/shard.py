@@ -29,7 +29,8 @@ import struct
 
 __all__ = ["make_mesh", "sharded_search_step", "sharded_decode_step",
            "compress_sharded", "compress_file_sharded",
-           "decompress_sharded_device", "DEFAULT_SHARD_SIZE"]
+           "decompress_sharded_device", "decompress_file_sharded",
+           "DEFAULT_SHARD_SIZE"]
 
 MAGIC = b"TTPU"
 DEFAULT_SHARD_SIZE = 1 << 20
@@ -44,26 +45,67 @@ def _pack_frame(blobs, raw_size: int, shard_size: int) -> bytes:
     return head + sizes + b"".join(blobs)
 
 
-def _parse_frame(blob):
-    """-> (raw_size, shard_size | None, pieces).  Reads v1 (no shard_size)
-    and v2 frames."""
-    if blob[:4] != MAGIC:
+def _read_exact(read, k: int) -> bytes:
+    """``k`` bytes from ``read`` (a binary file's ``read``), ValueError on a
+    short read: a truncated frame or shard is refused, never decoded."""
+    b = read(k)
+    if len(b) != k:
+        raise ValueError("truncated TTPU container")
+    return b
+
+
+def _read_head(read):
+    """(raw_size, shard_size | None, sizes) of the frame whose bytes
+    ``read(k)`` returns in order, the shard bytes left unread.  Reads v1
+    (no shard_size) and v2 frames."""
+    head = read(18)
+    if head[:4] != MAGIC:
         raise ValueError("not a TTPU container")
-    ver, _res, n, raw_size = struct.unpack_from("<BBIQ", blob, 4)
-    off = 4 + 14
+    if len(head) != 18:
+        raise ValueError("truncated TTPU container")
+    ver, _res, n, raw_size = struct.unpack_from("<BBIQ", head, 4)
     shard_size = None
     if ver == 2:
-        (shard_size,) = struct.unpack_from("<Q", blob, off)
-        off += 8
+        (shard_size,) = struct.unpack("<Q", _read_exact(read, 8))
     elif ver != 1:
         raise ValueError(f"unsupported TTPU version {ver}")
-    sizes = struct.unpack_from(f"<{n}I", blob, off)
-    off += 4 * n
-    pieces = []
-    for sz in sizes:
-        pieces.append(blob[off : off + sz])
-        off += sz
-    return raw_size, shard_size, pieces
+    return raw_size, shard_size, struct.unpack(f"<{n}I",
+                                               _read_exact(read, 4 * n))
+
+
+def _parse_frame(blob):
+    """-> (raw_size, shard_size | None, pieces).  Reads v1 (no shard_size)
+    and v2 frames; a truncated one raises ValueError."""
+    at = 0
+
+    def read(k: int):
+        nonlocal at
+        at += k
+        return blob[at - k : at]
+
+    raw_size, shard_size, sizes = _read_head(read)
+    return raw_size, shard_size, [_read_exact(read, sz) for sz in sizes]
+
+
+def _max_out(frame_shard_size, shard_size):
+    """The per-shard output bound of a decode: the caller's ``shard_size``,
+    else the v2 frame's, else (a v1 frame) DEFAULT_SHARD_SIZE."""
+    if shard_size is None:
+        shard_size = frame_shard_size
+    return DEFAULT_SHARD_SIZE if shard_size is None else shard_size
+
+
+def _decoder(algorithm: str):
+    """The batch decoder of ``algorithm`` (see
+    :func:`decompress_sharded_device`): ``decode(pieces, *, max_out,
+    dictionary, device) -> list[bytes]``."""
+    if algorithm == "wavefront":
+        from ..ops.decode_wavefront import decode_shards_wavefront as decode
+    elif algorithm == "serial":
+        from ..ops.decode_serial import decode_shards_device as decode
+    else:
+        raise ValueError(f"unknown device decode algorithm: {algorithm!r}")
+    return decode
 
 
 def _encoder(engine: str, extended: bool, workers: int | None):
@@ -265,24 +307,80 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
     comes from the v2 frame; pass it explicitly only for v1 containers.
     ``dictionary`` must match the encode side's."""
     raw_size, frame_shard_size, pieces = _parse_frame(blob)
-    if shard_size is None:
-        shard_size = frame_shard_size
-    if shard_size is None:
-        shard_size = DEFAULT_SHARD_SIZE  # v1 frame without a caller bound
-    if algorithm == "wavefront":
-        from ..ops.decode_wavefront import decode_shards_wavefront as decode
-    elif algorithm == "serial":
-        from ..ops.decode_serial import decode_shards_device as decode
-    else:
-        raise ValueError(f"unknown device decode algorithm: {algorithm!r}")
-    outs = decode(pieces, max_out=shard_size, dictionary=dictionary,
-                  device=device)
+    decode = _decoder(algorithm)
+    outs = decode(pieces, max_out=_max_out(frame_shard_size, shard_size),
+                  dictionary=dictionary, device=device)
     out = bytearray()
     for d in outs:
         out += d
     if len(out) != raw_size:
         raise ValueError("container raw-size mismatch")
     return out
+
+
+def decompress_file_sharded(src, dst, workers: int | None = None,
+                            dictionary: bytes | None = None, *,
+                            shard_size: int | None = None,
+                            algorithm: str = "wavefront",
+                            device=None) -> int:
+    """Bounded-memory TTPU decompression of a file on the card (the JAX
+    package's ``decompress_file_sharded``, which decodes on host threads).
+
+    Reads the frame header, then the shards in batches of at most
+    ``2 * workers`` (default ``workers``: the CPU count, as in the JAX
+    package), decodes each batch with one call of ``algorithm``'s decoder
+    as :func:`decompress_sharded_device` does (``"wavefront"``: the mode of
+    ``TAMP_TPU_DECODE``, kernel B4 by default; ``"serial"``: kernel X2),
+    and writes its outputs to ``dst`` in order before the next batch is
+    read.  ``src`` and ``dst`` are paths or binary files; ``src`` is read
+    front to back, so it need not be seekable.  ``shard_size`` bounds each
+    shard's output as in :func:`decompress_sharded_device` (from a v2
+    frame; pass it for a v1 one).  Every shard must carry the first
+    shard's header byte.  Raises ValueError for a bad magic, an unknown
+    version, a truncated frame or shard, a header change and a written
+    total other than the frame's raw size.  Returns the bytes written.
+
+    Memory: on the host one batch's compressed and decoded bytes,
+    ~2·workers·(shard_size + its stream); on the card the wavefront's ~100
+    B a payload bit of one ``payload_groups`` group (at most
+    ``GROUP_PAYLOAD_BYTES`` payload bytes, or one longer payload) beside
+    the batch's (S, max_out) output, or for ``"serial"`` the batch's
+    payloads and its (S, max_out) output."""
+    from ..device import resolve_device
+
+    decode = _decoder(algorithm)
+    dev = resolve_device(device)
+    if workers is None:
+        workers = os.cpu_count() or 4
+    close_src = close_dst = False
+    if not hasattr(src, "read"):
+        src, close_src = open(str(src), "rb"), True
+    try:
+        if not hasattr(dst, "write"):
+            dst, close_dst = open(str(dst), "wb"), True
+        raw_size, frame_shard_size, sizes = _read_head(src.read)
+        max_out = _max_out(frame_shard_size, shard_size)
+        head = None
+        written = 0
+        for first in range(0, len(sizes), 2 * workers):
+            pieces = [_read_exact(src.read, sz)
+                      for sz in sizes[first : first + 2 * workers]]
+            if head is None:
+                head = pieces[0][:1]
+            if any(p[:1] != head for p in pieces):
+                raise ValueError("shards must share one header configuration")
+            for d in decode(pieces, max_out=max_out, dictionary=dictionary,
+                            device=dev):
+                written += len(d)
+                dst.write(d)
+        if written != raw_size:
+            raise ValueError("container raw-size mismatch")
+        return written
+    finally:
+        if close_src:
+            src.close()
+        if close_dst:
+            dst.close()
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "dp", *,

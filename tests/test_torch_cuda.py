@@ -1324,3 +1324,61 @@ def test_mesh_steps_launch_b5_b4_and_x1(cuda, mesh1, monkeypatch):
     oob.put(1020, 10)
     with pytest.raises(ValueError):
         sharded_decode_step(mesh1, pieces[:3] + [oob.bytes()], max_out=4096)
+
+
+def test_entry_launches_b5_twice_equal_to_plain(cuda):
+    """The port's ``entry()``: its six tables on the card equal B5's plain
+    version there (cap 15 with the probe, cap 16), from two B5 launches."""
+    from tamp_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    v1_tables.launches = 0
+    got = fn(*args)
+    assert v1_tables.launches == 2
+    l15, i15, pl, pi = v1_tables_plain(*args, window_bits=10, cap=15,
+                                       probe=True)
+    l16, i16 = v1_tables_plain(*args, window_bits=10, cap=16)
+    for g, w in zip(got, (l15, i15, l16, i16, pl, pi)):
+        assert torch.equal(g, w[0, :256])
+
+
+@pytest.mark.parametrize("workers", [None, 2])
+def test_file_decode_launches_a_kernel_a_batch(cuda, monkeypatch, workers):
+    """``decompress_file_sharded`` of 8 shards: one batch by default, two
+    of 4 at ``workers=2``; B4 launches once a batch in mode commit, X2
+    once a batch by the serial algorithm, B8 in mode chase; the input
+    comes back."""
+    import io
+
+    from tamp_tpu_torch.parallel.shard import decompress_file_sharded
+
+    raw = _text(8 * 4096, 41)[: 8 * 4096 - 100]
+    blob = compress_sharded(raw, shard_size=4096)
+    batches = 1 if workers is None and 2 * (os.cpu_count() or 4) >= 8 \
+        else -(-8 // (2 * (workers or os.cpu_count() or 4)))
+    for algorithm, mode, kernel in (
+            ("wavefront", "commit", dc.commit_decode),
+            ("wavefront", "chase", token_table_chase),
+            ("serial", "commit", dser.serial_decode)):
+        monkeypatch.setenv("TAMP_TPU_DECODE", mode)
+        kernel.launches = 0
+        out = io.BytesIO()
+        n = decompress_file_sharded(io.BytesIO(blob), out, workers,
+                                    algorithm=algorithm)
+        assert out.getvalue() == raw and n == len(raw)
+        assert kernel.launches == batches, (algorithm, mode)
+
+
+def test_dryrun_multichip_on_one_card(cuda):
+    """``dryrun_multichip(1)`` runs to its end in a world of one process,
+    launching B5 (the search step and the encode legs) and B4 (the decode
+    step), and destroys its world."""
+    import torch.distributed as tdist
+
+    from tamp_tpu_torch.entry import dryrun_multichip
+
+    v1_tables.launches = dc.commit_decode.launches = 0
+    dryrun_multichip(1)
+    assert not tdist.is_initialized()
+    assert v1_tables.launches >= 1 and dc.commit_decode.launches >= 1

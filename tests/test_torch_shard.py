@@ -134,7 +134,7 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "tamp_tpu"), (f, name)
     code = ("import sys, tamp_tpu_torch, tamp_tpu_torch.parallel.shard, "
-            "tamp_tpu_torch.parallel.distributed, "
+            "tamp_tpu_torch.parallel.distributed, tamp_tpu_torch.entry, "
             "tamp_tpu_torch.engine.pipeline_ext, "
             "tamp_tpu_torch.engine.pipeline, "
             "tamp_tpu_torch.engine.greedy, "
