@@ -121,7 +121,22 @@ Phases (any failure raises, and the script exits non-zero):
    shard in the second batch refused; ``entry()``'s six tables equal to
    B5's plain version from two B5 launches, and its ms; and
    ``dryrun_multichip`` over every card (a world of one), its seconds and
-   launches;
+   launches; then the front door: ``tamp_tpu_torch.compress`` and
+   ``decompress`` of the corpus as one stream for extended, extended
+   lazy, v1, v1 lazy, optimal and optimal v1, each route's kernels
+   launched, its stream decoded back by one X2 launch, median MB/s of
+   three calls and peak device memory beside the 8 x 1 MiB rates of the
+   same encode; every route's stream equal to the one its route gives
+   with the plain versions in place of the kernels, on the card, and the
+   extended streams to the table-less committer's; one byte past the
+   stream limit refused; an RLE stream of
+   ~92x decoded whole by three X2 launches; the CLI in process on
+   temporary files and stdin/stdout (compress and decompress of a raw
+   stream, ``--sharded`` both ways, ``--optimal`` with and without it,
+   ``-d`` with a 100-byte dictionary, container decodes), each output
+   equal to the API's, with seconds and launches; ``build-dictionary
+   --auto-trim`` on 2000 seeded records, B5 and B7 once a threshold, its
+   seconds;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
@@ -139,8 +154,9 @@ Phases (any failure raises, and the script exits non-zero):
    call (the call zero-fills the (S, T_max) output) and in ns a truncating
    token, and the X1, X2, X3 and X4 rows print their first ports' times
    (FIRST_PORT_MS) beside; the rows of the kernels that phase 3's file
-   decodes, ``entry()`` and the dry run launched carry those counts too
-   (``file_launches``, ``entry_launches``, ``dryrun_launches``).
+   decodes, ``entry()``, the dry run, the one-shots and the CLI launched
+   carry those counts too (``file_launches``, ``entry_launches``,
+   ``dryrun_launches``, ``api_launches``, ``cli_launches``).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -148,6 +164,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -223,6 +240,22 @@ FILE_DECODES = (
 DRYRUN_KERNELS = ("v1_tables", "ext_tables", "commit_fields",
                   "greedy_predict_batch", "opt_v1_choice", "opt_ext_choice",
                   "commit_decode", "serial_decode")
+# phase 3's one-shots (tamp_tpu_torch.compress, the corpus as one stream):
+# route, options, the kernels (wrapper names) its compress must launch, and
+# the round trip of phase 3 that runs the same encode in 1 MiB shards
+ONE_SHOTS = (
+    ("extended", {}, ("v1_tables", "greedy_predict_batch"), "greedy"),
+    ("extended lazy", {"lazy_matching": True},
+     ("v1_tables", "greedy_predict_batch"), "greedy lazy"),
+    ("v1", {"extended": False}, ("v1_tables", "commit_fields"), "v1"),
+    ("v1 lazy", {"extended": False, "lazy_matching": True},
+     ("v1_tables", "commit_v1_lazy"), "v1 lazy"),
+    ("optimal", {"parse": "optimal"}, ("opt_ext_choice",), "optimal"),
+    ("optimal v1", {"parse": "optimal", "extended": False},
+     ("v1_tables", "opt_v1_choice", "commit_fields"), "optimal v1"),
+)
+ONE_SHOT_REPS = 3       # timed calls of each one-shot (the median is kept)
+DICT_SAMPLES = 2000    # records of build-dictionary's seeded corpus
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -1868,10 +1901,11 @@ def counters():
 
 
 def phase_main_path(dev, report, data, shard_size: int, card: str,
-                    name: str, kw: dict, kernels):
+                    name: str, kw: dict, kernels, rates=None):
     """Phase 3: one round trip at full size, which must launch each of
     ``kernels``; returns (blob, launches, ratio) with the launch counts of
-    that one round trip."""
+    that one round trip, and puts its encode and decode MB/s into
+    ``rates[name]`` where ``rates`` is given."""
     import torch
 
     from tamp_tpu_torch.parallel.shard import (
@@ -1902,6 +1936,8 @@ def phase_main_path(dev, report, data, shard_size: int, card: str,
         fail(f"{name}: the encode is not deterministic")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if dev.type == "cuda" else 0.0)
+    if rates is not None:
+        rates[name] = (len(data) / enc_ms / 1e3, len(data) / dec_ms / 1e3)
     report(f"  {name}: encode {len(data) / enc_ms / 1e3:.2f} MB/s "
            f"({enc_ms:.1f} ms), decode {len(data) / dec_ms / 1e3:.2f} MB/s "
            f"({dec_ms:.1f} ms), ratio {ratio:.6f}, peak device memory "
@@ -2319,6 +2355,308 @@ def phase_file_entry(dev, report, data, blobs, card: str):
     return extra
 
 
+def dict_corpus(n: int, seed: int = 0x5EED) -> list[bytes]:
+    """Seeded JSON-like sensor records (~115 bytes each): a few keys in
+    random subsets and order, random readings and node ids."""
+    import random
+
+    rng = random.Random(seed)
+    keys = (b"temperature", b"humidity", b"pressure", b"battery",
+            b"firmware", b"timestamp", b"uptime", b"rssi")
+    out = []
+    for _ in range(n):
+        parts = [b'{"device_id": "node-%d", ' % rng.randrange(500)]
+        for k in rng.sample(keys, rng.randint(2, 6)):
+            parts.append(b'"%s": %d.%d, ' % (k, rng.randrange(100),
+                                             rng.randrange(10)))
+        parts.append(b'"status": "%s"}' % rng.choice((b"ok", b"warn",
+                                                       b"fail")))
+        out.append(b"".join(parts))
+    return out
+
+
+def median_ms(dev, fn, reps: int = ONE_SHOT_REPS):
+    """(median ms, peak device GiB, last result) of ``reps`` calls of
+    ``fn``: CUDA events around each and the allocator's peak on the card
+    over all of them, the host clock (and 0) elsewhere."""
+    import torch
+
+    times = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        if dev.type != "cuda":
+            t = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+            continue
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else 0.0)
+    return statistics.median(times), peak, out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """A context in which every kernel wrapper of the port that the
+    one-shots reach is replaced, in each module of the package that holds
+    it, by its plain version, which runs on the same tensors (tensor ops on
+    the card; B3's, B6's and B7's walks on host copies): a route run inside
+    launches no kernel and counts nothing."""
+    from tamp_tpu_torch.ops.encode_commit import (
+        commit_fields_plain, commit_v1_lazy_plain,
+    )
+    from tamp_tpu_torch.ops.greedy_predict import greedy_predict_plain
+    from tamp_tpu_torch.ops.match_v1 import v1_tables_plain
+    from tamp_tpu_torch.ops.opt_parse import opt_v1_choice_plain
+    from tamp_tpu_torch.ops.opt_parse_ext import opt_ext_choice_plain
+
+    plains = {"v1_tables": v1_tables_plain,
+              "greedy_predict_batch": greedy_predict_plain,
+              "commit_fields": commit_fields_plain,
+              "commit_v1_lazy": commit_v1_lazy_plain,
+              "opt_v1_choice": opt_v1_choice_plain,
+              "opt_ext_choice": opt_ext_choice_plain}
+    fns = counters()
+    saved = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("tamp_tpu_torch"):
+            continue
+        for name, plain in plains.items():
+            if getattr(mod, name, None) is fns[name]:
+                saved.append((mod, name))
+                setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name in saved:
+            setattr(mod, name, fns[name])
+
+
+def phase_front_door(dev, report, data, blobs, rates, card: str):
+    """Phase 3, the package's front door on the card.
+
+    The one-shots (``tamp_tpu_torch.compress`` / ``decompress``) of the
+    corpus as one stream for each route of ONE_SHOTS: each route's kernels
+    launched, the stream decoded back by one X2 launch, ONE_SHOT_REPS more
+    compresses and decompresses timed (median MB/s and peak device memory)
+    beside phase 3's 8 x 1 MiB rates of the same encode; each route's
+    stream equal to the one its route gives with every kernel replaced by
+    its plain version (:func:`plain_kernels`) on the same input, and the
+    extended streams also to the table-less host committer's; one byte
+    past ``MAX_STREAM_BYTES`` refused with ValueError; an RLE stream of
+    ~92x expansion decoded whole by three X2 launches (the output room
+    grown twice).  The CLI in process (``cli.main.main``) on temporary
+    files and on stdin/stdout: compress and decompress of a raw stream,
+    ``--sharded`` both ways (extended and v1), ``--optimal`` with and
+    without ``--sharded``, ``-d`` with a 100-byte dictionary, the decode of
+    containers and raw streams, each output equal to the API's or phase
+    3's containers, with its seconds and launches.  ``build-dictionary
+    --auto-trim`` on DICT_SAMPLES seeded records: B5 and B7 once a
+    threshold, the dictionary smaller on the corpus than the default one,
+    its totals on a few records equal to the plain versions'; its seconds.
+    Returns the launch counts by wrapper name (``api_launches``,
+    ``cli_launches``)."""
+    import io
+    import tempfile
+
+    import tamp_tpu_torch as tt
+    from tamp_tpu_torch.cli.main import main as cli
+    from tamp_tpu_torch.dictbuild import evaluate_dictionary_tradeoff
+    from tamp_tpu_torch.engine.greedy import greedy_compress
+
+    fns = counters()
+    extra: dict[str, dict] = {}
+
+    def counted(fn):
+        for f in fns.values():
+            f.launches = 0
+        out = fn()
+        return out, {k: f.launches for k, f in fns.items() if f.launches}
+
+    def note(key: str, leg: str, ran: dict):
+        for k, n in ran.items():
+            extra.setdefault(k, {}).setdefault(key, {})[leg] = n
+
+    t0 = time.perf_counter()
+    streams = {}
+    for route, kw, kernels, path in ONE_SHOTS:
+        blob, ran = counted(lambda: tt.compress(data, device=dev, **kw))
+        missing = [k for k in kernels if not ran.get(k)]
+        if missing:
+            fail(f"one-shot {route}: kernels {missing} were not launched "
+                 f"({ran})")
+        back, dran = counted(lambda: tt.decompress(blob, device=dev))
+        if back != data:
+            fail(f"one-shot {route}: the decode differs")
+        if dran != {"serial_decode": 1}:
+            fail(f"one-shot {route}: the decode launched {dran}, not X2 "
+                 "once")
+        enc_ms, enc_peak, again = median_ms(
+            dev, lambda: tt.compress(data, device=dev, **kw))
+        if again != blob:
+            fail(f"one-shot {route}: the encode is not deterministic")
+        dec_ms, dec_peak, _ = median_ms(
+            dev, lambda: tt.decompress(blob, device=dev))
+        note("api_launches", f"{route} compress", ran)
+        note("api_launches", f"{route} decompress", dran)
+        streams[route] = blob
+        enc_s, dec_s = rates[path]
+        report(f"  one-shot {route}: {len(data)} bytes as one stream, "
+               f"ratio {len(blob) / len(data):.6f}; compress "
+               f"{len(data) / enc_ms / 1e3:.2f} MB/s ({enc_ms:.1f} ms, median "
+               f"of {ONE_SHOT_REPS}, peak device memory {enc_peak:.3f} GiB), "
+               f"decompress (X2, one CTA) {len(data) / dec_ms / 1e3:.2f} MB/s "
+               f"({dec_ms:.1f} ms, median of {ONE_SHOT_REPS}, peak "
+               f"{dec_peak:.3f} GiB); the same encode in 8 x 1 MiB shards "
+               f"({path}): compress {enc_s:.2f} MB/s, decompress (B4) "
+               f"{dec_s:.2f} MB/s; launches {ran}, {dran} [{card}]")
+    for route, lazy in (("extended", False), ("extended lazy", True)):
+        if streams[route] != greedy_compress(data, lazy_matching=lazy):
+            fail(f"one-shot {route}: the stream differs from the "
+                 "table-less committer's")
+    report("  one-shots extended and extended lazy: streams equal to the "
+           "table-less committer's")
+    t = time.perf_counter()
+    with plain_kernels():
+        for route, kw, _kernels, _path in ONE_SHOTS:
+            plain, ran = counted(lambda: tt.compress(data, device=dev, **kw))
+            if ran:
+                fail(f"one-shot {route}: the plain route launched {ran}")
+            if plain != streams[route]:
+                fail(f"one-shot {route}: the card's stream of {len(data)} "
+                     "bytes differs from the plain versions'")
+    report(f"  one-shots: every route's stream of {len(data)} bytes equal "
+           "to the one of its route with the plain versions in place of "
+           f"the kernels, on the card ({time.perf_counter() - t:.1f} s)")
+    try:
+        tt.compress(bytes(tt.MAX_STREAM_BYTES + 1), device=dev)
+    except ValueError as e:
+        report(f"  one-shot of MAX_STREAM_BYTES + 1 bytes: ValueError ({e})")
+    else:
+        fail("one-shot: MAX_STREAM_BYTES + 1 bytes did not raise")
+    runs = bytes([7]) * len(data)
+    blob = tt.compress(runs, device=dev)
+    back, dran = counted(lambda: tt.decompress(blob, device=dev))
+    if back != runs or dran != {"serial_decode": 3}:
+        fail(f"RLE stream: decoded equal {back == runs}, launches {dran} "
+             "(X2 three times: the room grown twice)")
+    note("api_launches", "RLE stream decompress", dran)
+    report(f"  one-shot decode of an RLE stream, {len(blob)} bytes to "
+           f"{len(runs)} ({len(runs) / len(blob):.1f}x): whole, launches "
+           f"{dran} [{card}]")
+    report(f"phase 3: one-shots done ({time.perf_counter() - t0:.1f} s)")
+
+    dflag = [] if dev.type == "cuda" else ["--device", "cpu"]
+
+    def run(argv, stdin: bytes = b""):
+        """main(argv) with ``stdin`` as its standard input; its standard
+        output's bytes."""
+        saved = sys.stdin, sys.stdout
+        out = io.BytesIO()
+        sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
+        sys.stdout = io.TextIOWrapper(out)
+        try:
+            rc = cli([str(a) for a in argv] + dflag)
+            got = out.getvalue()
+        finally:
+            sys.stdin, sys.stdout = saved
+        if rc != 0:
+            fail(f"cli {argv}: exit code {rc}")
+        return got
+
+    t0 = time.perf_counter()
+    piece = data[: 1 << 20]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, back = tmp / "corpus", tmp / "back"
+        src.write_bytes(data)
+        short = tmp / "short.dict"
+        short.write_bytes(data[-100:])
+        custom = tt.initialize_dictionary(1024)
+        custom[-100:] = data[-100:]
+        with_dict = tt.compress(piece, dictionary=custom, device=dev)
+        outs = {n: tmp / f"{n}.out" for n in ("raw", "v1", "opt", "opt1")}
+        legs = (
+            ("compress, file to file",
+             ["compress", src, "-o", outs["raw"]], b"",
+             lambda r: outs["raw"].read_bytes() == streams["extended"]),
+            ("decompress a raw stream, file to file",
+             ["decompress", outs["raw"], "-o", back], b"",
+             lambda r: back.read_bytes() == data),
+            ("compress --sharded, stdin to stdout",
+             ["compress", "--sharded"], data,
+             lambda r: r == blobs["greedy"]),
+            ("decompress a container, stdin to stdout", ["decompress"],
+             blobs["greedy"], lambda r: r == data),
+            ("compress --sharded --no-extended, file to file",
+             ["compress", src, "-o", outs["v1"], "--sharded",
+              "--no-extended"], b"",
+             lambda r: outs["v1"].read_bytes() == blobs["v1"]),
+            ("decompress a container, file to file",
+             ["decompress", outs["v1"], "-o", back], b"",
+             lambda r: back.read_bytes() == data),
+            ("compress --optimal --sharded, file to file",
+             ["compress", src, "-o", outs["opt"], "--optimal", "--sharded"],
+             b"", lambda r: outs["opt"].read_bytes() == blobs["optimal"]),
+            ("compress --optimal, file to file",
+             ["compress", src, "-o", outs["opt1"], "--optimal"], b"",
+             lambda r: outs["opt1"].read_bytes() == streams["optimal"]),
+            ("compress -d (100 bytes), 1 MiB piece, stdin to stdout",
+             ["compress", "-d", short], piece, lambda r: r == with_dict),
+            ("decompress -d, stdin to stdout", ["decompress", "-d", short],
+             with_dict, lambda r: r == piece),
+        )
+        for leg, argv, stdin, check in legs:
+            t = time.perf_counter()
+            got, ran = counted(lambda: run(argv, stdin))
+            secs = time.perf_counter() - t
+            if not check(got):
+                fail(f"cli, {leg}: the output differs from the API's")
+            note("cli_launches", leg, ran)
+            report(f"  cli, {leg}: equal to the API's in {secs:.2f} s; "
+                   f"launches {ran} [{card}]")
+        report(f"phase 3: the CLI done ({time.perf_counter() - t0:.1f} s)")
+
+        samples = dict_corpus(DICT_SAMPLES)
+        corpus_f, dict_f = tmp / "records", tmp / "records.dict"
+        corpus_f.write_bytes(b"\n".join(samples))
+        t = time.perf_counter()
+        _, ran = counted(lambda: run(
+            ["build-dictionary", corpus_f, "--delimiter", "\n", "-o",
+             dict_f, "--auto-trim"]))
+        secs = time.perf_counter() - t
+        thresholds = 6  # dictbuild.find_best_trim_threshold's sweep
+        if ran.get("v1_tables") != thresholds or \
+                ran.get("greedy_predict_batch") != thresholds:
+            fail(f"build-dictionary: launches {ran}, not B5 and B7 once a "
+                 f"threshold ({thresholds})")
+        note("cli_launches", "build-dictionary --auto-trim", ran)
+        built = dict_f.read_bytes()
+        sizes = {name: evaluate_dictionary_tradeoff(samples, d, device=dev)
+                 for name, d in (("built", built), ("default", bytes(
+                     tt.initialize_dictionary(1024))))}
+        if len(built) != 1024 or not sizes["built"] < sizes["default"]:
+            fail(f"build-dictionary: {len(built)} bytes, corpus totals "
+                 f"{sizes}")
+        few = samples[:64]
+        if evaluate_dictionary_tradeoff(few, built, device=dev) != \
+                evaluate_dictionary_tradeoff(few, built, device="cpu"):
+            fail("build-dictionary: the card's totals differ from the plain "
+                 "versions'")
+        report(f"  cli, build-dictionary --auto-trim of {len(samples)} "
+               f"records ({len(b''.join(samples))} bytes): {secs:.2f} s, "
+               f"launches {ran}; the corpus in {sizes['built']} bytes with "
+               f"it, {sizes['default']} with the default [{card}]")
+    return extra
+
+
 def dist_child(rank: int, addr: str, out_dir: str) -> int:
     """Rank ``rank`` of ``phase_distributed``'s two-process world: join
     over ``addr``, time ``compress_distributed`` for each engine of
@@ -2532,7 +2870,7 @@ def phase_optimal(dev, report, data, blobs, ratios, shard_size: int,
     from tamp_tpu_torch.ops.encode_commit import commit_fields
     from tamp_tpu_torch.ops.encode_fused import v1_cap
     from tamp_tpu_torch.ops.match_v1 import v1_tables
-    from tamp_tpu_torch.ops.opt_parse import INF, opt_v1_choice
+    from tamp_tpu_torch.ops.opt_parse import opt_v1_choice
     from tamp_tpu_torch.ops.opt_parse_ext import opt_ext_choice
     from tamp_tpu_torch.parallel.shard import _pack_frame, compress_sharded
 
@@ -2572,8 +2910,8 @@ def phase_optimal(dev, report, data, blobs, ratios, shard_size: int,
         report(f"  {name} encode, sum of the stages: {total:.2f} ms [{card}]")
 
     def v1_d2h(v):
-        out, state, cost0 = v["B3 commit_fields (to npos + 15)"]
-        if (cost0.cpu() >= INF).any():
+        out, state, bad = v["B3 commit_fields (to npos + 15)"]
+        if bad.any():
             fail("optimal v1: a shard of the corpus cannot be coded")
         st = state.cpu().numpy()
         return st, pull_body_bytes(out, st)
@@ -2596,18 +2934,17 @@ def phase_optimal(dev, report, data, blobs, ratios, shard_size: int,
         ("B3 commit_fields (to npos + 15)", lambda v: (*commit_fields(
             *v["fields"], v["host->device"][1] + 15,
             max_out=shard_size + shard_size // 8 + 64),
-            torch.where(v["X3 opt_v1_choice"][2], INF,
-                        v["X3 opt_v1_choice"][1]))),
-        ("device->host state rows, cost0 and body bytes", v1_d2h),
+            v["X3 opt_v1_choice"][2])),
+        ("device->host state rows, bad flags and body bytes", v1_d2h),
         ("frame", lambda v: _pack_frame(optimal_streams_v1(
-            v["device->host state rows, cost0 and body bytes"][1],
-            v["device->host state rows, cost0 and body bytes"][0], **kw,
+            v["device->host state rows, bad flags and body bytes"][1],
+            v["device->host state rows, bad flags and body bytes"][0], **kw,
             custom=False), len(data), shard_size)),
     ))
 
     def ext_d2h(v):
-        choice, cost0, bad = v["X4 opt_ext_choice"]
-        if bad.any() or (cost0 >= INF).any():
+        choice, _cost0, bad = v["X4 opt_ext_choice"]
+        if bad.any():
             fail("optimal: a shard of the corpus cannot be coded")
         return choice.cpu().numpy()
 
@@ -3327,10 +3664,11 @@ def main() -> int:
     data = corpus(8 * DEFAULT_SHARD_SIZE)
     report(f"phase 3: corpus of {len(data)} bytes, zero-byte share "
            f"{data.count(0) / len(data):.4f}")
-    blobs, launches, ratios = {}, {}, {}
+    blobs, launches, ratios, rates = {}, {}, {}, {}
     for name, kw, kernels in PATHS:
         blobs[name], launches[name], ratios[name] = phase_main_path(
-            dev, report, data, DEFAULT_SHARD_SIZE, card, name, kw, kernels)
+            dev, report, data, DEFAULT_SHARD_SIZE, card, name, kw, kernels,
+            rates)
         if name == "extended":  # the main path: where its time goes
             phase_breakdown(dev, report, data, blobs[name],
                             DEFAULT_SHARD_SIZE, card)
@@ -3378,6 +3716,12 @@ def main() -> int:
     new_launches = phase_file_entry(dev, report, data, blobs, card)
     report(f"phase 3: file decode and entry points done "
            f"({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    for wrapper, keys in phase_front_door(dev, report, data, blobs, rates,
+                                          card).items():
+        for key, counts in keys.items():
+            new_launches.setdefault(wrapper, {})[key] = counts
+    report(f"phase 3: front door done ({time.perf_counter() - t1:.1f} s)")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -3385,8 +3729,8 @@ def main() -> int:
                                  dec_launches, mesh_launches,
                                  DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
-    # the file decode's, entry()'s and the dry run's launches join the row
-    # of their kernel (B5's first row for v1_tables)
+    # the file decode's, entry()'s, the dry run's and the front door's
+    # launches join the row of their kernel (B5's first row for v1_tables)
     rows = {}
     for k in kernels:
         rows.setdefault(k["name"].split()[0], k)

@@ -15,7 +15,11 @@
 //     minp + 12 ? room : minp + 11), none inside a region).
 // Every sum saturates at INF = 2^26 - 64, so no int32 sum overflows, and
 // saturation commutes with min-plus over non-negative weights: the output
-// does not depend on B, and block products associate.
+// does not depend on B, and block products associate.  The combine keeps
+// each boundary vector less its least entry (INF entries stay INF): the
+// choice and `bad` do not see the shift, so costs stay relative to a few
+// blocks and a shard of any length stays clear of INF; cost0 adds the
+// shifts back, saturated at INF.
 //
 //   pass 1   one block of K columns per (shard, block of B positions):
 //            column j is the block's first K costs as a function of entry
@@ -352,13 +356,22 @@ __device__ __forceinline__ int v1_apply(const int (&x)[8], int v, int h) {
   return min(min(y[0], __shfl_xor_sync(FULL, y[0], 16)), INF);
 }
 
+// v less its least entry over the warp (INF entries stay INF; a vector of
+// INF stays as it is), the shift added to `off`
+__device__ __forceinline__ int v1_rebase(int v, long long& off) {
+  const int m = __reduce_min_sync(FULL, v);
+  if (m >= INF) return v;
+  off += m;
+  return v >= INF ? INF : v - m;
+}
+
 // A warp's chain v <- M_t (x) v for t = 0 .. n - 1, M_t at mat(t), calling
-// put(t, v) before step t.  The matrices stream through `ring` (CH_NST
-// slots of 256 ints) with cp.async, CH_NST - 1 steps ahead, so a step
-// waits on no device-memory load.
+// put(t, v) with v rebased (its shifts summed in `off`) before step t.  The
+// matrices stream through `ring` (CH_NST slots of 256 ints) with cp.async,
+// CH_NST - 1 steps ahead, so a step waits on no device-memory load.
 template <class Mat, class Put>
-__device__ __forceinline__ int v1_chain(int n, int v, int (*ring)[256],
-                                        Mat mat, Put put) {
+__device__ __forceinline__ int v1_chain(int n, int v, long long& off,
+                                        int (*ring)[256], Mat mat, Put put) {
   const int lane = threadIdx.x & 31, i = lane & 15, h = lane >> 4;
   auto fetch = [&](int t) {
     if (t < n) {
@@ -374,6 +387,7 @@ __device__ __forceinline__ int v1_chain(int n, int v, int (*ring)[256],
     fetch(t + CH_NST - 1);
     __pipeline_wait_prior(CH_NST - 1);
     __syncwarp();
+    v = v1_rebase(v, off);
     put(t, v);
     int x[8];
     v1_row(ring[t % CH_NST], i, h, x);
@@ -392,13 +406,14 @@ v1_scan(int n_b, int n_g, const int32_t* __restrict__ T,
   int32_t* bs = bounds + (int64_t)s * n_b * 16;
   // step t: group n_g - 1 - t, its product at its first block; before it,
   // the group's incoming vector is its last block's bounds
+  long long off = 0;
   const int v = v1_chain(
-      n_g, 0, ring,
+      n_g, 0, off, ring,
       [&](int t) { return Ts + (int64_t)(n_g - 1 - t) * G * 256; },
       [&](int t, int x) {
         if (h == 0) bs[(min((n_g - t) * G, n_b) - 1) * 16 + i] = x;
       });
-  if (threadIdx.x == 0) cost0[s] = v;
+  if (threadIdx.x == 0) cost0[s] = (int)min(off + v, (long long)INF);
 }
 
 __global__ void __launch_bounds__(32 * BW)
@@ -412,12 +427,14 @@ v1_bounds(int n_b, int n_g, int n_grp, const int32_t* __restrict__ T,
   const int32_t* Ts = T + (int64_t)s * n_b * 256;
   int32_t* bs = bounds + (int64_t)s * n_b * 16;
   // step t applies block last - t, whose bounds are the vector before it
-  const int v = v1_chain(
-      last - b0, bs[last * 16 + i], ring[threadIdx.x >> 5],
+  long long off = 0;
+  int v = v1_chain(
+      last - b0, bs[last * 16 + i], off, ring[threadIdx.x >> 5],
       [&](int t) { return Ts + (int64_t)(last - t) * 256; },
       [&](int t, int x) {
         if (t > 0 && h == 0) bs[(last - t) * 16 + i] = x;
       });
+  v = v1_rebase(v, off);
   if (last > b0 && h == 0) bs[b0 * 16 + i] = v;
 }
 
@@ -622,6 +639,7 @@ combine_ext(int n_b, const int32_t* T, int32_t* bounds, int32_t* cost0) {
     if (n_b >= 2) vec_expect(&bar[0], K * 4);
   }
   cluster.sync();
+  long long off = 0;  // the shifts taken off the vectors so far
   for (int t = 0; t < n_b; t++) {
     __pipeline_wait_prior(CNST - 2);
     __syncthreads();  // block t's rows landed; block t - 1's are read
@@ -632,13 +650,25 @@ combine_ext(int n_b, const int32_t* T, int32_t* bounds, int32_t* cost0) {
     }
     const int* cur = v + (t & 1) * K;
     const int* Tb = buf + (t % CNST) * R * K;
+    // the vector's least entry, found alike by each warp that has rows
+    // (one without reads nothing: other CTAs may refill the buffer before
+    // it would): the vector is used less it (INF entries stay INF)
+    int m = 0;
+    if (warp < nr) {
+      m = INF;
+      for (int jj = lane; jj < K; jj += 32) m = min(m, cur[jj]);
+      m = __reduce_min_sync(0xFFFFFFFFu, m);
+      if (m >= INF) m = 0;
+    }
+    off += m;  // read by rank 0's thread 0 (warp 0 has rows there)
+    auto rel = [&](int jj) { return cur[jj] >= INF ? INF : cur[jj] - m; };
     for (int x = tid; x < nr; x += blockDim.x)
-      bounds[((int64_t)s * n_b + n_b - 1 - t) * K + i0 + x] = cur[i0 + x];
+      bounds[((int64_t)s * n_b + n_b - 1 - t) * K + i0 + x] = rel(i0 + x);
     const int nxt = (t + 1) & 1;
     for (int r = warp; r < nr; r += blockDim.x >> 5) {
       int nv = INF;
       for (int jj = lane; jj < K; jj += 32)
-        nv = min(nv, Tb[r * K + jj] + cur[jj]);
+        nv = min(nv, Tb[r * K + jj] + rel(jj));
       nv = __reduce_min_sync(0xFFFFFFFFu, nv);
       if (lane < CL) {  // into CTA `lane`'s next vector
         uint32_t dst = smem_u32(v + nxt * K + i0 + r), rb = smem_u32(&bar[nxt]);
@@ -656,7 +686,8 @@ combine_ext(int n_b, const int32_t* T, int32_t* bounds, int32_t* cost0) {
   }
   // the last vector: every CTA waits for it, so no store lands after exit
   vec_wait(&bar[n_b & 1], ((n_b - 1) >> 1) & 1);
-  if (rank == 0 && tid == 0) cost0[s] = v[(n_b & 1) * K];
+  if (rank == 0 && tid == 0)
+    cost0[s] = (int)min(off + v[(n_b & 1) * K], (long long)INF);
   cluster.sync();
 }
 

@@ -13,7 +13,8 @@ import numpy as np
 
 from .constants import CHARS_8BIT, CHARS_COMMON, DICTIONARY_SEED
 
-__all__ = ["dictionary_array", "character_table", "xorshift32_sequence"]
+__all__ = ["dictionary_array", "initialize_dictionary", "character_table",
+           "xorshift32_sequence"]
 
 
 def character_table(literal: int = 8) -> bytes:
@@ -59,3 +60,27 @@ def dictionary_array(size: int, literal: int = 8,
         nibbles = (words[:, None] >> shifts[None, :]) & np.uint32(0x0F)
         out[: n_words * 8] = chars[nibbles.reshape(-1)]
     return out
+
+
+def initialize_dictionary(source, seed=None, literal: int = 8) -> bytearray:
+    """Initialize a dictionary buffer, API-compatible with ``tamp``.
+
+    ``source`` may be an integer size (a fresh buffer is returned) or a
+    ``bytearray`` to fill in place.  ``seed=0`` leaves/returns the buffer
+    contents unchanged (reference behavior: tamp/__init__.py:38-39).
+    """
+    if not (5 <= literal <= 8):
+        raise ValueError("literal must be between 5 and 8")
+    if seed is None:
+        seed = DICTIONARY_SEED
+    elif seed == 0:
+        return bytearray(source)
+    if isinstance(source, (int, np.integer)):
+        size = int(source)
+        buf = bytearray(size)
+    else:
+        buf = source if isinstance(source, bytearray) else bytearray(source)
+        size = len(buf)
+    n = (size >> 3) << 3
+    buf[:n] = dictionary_array(size, literal=literal, seed=seed)[:n].tobytes()
+    return buf

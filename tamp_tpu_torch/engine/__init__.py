@@ -1,0 +1,12 @@
+"""Encode engines of the port (the JAX package's ``tamp_tpu.engine``).
+
+:func:`encode_device` is ``engine="device"``'s one-shot (extended: kernel
+B5's tables on the card and the host table committer; v1: the card's v1
+encode), :func:`encode_extended` its extended-format stream, and
+:func:`device_pipeline_available` says whether a CUDA card is visible.
+The batch encodes behind ``compress_sharded``'s engines live in
+:mod:`.pipeline` and :mod:`.pipeline_ext`.
+"""
+
+from .encode_extended import encode_extended  # noqa: F401
+from .pipeline import device_pipeline_available, encode_device  # noqa: F401

@@ -55,7 +55,7 @@ from ..ops.encode_commit import (
 from ..ops.encode_commit import commit_fields
 from ..ops.encode_fused import encode_v1_fused, v1_cap
 from ..ops.match_v1 import v1_tables
-from ..ops.opt_parse import INF, opt_v1_choice
+from ..ops.opt_parse import opt_v1_choice
 from .commit import ring_find_longest, ring_model_snapshot
 from .encode import bits_to_bytes, build_header, model_history
 
@@ -64,7 +64,8 @@ __all__ = ["encode_v1_device_commit", "encode_v1_device_optimal",
            "finish_streams",
            "pad_shards", "pull_body_bytes", "per_shard", "device_tables",
            "pack_tables", "unpack_tables", "card_tables",
-           "encode_device_batch", "encode_device"]
+           "encode_device_batch", "encode_device",
+           "device_pipeline_available"]
 
 
 def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
@@ -245,22 +246,21 @@ def v1_optimal_stage(data: torch.Tensor, npos: torch.Tensor,
                      dict_arr: torch.Tensor, *, window: int, literal: int,
                      max_out: int):
     """The optimal v1 encode's device half for one batch: (bytes (S,
-    max_out) uint8, state (S, 16) int32, cost0 (S,) int32).
+    max_out) uint8, state (S, 16) int32, bad (S,) bool).
 
-    Kernel B5's tables, kernel X3's choice (``cost0`` is INF where a shard
-    has an in-shard position with no valid token, as the native DP
-    raises there even if its walk never visits it), the fields, and
-    kernel B3 on ``npos + 15``: the optimal fields are exact at every
-    position, so the walk runs to the end of each shard."""
+    Kernel B5's tables, kernel X3's choice (``bad`` where a shard has an
+    in-shard position with no valid token, as the native DP raises there
+    even if its walk never visits it), the fields, and kernel B3 on
+    ``npos + 15``: the optimal fields are exact at every position, so the
+    walk runs to the end of each shard."""
     flen, fidx = v1_tables(data, npos, dict_arr, window_bits=window,
                            cap=v1_cap(window, literal))
-    choice, cost0, bad = opt_v1_choice(flen, data, npos, window=window,
-                                       literal=literal)
-    cost0 = torch.where(bad, INF, cost0)
+    choice, _cost0, bad = opt_v1_choice(flen, data, npos, window=window,
+                                        literal=literal)
     A, B = optimal_fields_v1(choice, fidx, data, npos, window=window,
                              literal=literal)
     out, state = commit_fields(A, B, npos + 15, max_out=max_out)
-    return out, state, cost0
+    return out, state, bad
 
 
 def encode_v1_device_optimal(shards, *, window: int = 10, literal: int = 8,
@@ -285,12 +285,12 @@ def encode_v1_device_optimal(shards, *, window: int = 10, literal: int = 8,
                                 dictionary)
     batch, npos = pad_shards(datas)
     NP = batch.shape[1]
-    out, state, cost0 = v1_optimal_stage(
+    out, state, bad = v1_optimal_stage(
         torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
         torch.from_numpy(dict_arr.copy()).to(dev), window=window,
         literal=literal, max_out=NP + NP // 8 + 64)
     state = state.cpu().numpy()
-    if (state[:, S_ERR] != 0).any() or (cost0.cpu().numpy() >= INF).any():
+    if (state[:, S_ERR] != 0).any() or bool(bad.any()):
         raise ExcessBitsError
     return optimal_streams_v1(pull_body_bytes(out, state), state,
                               window=window, literal=literal,
@@ -397,3 +397,8 @@ def encode_device(data, *, window: int = 10, literal: int = 8,
         [data], window=window, literal=literal, extended=extended,
         lazy_matching=lazy_matching, dictionary=dictionary,
         device=device)[0]
+
+
+def device_pipeline_available() -> bool:
+    """Whether the device encodes can run: a CUDA card is visible."""
+    return torch.cuda.is_available()

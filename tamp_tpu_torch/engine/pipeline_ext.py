@@ -53,7 +53,6 @@ from ..ops.encode_commit import (
 from ..ops.greedy_predict import greedy_predict_batch, pack_predict_plane
 from ..ops.match_ext import ext_tables, ext_tables_probe
 from ..ops.match_v1 import v1_tables
-from ..ops.opt_parse import INF
 from ..ops.opt_parse_ext import opt_ext_choice
 from ..ops.plan_ext import (
     MAX_PLAN_WINDOW, SPLIT_WINDOW, derive_region_arrays, plan_fields_ext,
@@ -467,10 +466,10 @@ def encode_ext_device_optimal(shards, *, window: int = 10, literal: int = 8,
     def to_dev(a):
         return None if a is None else torch.from_numpy(a).to(dev)
 
-    choice, cost0, bad = opt_ext_choice(
+    choice, _cost0, bad = opt_ext_choice(
         to_dev(pk), to_dev(db), to_dev(npos), to_dev(sb_pos), to_dev(sb_cw),
         window=window, literal=literal)
-    if bad.any() or (cost0 >= INF).any():
+    if bad.any():
         raise ExcessBitsError
     maxN = max(d.shape[0] for d in datas)
     choice = choice[:, : max(maxN, 1)].cpu().numpy()

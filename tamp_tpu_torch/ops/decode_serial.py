@@ -33,13 +33,22 @@ from ..constants import (
     compute_min_pattern_size,
 )
 from ..device import resolve_device
+from ..exceptions import OutOfBoundsError
 from . import _build
 from .decode_wavefront import split_streams
 
-__all__ = ["decode_shards_device", "padded_width", "serial_decode",
-           "serial_decode_plain"]
+__all__ = ["decode_shards_device", "decode_stream", "padded_width",
+           "serial_decode", "serial_decode_plain", "MAX_DECODED",
+           "BYTES_PER_BIT"]
 
 ERR_OK, ERR_OOB = 0, 2
+# The largest max_out X2 takes: it keeps output offsets in int, and the
+# token that crosses max_out carries the count up to 240 bytes past it.
+MAX_DECODED = (1 << 31) - 256
+# No token decodes to more bytes a bit than this: the densest is an RLE
+# token of 19 bits (second symbol 13, 4 trail bits) writing 225 bytes,
+# 11.84 a bit.
+BYTES_PER_BIT = 12
 
 # symbol and code length (flag excluded) of every 8-bit peek
 _PEEK = [None] * 256
@@ -254,3 +263,50 @@ def decode_shards_device(shards, *, dictionary=None, max_out: int,
     lens = lens.cpu().numpy()
     blk = out[:, : max(1, int(lens.max()))].cpu().numpy()
     return [blk[i, : int(lens[i])].tobytes() for i in range(S)]
+
+
+def decode_stream(data, *, dictionary=None, device=None) -> bytearray:
+    """Decode one Tamp stream (header included) of unknown decoded size
+    with kernel X2, the native decoder's contract: an empty stream, or a
+    ``more`` stream with no reserved byte, decodes to nothing; a token the
+    stream cannot complete ends the decode; a match reading past the
+    window raises OutOfBoundsError, a bad header or a missing custom
+    dictionary ValueError.
+
+    X2 cuts its output at ``max_out``, so the decode starts from the
+    native decoder's buffer (8 bytes a payload byte, at least 4096) and
+    runs again with four times the room while the output fills it, up to
+    one byte past the stream's bound (BYTES_PER_BIT a payload bit), which
+    no stream fills.  A stream that fills MAX_DECODED bytes, X2's limit,
+    raises ValueError."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if not data or (data[0] & 1 and len(data) < 2):
+        return bytearray()
+    (window, literal, extended, more, dict_init, default_dict,
+     (payload,)) = split_streams([data], dictionary)
+    bound = BYTES_PER_BIT * 8 * len(payload)
+    row = np.zeros((1, padded_width(len(payload))), np.uint8)
+    row[0, : len(payload)] = np.frombuffer(payload, np.uint8)
+    args = (torch.from_numpy(row).to(dev),
+            torch.tensor([len(payload)], dtype=torch.int32, device=dev),
+            torch.from_numpy(np.array(dict_init, np.uint8)).to(dev),
+            torch.from_numpy(default_dict).to(dev))
+    room = max(4096, 8 * len(payload))
+    while True:
+        max_out = min(room, bound + 1, MAX_DECODED)
+        out, lens, errs = serial_decode(
+            *args, window=window, literal=literal, extended=extended,
+            more=more, max_out=max_out)
+        err, n = int(errs[0]), int(lens[0])
+        if err == ERR_OOB:
+            raise OutOfBoundsError("window reference outside the window")
+        if err:
+            raise ValueError(f"invalid tamp stream (error {err})")
+        if n < max_out:
+            return bytearray(out[0, :n].cpu().numpy().tobytes())
+        if max_out == MAX_DECODED:
+            raise ValueError(
+                f"the stream decodes to more than {MAX_DECODED} bytes, the "
+                "single-stream limit of the device decoder (kernel X2)")
+        room *= 4

@@ -21,7 +21,12 @@ in three passes over blocks of B positions:
 
 Every sum saturates at ``INF``; with non-negative weights the saturation
 commutes with min-plus, so the outputs do not depend on B and products of
-block matrices associate.  Positions at or past a shard's length are free
+block matrices associate.  The combine keeps each boundary vector less its
+least entry (INF entries stay INF): min-plus commutes with that shift, and
+the choice and ``bad`` do not see it, so costs stay relative to a few
+blocks and a shard of any length never reaches INF (the JAX function
+instead refuses shards whose whole cost could); ``cost0`` adds the shifts
+back, saturated at INF.  Positions at or past a shard's length are free
 literals (cost 0); in-shard matches never reach past it because the tables
 stop at ``npos``.
 
@@ -41,24 +46,15 @@ from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from . import _build
 
 __all__ = ["opt_v1_choice", "opt_v1_choice_plain", "INF", "K_V1", "G_V1",
-           "check_shard_size", "block_size", "v1_block"]
+           "block_size", "v1_block"]
 
-# Saturating infinity: above every real cost (NP * worst bits) and with
-# INF * 32 + priority inside int32 (pass 2's packed score)
+# Saturating infinity: above every cost relative to a boundary vector's
+# least entry, and with INF * 32 + priority inside int32 (pass 2's packed
+# score)
 INF = (1 << 26) - 64
 K_V1 = 16        # the v1 lookback: literal 1, matches minp..minp + 13
 B_V1 = 512       # positions a block of X3's kernels
 G_V1 = 32        # blocks a group of X3's combine (G in csrc/opt_parse.cu)
-
-
-def check_shard_size(NP: int, worst: int) -> None:
-    """The JAX functions' guard: a shard of NP positions may cost up to
-    ``NP * worst`` bits, which must stay below INF."""
-    if NP * worst >= INF:
-        raise ValueError(
-            f"shard too large for the device optimal DP: NP={NP} can cost "
-            f"up to NP*{worst} bits >= INF={INF}; use shard_size <= "
-            f"{(INF // worst) & ~1023} bytes")
 
 
 def block_size(NP: int, B: int) -> int:
@@ -92,12 +88,22 @@ def _apply(T: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max((T + v[:, None, :]).amin(2), INF)
 
 
+def rebase(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(v less its least entry, that entry): a vector (S, K) of saturated
+    costs shifted so its least entry is 0, INF entries kept INF (and a
+    vector of INF left as it is, with shift 0)."""
+    m = v.amin(1, keepdim=True)
+    m = torch.where(m < INF, m, 0)
+    return torch.where(v >= INF, INF, v - m), m[:, 0]
+
+
 def combine_plain(T: torch.Tensor, group: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(bounds (S, n_b, K), v0 (S, K)) of transfer matrices T (S, n_b, K,
     K): block b's incoming boundary vector (the costs of the first K
-    positions of block b + 1, zeros past the last block) and the shard's
-    first K costs.
+    positions of block b + 1, zeros past the last block), less its least
+    entry (:func:`rebase`), and the shard's first K costs, saturated at
+    INF.
 
     ``group=None`` walks the blocks right to left.  ``group=G`` is the
     kernel's two-level form, with the same result: the product of each
@@ -107,12 +113,19 @@ def combine_plain(T: torch.Tensor, group: int | None = None
     blocks from that vector."""
     S, n_b, K, _ = T.shape
     v = torch.zeros((S, K), dtype=torch.int32, device=T.device)
+    off = torch.zeros(S, dtype=torch.int64, device=T.device)
     bounds = torch.empty((S, n_b, K), dtype=torch.int32, device=T.device)
+
+    def absolute(v):
+        return torch.clamp_max(v + off[:, None], INF).to(torch.int32)
+
     if group is None:
         for b in range(n_b - 1, -1, -1):
+            v, m = rebase(v)
+            off += m
             bounds[:, b] = v
             v = _apply(T[:, b], v)
-        return bounds, v
+        return bounds, absolute(v)
     spans = [(b0, min(b0 + group, n_b) - 1) for b0 in range(0, n_b, group)]
     prods = []
     for b0, last in spans:
@@ -122,14 +135,16 @@ def combine_plain(T: torch.Tensor, group: int | None = None
                 (T[:, b, :, :, None] + acc[:, None, :, :]).amin(2), INF)
         prods.append(acc)
     for (_b0, last), acc in zip(reversed(spans), reversed(prods)):
+        v, m = rebase(v)
+        off += m
         bounds[:, last] = v
         v = _apply(acc, v)
     for b0, last in spans:
         w = bounds[:, last]
         for b in range(last, b0, -1):
-            w = _apply(T[:, b], w)
+            w = rebase(_apply(T[:, b], w))[0]
             bounds[:, b - 1] = w
-    return bounds, v
+    return bounds, absolute(v)
 
 
 def identity(S: int, n_b: int, K: int, device) -> torch.Tensor:
@@ -152,7 +167,6 @@ def opt_v1_choice_plain(flen: torch.Tensor, data: torch.Tensor,
     n_b = NP // B
     K = K_V1
     minp = compute_min_pattern_size(window, literal)
-    check_shard_size(NP, max(1 + literal, -(-(window + 9) // minp)))
     maxpat = minp + 13
     lit_limit = 256 if literal == 8 else (1 << literal)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -217,8 +231,9 @@ def opt_v1_choice(flen: torch.Tensor, data: torch.Tensor, npos: torch.Tensor,
     (kernel B5's, exact up to ``npos``); ``data``: (S, NP) uint8 shard
     bytes; ``npos``: (S,) int32 lengths.  ``choice`` is 1 for a literal
     and s for a match of size s at every position; ``cost0`` is each
-    shard's payload bits (``>= INF``: some byte cannot be coded); ``bad``
-    is True where any in-shard position has no valid token."""
+    shard's payload bits, saturated at INF (INF also where the shard's
+    first byte cannot be coded); ``bad`` is True where any in-shard
+    position has no valid token."""
     if flen.dtype != torch.int32 or flen.dim() != 2:
         raise ValueError("flen must be an (S, NP) int32 tensor")
     if data.dtype != torch.uint8 or data.shape != flen.shape:
@@ -233,8 +248,6 @@ def opt_v1_choice(flen: torch.Tensor, data: torch.Tensor, npos: torch.Tensor,
     if flen.device.type != "cuda":
         raise ValueError(f"unsupported device {flen.device}")
     S, NP = flen.shape
-    minp = compute_min_pattern_size(window, literal)
-    check_shard_size(NP, max(1 + literal, -(-(window + 9) // minp)))
     B = v1_block(NP)
     if B % K_V1:
         raise ValueError(f"NP={NP} must be a multiple of {K_V1}")

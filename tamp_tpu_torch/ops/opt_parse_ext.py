@@ -20,7 +20,10 @@ position the edges are the advance-1 slot and the contiguous advances
 
 The choice is the lowest advance among the minimal saturated costs (the
 JAX function's ``argmin``: literal, basic sizes, extended sizes); ``bad``
-marks a shard where some in-shard, non-interior position costs INF.
+marks a shard where some in-shard, non-interior position costs INF.  As in
+X3, the combine keeps each boundary vector less its least entry, so a
+shard of any length stays clear of INF, and ``cost0`` is the payload bits
+saturated at INF.
 
 The JAX function advances U = 16 positions per scan step to cut the TPU's
 memory traffic; the plain version here steps one position at a time, which
@@ -35,21 +38,15 @@ import torch
 
 from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from .opt_parse import (
-    INF, block_size, check_shard_size, combine_plain, from_steps, identity,
-    launch_dp, to_steps,
+    INF, block_size, combine_plain, from_steps, identity, launch_dp,
+    to_steps,
 )
 
 __all__ = ["opt_ext_choice", "opt_ext_choice_plain", "chunk_weights",
-           "ext_advance_bits", "worst_bits_ext"]
+           "ext_advance_bits"]
 
 B_EXT = 2048  # positions a block of X4's kernels
 CHUNK_EXT = 256  # X4's blocks are a multiple of its staged chunk
-
-
-def worst_bits_ext(window: int, literal: int) -> int:
-    """Bits a byte of a valid shard can cost at most (the shard guard)."""
-    minp = compute_min_pattern_size(window, literal)
-    return max(1 + literal, -(-(window + 9) // minp), 11)
 
 
 def ext_advance_bits(window: int, literal: int) -> list[int]:
@@ -94,7 +91,6 @@ def opt_ext_choice_plain(packed: torch.Tensor, data, npos: torch.Tensor,
     n_b = NP // B
     minp = compute_min_pattern_size(window, literal)
     K = minp + 131
-    check_shard_size(NP, worst_bits_ext(window, literal))
     lit_limit = 256 if literal == 8 else (1 << literal)
     i32 = dict(dtype=torch.int32, device=dev)
     inf = torch.tensor(INF, **i32)
@@ -195,7 +191,6 @@ def opt_ext_choice(packed: torch.Tensor, data, npos: torch.Tensor,
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     minp = compute_min_pattern_size(window, literal)
-    check_shard_size(NP, worst_bits_ext(window, literal))
     B = block_size(NP, B_EXT)
     cw = chunk_weights(sideband_pos, sideband_cw, NP)
     data = data.contiguous() if literal < 8 else None

@@ -215,17 +215,23 @@ def compress_file_sharded(
     device=None,
 ) -> int:
     """Bounded-memory TTPU compression of a file (files larger than RAM),
-    the JAX package's ``compress_file_sharded`` with ``engine="device"``.
+    the JAX package's ``compress_file_sharded`` with ``engine="device"``
+    or, extended only, ``engine="device-greedy"`` (the streams of the JAX
+    function's ``engine="native"``: the reference greedy encoder's).
 
     Reads ``src`` shard by shard, up to ``2 * workers`` shards at a time
     (default ``workers``: the CPU count + 2, as in the JAX package),
-    encodes each such batch with one launch of kernel B5 and the host
-    committer on ``workers`` threads (engine/pipeline.encode_device_batch),
-    and writes the streams to ``dst`` in order: the frame header and a
-    zeroed sizes table go out first and the sizes are patched in place at
-    the end, so ``dst`` must be seekable (a path or a binary file).  The
-    output is byte-identical to ``compress_sharded(engine="device")`` on
-    the whole file.  Returns the bytes written.
+    encodes each such batch with one call of ``engine``'s batch encode
+    (see :func:`compress_sharded`; ``"device"``: one launch of kernel B5
+    and the host committer on ``workers`` threads,
+    engine/pipeline.encode_device_batch; ``"device-greedy"``: kernels B5
+    and B7 once and the host greedy committer,
+    engine/pipeline_ext.encode_ext_device_greedy), and writes the streams
+    to ``dst`` in order: the frame header and a zeroed sizes table go out
+    first and the sizes are patched in place at the end, so ``dst`` must
+    be seekable (a path or a binary file).  The output is byte-identical
+    to ``compress_sharded(engine=engine)`` on the whole file.  Returns the
+    bytes written.
 
     Memory, in bytes a byte of one batch (B = 2·workers·shard_size input
     bytes; extended): on the host about 8-14 B held for the batch (the
@@ -238,24 +244,26 @@ def compress_file_sharded(
     position (16 with lazy matching's probe), until the one pull.  v1
     holds the input, its padded copy and the streams on the host.
 
-    Only ``engine="device"`` streams: ``"device-commit"`` (and the other
-    engines, which batch whole containers) raise ValueError.  The JAX
-    package's own function writes its ``"tables"`` container for any
-    engine name it does not know; the port refuses them instead."""
+    Only ``engine="device"`` and ``"device-greedy"`` stream:
+    ``"device-commit"`` (and the other engines, which batch whole
+    containers) raise ValueError.  The JAX package's own function writes
+    its ``"tables"`` container for any engine name it does not know; the
+    port refuses them instead."""
     if engine == "device-commit":
         raise ValueError(
             "device-commit batches whole containers; use compress_sharded, "
             "or engine='device' for the per-shard device search pipeline")
-    if engine != "device":
+    if engine not in ("device", "device-greedy"):
         raise ValueError(
-            f"compress_file_sharded streams engine='device' only; use "
-            f"compress_sharded for engine={engine!r}")
+            f"compress_file_sharded streams engine='device' and "
+            f"'device-greedy' only; use compress_sharded for "
+            f"engine={engine!r}")
     from ..device import resolve_device
-    from ..engine.pipeline import encode_device_batch
 
-    dev = resolve_device(device)
     if workers is None:
         workers = (os.cpu_count() or 4) + 2
+    encode = _encoder(engine, extended, workers)
+    dev = resolve_device(device)
     close_src = close_dst = False
     if not hasattr(src, "read"):
         src, close_src = open(str(src), "rb"), True
@@ -275,10 +283,10 @@ def compress_file_sharded(
         for first in range(0, n_shards, 2 * workers):
             batch = [src.read(shard_size)
                      for _ in range(min(2 * workers, n_shards - first))]
-            for blob in encode_device_batch(
-                    batch, window=window, literal=literal, extended=extended,
+            for blob in encode(
+                    batch, window=window, literal=literal,
                     lazy_matching=lazy_matching, dictionary=dictionary,
-                    device=dev, workers=workers):
+                    device=dev):
                 sizes.append(len(blob))
                 dst.write(blob)
         end_at = dst.tell()

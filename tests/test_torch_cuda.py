@@ -41,7 +41,7 @@ from tamp_tpu_torch.ops.match_ext import (
 )
 from tamp_tpu_torch.ops.match_v1 import v1_tables, v1_tables_plain
 from tamp_tpu_torch.ops.opt_parse import (
-    B_V1, opt_v1_choice, opt_v1_choice_plain,
+    B_V1, INF, opt_v1_choice, opt_v1_choice_plain,
 )
 from tamp_tpu_torch.ops.opt_parse_ext import (
     opt_ext_choice, opt_ext_choice_plain,
@@ -1187,6 +1187,33 @@ def test_x4_kernel_equals_plain_at_block_size(cuda, monkeypatch, window,
         assert torch.equal(g.cpu(), w.cpu())
 
 
+@pytest.mark.parametrize("x", ["X3", "X4"])
+def test_optimal_kernels_past_inf_equal_plain(cuda, x):
+    """X3 and X4 on one 16 MiB row of chip_smoke.py's corpus, whose payload
+    (~86 M bits) passes INF: the kernels' combine rebases its boundary
+    vectors as the plain versions' does (on the card), so choice, bad and
+    cost0 (saturated at INF) agree."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    shards = [chip_smoke.corpus(1 << 24)]
+    kw = dict(window=10, literal=8)
+    if x == "X3":
+        args = _on(cuda, v1_opt_inputs(shards, **kw))
+        want = opt_v1_choice_plain(*args, **kw)
+        got = opt_v1_choice(*args, **kw)
+    else:
+        args = _on(cuda, ext_opt_inputs(shards, **kw))
+        want = opt_ext_choice_plain(*args, **kw)
+        got = opt_ext_choice(*args, **kw)
+    assert int(want[1][0]) == INF and not bool(want[2][0])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
 def test_x4_kernel_pads_a_shard_below_its_chunk(cuda):
     # NP = 1000: the wrapper pads the planes to 1024 free positions
     shards = [_text(900, k)[: 900 - 50 * k] for k in range(3)]
@@ -1382,3 +1409,129 @@ def test_dryrun_multichip_on_one_card(cuda):
     dryrun_multichip(1)
     assert not tdist.is_initialized()
     assert v1_tables.launches >= 1 and dc.commit_decode.launches >= 1
+
+
+# (route, compress options, the kernels (wrappers) its compress launches)
+ONE_SHOTS = (
+    ("extended", {}, ("v1_tables", "greedy_predict_batch")),
+    ("extended lazy", {"lazy_matching": True},
+     ("v1_tables", "greedy_predict_batch")),
+    ("v1", {"extended": False}, ("v1_tables", "commit_fields")),
+    ("v1 lazy", {"extended": False, "lazy_matching": True},
+     ("v1_tables", "commit_v1_lazy")),
+    ("optimal", {"parse": "optimal"}, ("opt_ext_choice",)),
+    ("optimal v1", {"parse": "optimal", "extended": False},
+     ("v1_tables", "opt_v1_choice", "commit_fields")),
+)
+
+
+def _wrappers():
+    return {fn.__name__: fn for fn in (
+        v1_tables, greedy_predict_batch, commit_fields, commit_v1_lazy,
+        opt_v1_choice, opt_ext_choice, dser.serial_decode)}
+
+
+@pytest.mark.parametrize("route", [r[0] for r in ONE_SHOTS])
+def test_one_shots_launch_and_equal_plain(cuda, route):
+    """``tamp_tpu_torch.compress`` of one 40 KB stream on the card equals
+    the plain versions' stream (``device="cpu"``) and launches its route's
+    kernels; ``decompress`` gives the input back through one X2 launch,
+    and for the extended format a stream of ~92x expansion through three
+    (max_out grown twice)."""
+    import tamp_tpu_torch as tt
+
+    _, kw, kernels = next(r for r in ONE_SHOTS if r[0] == route)
+    raw = _text(8000, 43)[:40000]
+    fns = _wrappers()
+    for f in fns.values():
+        f.launches = 0
+    blob = tt.compress(raw, **kw)
+    ran = {k: f.launches for k, f in fns.items()}
+    assert all(ran[k] >= 1 for k in kernels), ran
+    assert blob == tt.compress(raw, device="cpu", **kw)
+    dser.serial_decode.launches = 0
+    assert tt.decompress(blob) == raw
+    assert dser.serial_decode.launches == 1
+    if not kw.get("extended", True):
+        return  # no RLE tokens: v1 streams expand at most ~7.5x
+    runs = tt.compress(b"q" * 300_000, **kw)
+    dser.serial_decode.launches = 0
+    assert tt.decompress(runs) == b"q" * 300_000
+    assert dser.serial_decode.launches == 3
+
+
+def test_cli_and_dictbuild_on_the_card(cuda, tmp_path):
+    """``main()`` on the card: compress and decompress (raw and
+    ``--sharded`` file to file) equal the API's and the plain versions';
+    ``build-dictionary --auto-trim`` launches B5 and B7 once a threshold
+    and writes the plain versions' dictionary."""
+    import tamp_tpu_torch as tt
+    from tamp_tpu_torch.cli.main import main
+    from tamp_tpu_torch.dictbuild import build_dictionary
+
+    raw = _text(6000, 44)
+    src, out, back = (tmp_path / n for n in ("in", "out", "back"))
+    src.write_bytes(raw)
+    assert main(["compress", str(src), "-o", str(out)]) == 0
+    assert out.read_bytes() == tt.compress(raw)
+    assert main(["decompress", str(out), "-o", str(back)]) == 0
+    assert back.read_bytes() == raw
+    assert main(["compress", str(src), "-o", str(out), "--sharded",
+                 "--shard-size", "4096"]) == 0
+    assert out.read_bytes() == compress_sharded(
+        raw, shard_size=4096, engine="device-greedy", device="cpu")
+    assert main(["decompress", str(out), "-o", str(back)]) == 0
+    assert back.read_bytes() == raw
+    samples = [raw[i : i + 300] for i in range(0, len(raw), 300)]
+    v1_tables.launches = greedy_predict_batch.launches = 0
+    d = build_dictionary(samples, window=8, auto_trim=True)
+    assert v1_tables.launches == greedy_predict_batch.launches == 6
+    assert d == build_dictionary(samples, window=8, auto_trim=True,
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("route", [r[0] for r in ONE_SHOTS])
+def test_stream_limit_one_shots(cuda, route):
+    """One stream of exactly ``MAX_STREAM_BYTES`` bytes (chip_smoke.py's
+    seeded corpus) through the route's compress and one X2 decode gives
+    the input back; the extended stream equals the table-less host
+    committer's (the reference greedy encoder), and the optimal DPs run
+    32 times past the 4 MiB at which their costs would reach INF without
+    the combine's rebase; one byte more raises ValueError.
+    Prints the seconds and peak device memory of each call."""
+    import sys
+    import time
+    from pathlib import Path
+
+    import tamp_tpu_torch as tt
+    from tamp_tpu_torch.engine.greedy import greedy_compress
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    _, kw, kernels = next(r for r in ONE_SHOTS if r[0] == route)
+    n = tt.MAX_STREAM_BYTES
+    data = chip_smoke.corpus(n)
+    fns = _wrappers()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    blob = tt.compress(data, **kw)
+    enc_s = time.perf_counter() - t
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(fns[k].launches >= 1 for k in kernels)
+    dser.serial_decode.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    back = tt.decompress(blob)
+    dec_s = time.perf_counter() - t
+    dec_peak = torch.cuda.max_memory_allocated() / 2**30
+    assert back == data and dser.serial_decode.launches == 1
+    if route == "extended":
+        assert blob == greedy_compress(data)
+    with pytest.raises(ValueError, match=f"limited to {n} bytes"):
+        tt.compress(data + b"x", **kw)
+    print(f"\n{route}: {n} bytes as one stream, ratio {len(blob) / n:.6f}; "
+          f"compress {enc_s:.2f} s (peak {enc_peak:.2f} GiB), decompress "
+          f"{dec_s:.2f} s (peak {dec_peak:.2f} GiB)")

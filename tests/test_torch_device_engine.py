@@ -501,10 +501,15 @@ def test_file_path_refuses_other_engines():
     with pytest.raises(ValueError, match="device-commit batches"):
         compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
                               engine="device-commit", device="cpu")
-    for engine in ("device-greedy", "device-optimal", "tables", "native"):
+    for engine in ("device-optimal", "tables", "native"):
         with pytest.raises(ValueError, match="compress_sharded"):
             compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
                                   engine=engine, device="cpu")
+    # device-greedy streams the extended format only
+    with pytest.raises(ValueError, match="extended-format mode"):
+        compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
+                              engine="device-greedy", extended=False,
+                              device="cpu")
 
 
 def test_no_card_raises_and_falls_back_to_nothing(monkeypatch, tmp_path):

@@ -157,6 +157,41 @@ def test_x3_plain_grouped_equals_jax(window, literal, B, group):
 
 
 @needs_native
+@pytest.mark.parametrize("window,literal", [(10, 8), (11, 6)])
+@pytest.mark.parametrize("x,B,group", [("X3", 16, None), ("X3", 16, 4),
+                                       ("X4", 64, None)])
+def test_plain_rebase_keeps_costs_below_inf(monkeypatch, window, literal, x,
+                                            B, group):
+    """The combine's rebase (each boundary vector less its least entry)
+    with INF lowered to 2^11: the hazard shards cost up to ~3x that, and
+    the plain DPs still give the JAX DP's choice and ``bad`` (with the real
+    INF), and its cost0 saturated at the lowered INF."""
+    from tamp_tpu_torch.ops import opt_parse, opt_parse_ext
+
+    low = 1 << 11
+    shards = hazard_opt_shards(window, window, literal)
+    if x == "X3":
+        args = v1_opt_inputs(shards, window, literal)
+        want = _jax_x3(args, window, literal)
+    else:
+        args = ext_opt_inputs(shards, window, literal)
+        want = _jax_x4(args, window, literal)
+    assert (want[1][~want[2]] > low).sum() >= 4
+    monkeypatch.setattr(opt_parse, "INF", low)
+    monkeypatch.setattr(opt_parse_ext, "INF", low)
+    if x == "X3":
+        got = opt_v1_choice_plain(*_t(args), window=window, literal=literal,
+                                  B=B, group=group)
+    else:
+        got = opt_ext_choice_plain(*_t(args), window=window, literal=literal,
+                                   B=B)
+    _equal((got[0], got[2]), (want[0], want[2]))
+    ok = ~want[2]
+    np.testing.assert_array_equal(got[1].numpy()[ok],
+                                  np.minimum(want[1][ok], low))
+
+
+@needs_native
 @pytest.mark.parametrize("window,literal", CASES)
 def test_host_tables_and_regions_equal_native(window, literal):
     maxpat = compute_min_pattern_size(window, literal) + 131
@@ -217,23 +252,37 @@ def test_choice_walk_equals_native():
 
 
 @pytest.mark.parametrize("x", ["X3", "X4"])
-def test_shard_size_guard_matches_jax(x):
+def test_shard_size_guard_matches_jax(x, monkeypatch):
+    """The JAX DPs refuse a shard of 2^23 positions, whose cost could reach
+    their INF.  The port's have no such guard, since their combines rebase
+    the boundary vectors (test_plain_rebase_keeps_costs_below_inf, and on
+    the card test_optimal_kernels_past_inf_equal_plain): the wrapper hands
+    the shard to its DP."""
+    from tamp_tpu_torch.ops import opt_parse, opt_parse_ext
+
     NP = 1 << 23
     window, literal = 10, 8
     zeros = np.zeros((1, NP), np.int32)
     npos = np.asarray([NP], np.int32)
-    with pytest.raises(ValueError) as want:
+    with pytest.raises(ValueError, match="shard too large"):
         if x == "X3":
             _jax_x3((zeros, zeros.astype(np.uint8), npos), window, literal)
         else:
             _jax_x4((zeros, None, npos, zeros[:, :128] + NP,
                      zeros[:, :128]), window, literal)
-    with pytest.raises(ValueError) as got:
-        if x == "X3":
-            opt_v1_choice(*_t((zeros, zeros.astype(np.uint8), npos)),
-                          window=window, literal=literal)
-        else:
-            opt_ext_choice(*_t((zeros, None, npos, zeros[:, :128] + NP,
-                                zeros[:, :128])), window=window,
-                           literal=literal)
-    assert str(got.value) == str(want.value)
+    seen = []
+
+    def dp(first, *args, **kw):
+        seen.append(tuple(first.shape))
+        return "ran"
+
+    monkeypatch.setattr(opt_parse, "opt_v1_choice_plain", dp)
+    monkeypatch.setattr(opt_parse_ext, "opt_ext_choice_plain", dp)
+    if x == "X3":
+        got = opt_v1_choice(*_t((zeros, zeros.astype(np.uint8), npos)),
+                            window=window, literal=literal)
+    else:
+        got = opt_ext_choice(*_t((zeros, None, npos, zeros[:, :128] + NP,
+                                  zeros[:, :128])), window=window,
+                             literal=literal)
+    assert got == "ran" and seen == [(1, NP)]

@@ -42,6 +42,27 @@ def test_container_matches_jax_and_cross_decodes():
 
 
 @pytest.mark.skipif(not _native.available(), reason="native engine needed")
+def test_file_path_device_greedy_equals_compress_sharded(tmp_path):
+    # the CLI's file-to-file --sharded route: the reference greedy streams
+    # (the JAX CLI's engine="native" container), batch by batch
+    data = _corpus(6000, 4)
+    src = tmp_path / "raw.bin"
+    src.write_bytes(data)
+    for kw in ({}, {"lazy_matching": True, "window": 9}):
+        want = tshard.compress_sharded(data, shard_size=700,
+                                       engine="device-greedy", device="cpu",
+                                       **kw)
+        assert want == jshard.compress_sharded(data, shard_size=700,
+                                               engine="native", **kw)
+        for workers in (1, 3):  # batches of 2 and of 6 shards
+            dst = tmp_path / f"out{workers}.ttpu"
+            n = tshard.compress_file_sharded(
+                src, dst, shard_size=700, workers=workers,
+                engine="device-greedy", device="cpu", **kw)
+            assert n == len(want) and dst.read_bytes() == want
+
+
+@pytest.mark.skipif(not _native.available(), reason="native engine needed")
 def test_container_custom_dictionary_and_empty():
     rng = np.random.default_rng(2)
     dictionary = bytes(rng.integers(97, 123, 1024).astype(np.uint8))
@@ -140,7 +161,9 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
             "tamp_tpu_torch.engine.greedy, "
             "tamp_tpu_torch.ops.greedy_predict, "
             "tamp_tpu_torch.ops.decode_wavefront, "
-            "tamp_tpu_torch.ops.decode_serial; "
+            "tamp_tpu_torch.ops.decode_serial, "
+            "tamp_tpu_torch.cli.main, tamp_tpu_torch.dictbuild, "
+            "tamp_tpu_torch.engine; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tamp_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
