@@ -136,7 +136,23 @@ Phases (any failure raises, and the script exits non-zero):
    ``-d`` with a 100-byte dictionary, container decodes), each output
    equal to the API's, with seconds and launches; ``build-dictionary
    --auto-trim`` on 2000 seeded records, B5 and B7 once a threshold, its
-   seconds;
+   seconds; then the rest of the JAX package's API (``phase_api_rest``):
+   ``compress_sharded`` of the corpus with the JAX engine names
+   ``"native"``, ``"tables"`` and ``"optimal"`` and with none (the
+   default, ``"native"``), each container equal to phase 3's container of
+   its route (greedy, device, optimal) with that route's kernels launched
+   and its MB/s; ``decompress_sharded`` of the main path's container
+   (the corpus back, X2 once, MB/s beside ``decompress_sharded_device``'s
+   serial algorithm), of a v1 frame whose one shard decodes to 2**20 +
+   4096 bytes (the port's own one-shot and framing; whole), and of a
+   stream reading past the window (OutOfBoundsError); ``tamp_tpu_torch.
+   open``'s C++ stream over 1 MiB and its Python stream over 64 KiB,
+   written in 1-, 7- and 4096-byte chunks with a flush in the middle (the
+   two equal on 64 KiB, each decoded back by both and by the card's X2),
+   with host MB/s; the C++ stream of the whole corpus without the flush
+   equal to ``tamp_tpu_torch.compress``'s stream from the card; an abort
+   from a progress callback resumed to the same bytes, in both
+   directions;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
@@ -156,7 +172,8 @@ Phases (any failure raises, and the script exits non-zero):
    (FIRST_PORT_MS) beside; the rows of the kernels that phase 3's file
    decodes, ``entry()``, the dry run, the one-shots and the CLI launched
    carry those counts too (``file_launches``, ``entry_launches``,
-   ``dryrun_launches``, ``api_launches``, ``cli_launches``).
+   ``dryrun_launches``, ``api_launches``, ``cli_launches``,
+   ``api_rest_launches``).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -178,12 +195,14 @@ SMALL = 1 << 16            # shard size of phase 2
 # the round trips of phase 3, the main path first: name, compress_sharded
 # options, and the kernels (wrapper names, B1..B7) each must launch
 PATHS = (
-    ("extended", {}, ("ext_tables", "commit_fields", "commit_decode")),
-    ("extended lazy", {"lazy_matching": True},
+    ("extended", {"engine": "device-commit"},
+     ("ext_tables", "commit_fields", "commit_decode")),
+    ("extended lazy", {"engine": "device-commit", "lazy_matching": True},
      ("ext_tables_probe", "commit_fields", "commit_decode")),
-    ("v1", {"extended": False},
+    ("v1", {"engine": "device-commit", "extended": False},
      ("v1_tables", "commit_fields", "commit_decode")),
-    ("v1 lazy", {"extended": False, "lazy_matching": True},
+    ("v1 lazy", {"engine": "device-commit", "extended": False,
+                 "lazy_matching": True},
      ("v1_tables", "commit_v1_lazy", "commit_decode")),
     ("greedy", {"engine": "device-greedy"},
      ("v1_tables", "greedy_predict_batch", "commit_decode")),
@@ -255,6 +274,22 @@ ONE_SHOTS = (
      ("v1_tables", "opt_v1_choice", "commit_fields"), "optimal v1"),
 )
 ONE_SHOT_REPS = 3       # timed calls of each one-shot (the median is kept)
+# phase_api_rest: the JAX engine names (None: no engine given) on the
+# corpus, phase 3's round trip whose container each must equal, and the
+# kernels (wrapper names) each must launch
+API_ENGINES = (
+    ("native", "greedy", ("v1_tables", "greedy_predict_batch")),
+    ("tables", "device", ("v1_tables",)),
+    ("optimal", "optimal", ("opt_ext_choice",)),
+    (None, "greedy", ("v1_tables", "greedy_predict_batch")),
+)
+NATIVE_STREAM_BYTES = 1 << 20  # the C++ stream's chunked write
+PY_STREAM_BYTES = 1 << 16      # the Python stream's (~0.5 MB/s)
+# the chunked writes: 1-byte chunks over the first 1/128 of the input,
+# 7-byte ones to 1/16, a flush, then 4096-byte ones
+STREAM_CHUNKS = ((1, 1 / 128), (7, 1 / 16), (4096, 1.0))
+WHOLE_CHUNKS = ((4096, 1.0),)  # the corpus's C++ stream: 4096-byte writes
+C2_BYTES = (1 << 20) + 4096    # one v1-frame shard past the 1 MiB default
 DICT_SAMPLES = 2000    # records of build-dictionary's seeded corpus
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
@@ -1513,7 +1548,7 @@ def phase_kernels_small(dev, report):
 
     for window in (10, 15):
         blob = compress_sharded(small, window=window, shard_size=SMALL,
-                                device=dev)
+                                device=dev, engine="device-commit")
         _raw, _ss, pieces = _parse_frame(blob)
         out, lens, errs = decode_case(
             f"extended w{window}", pieces, window, 8, False,
@@ -1717,8 +1752,8 @@ def phase_device_small(dev, report):
         if "file batch" in name:
             dst = io.BytesIO()
             compress_file_sharded(io.BytesIO(raw), dst, shard_size=size,
-                                  workers=-(-len(shards) // 2), device=dev,
-                                  **kw)
+                                  workers=-(-len(shards) // 2),
+                                  engine="device", device=dev, **kw)
             if dst.getvalue() != compress_sharded(
                     raw, engine="device", shard_size=size, device=dev, **kw):
                 fail(f"device {name}: the file container differs from "
@@ -1779,7 +1814,8 @@ def phase_device(dev, report, data, blobs, launches, shard_size: int,
                 fail(f"{name}: the serial decode differs from the input")
             dst = Path(tmp) / "out.ttpu"
             fms, _n = cuda_ms(lambda: compress_file_sharded(
-                src, dst, shard_size=shard_size, device=dev, **kw))
+                src, dst, shard_size=shard_size, engine="device", device=dev,
+                **kw))
             if dst.read_bytes() != blobs[name]:
                 fail(f"{name}: the file container differs from "
                      "compress_sharded's")
@@ -2256,7 +2292,7 @@ def phase_file_entry(dev, report, data, blobs, card: str):
                  "device": tmp / "device.ttpu"}
         files["device-commit"].write_bytes(blobs["extended"])
         compress_file_sharded(src, files["device"], shard_size=shard_size,
-                              device=dev)
+                              device=dev, engine="device")
         if files["device"].read_bytes() != blobs["device"]:
             fail("compress_file_sharded: the file differs from the device "
                  "round trip's container")
@@ -2654,6 +2690,187 @@ def phase_front_door(dev, report, data, blobs, rates, card: str):
                f"records ({len(b''.join(samples))} bytes): {secs:.2f} s, "
                f"launches {ran}; the corpus in {sizes['built']} bytes with "
                f"it, {sizes['default']} with the default [{card}]")
+    return extra
+
+
+def chunked_write(c, data: bytes, chunks=STREAM_CHUNKS) -> None:
+    """Write ``data`` to the stream ``c`` in ``chunks`` ((size, up to which
+    share of ``data``) pairs), with a flush (FLUSH token) before the last
+    size's writes where there are several."""
+    at = 0
+    for size, upto in chunks:
+        end = int(len(data) * upto)
+        if len(chunks) > 1 and (size, upto) == chunks[-1]:
+            c.flush()
+        for i in range(at, end, size):
+            c.write(data[i : min(i + size, end)])
+        at = end
+
+
+def phase_api_rest(dev, report, data, blobs, card: str):
+    """Phase 3, the rest of the JAX package's API on the card (see the
+    module docstring): the JAX engine names of ``compress_sharded`` and
+    its default, ``decompress_sharded`` and the streaming codec of
+    ``tamp_tpu_torch.open``.  Returns the launch counts by wrapper name
+    (``api_rest_launches``)."""
+    import io
+    import struct
+
+    import tamp_tpu_torch as tt
+    from tamp_tpu_torch.parallel.shard import (
+        _pack_frame, compress_sharded, decompress_sharded,
+        decompress_sharded_device,
+    )
+    from tamp_tpu_torch.stream import NativeCompressor, NativeDecompressor
+
+    fns = counters()
+    extra: dict[str, dict] = {}
+
+    def counted(fn):
+        for f in fns.values():
+            f.launches = 0
+        sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, {k: f.launches for k, f in fns.items() if f.launches}, \
+            (time.perf_counter() - t) * 1e3
+
+    def note(leg: str, ran: dict):
+        for k, n in ran.items():
+            extra.setdefault(k, {}).setdefault("api_rest_launches", {})[
+                leg] = n
+
+    for engine, path, kernels in API_ENGINES:
+        kw = {} if engine is None else {"engine": engine}
+        blob, ran, ms = counted(lambda: compress_sharded(data, device=dev,
+                                                         **kw))
+        name = f"engine {engine}" if engine else "no engine (the default)"
+        missing = [k for k in kernels if not ran.get(k)]
+        if blob != blobs[path] or missing:
+            fail(f"compress_sharded, {name}: container equal to {path}'s "
+                 f"{blob == blobs[path]}, kernels {missing} not launched")
+        note(f"compress_sharded {name}", ran)
+        report(f"  compress_sharded, {name}: equal to phase 3's "
+               f"{path} container, {len(data) / ms / 1e3:.2f} MB/s "
+               f"({ms:.1f} ms, one call); launches {ran} [{card}]")
+
+    main = blobs["extended"]
+    back, ran, _ms = counted(lambda: decompress_sharded(main, device=dev))
+    if back != data or ran != {"serial_decode": 1}:
+        fail(f"decompress_sharded: the corpus back {back == data}, launches "
+             f"{ran} (X2 once)")
+    note("decompress_sharded", ran)
+    ms, _peak, _ = median_ms(dev, lambda: decompress_sharded(main,
+                                                             device=dev))
+    sms, _peak, _ = median_ms(dev, lambda: decompress_sharded_device(
+        main, algorithm="serial", device=dev))
+    report(f"  decompress_sharded of the main path's container: the corpus "
+           f"back, X2 once, {len(data) / ms / 1e3:.2f} MB/s ({ms:.1f} ms, "
+           f"median of {ONE_SHOT_REPS}); decompress_sharded_device serial "
+           f"{len(data) / sms / 1e3:.2f} MB/s ({sms:.1f} ms) [{card}]")
+    raw = corpus(C2_BYTES, seed=2)
+    stream = tt.compress(raw, device=dev)
+    v1 = (b"TTPU" + struct.pack("<BBIQI", 1, 0, 1, len(raw), len(stream))
+          + stream)
+    back, ran, ms = counted(lambda: decompress_sharded(v1, device=dev))
+    if back != raw:
+        fail("decompress_sharded: the v1 frame of one shard past 1 MiB did "
+             "not decode whole")
+    note("decompress_sharded v1 frame", ran)
+    report(f"  decompress_sharded of a v1 frame, one shard of {len(raw)} "
+           f"bytes: whole in {ms:.1f} ms; launches {ran} [{card}]")
+    try:
+        decompress_sharded(_pack_frame([oob_stream()], 4096, 4096),
+                           device=dev)
+    except tt.OutOfBoundsError as e:
+        report(f"  decompress_sharded of a stream reading past the window: "
+               f"OutOfBoundsError ({e})")
+    else:
+        fail("decompress_sharded: a stream reading past the window was "
+             "not refused")
+
+    def write(impl, piece, chunks=STREAM_CHUNKS):
+        """(the stream, median seconds of ONE_SHOT_REPS writes of it)."""
+        secs = []
+        for _ in range(ONE_SHOT_REPS):
+            buf = io.BytesIO()
+            t = time.perf_counter()
+            with tt.open(buf, "wb", implementation=impl) as c:
+                chunked_write(c, piece, chunks)
+            secs.append(time.perf_counter() - t)
+        return buf.getvalue(), statistics.median(secs)
+
+    small = data[:PY_STREAM_BYTES]
+    py, py_s = write("python", small)
+    if write("native", small)[0] != py:
+        fail("open: the C++ and the Python streams differ on "
+             f"{len(small)} bytes")
+    big = data[:NATIVE_STREAM_BYTES]
+    nat, nat_s = write("native", big)
+    for impl, blob, piece in (("python", py, small), ("native", nat, big),
+                              ("native", py, small)):
+        t = time.perf_counter()
+        back = tt.open(io.BytesIO(blob), "rb", implementation=impl).read()
+        secs = time.perf_counter() - t
+        if back != piece:
+            fail(f"open: the {impl} decoder did not read a stream back")
+        report(f"  open, {impl} decode of {len(piece)} bytes: "
+               f"{len(piece) / secs / 1e6:.2f} MB/s (host)")
+    back, ran, _ms = counted(lambda: tt.decompress(nat, device=dev))
+    if back != big:
+        fail("open: the card's X2 did not decode the C++ stream")
+    note("decompress of the C++ stream", ran)
+    report(f"  open, chunked writes (1, 7 and 4096 bytes, a flush between): "
+           f"Python stream of {len(small)} bytes {len(small) / py_s / 1e6:.2f}"
+           f" MB/s, C++ stream of {len(big)} bytes "
+           f"{len(big) / nat_s / 1e6:.2f} MB/s (host, medians of "
+           f"{ONE_SHOT_REPS}); equal on "
+           f"{len(small)} bytes, decoded back by both and by X2 (launches "
+           f"{ran}) [{card}]")
+    whole, whole_s = write("native", data, chunks=WHOLE_CHUNKS)
+    card_stream, ran, ms = counted(lambda: tt.compress(data, device=dev))
+    if whole != card_stream:
+        fail("open: the C++ stream of the corpus differs from "
+             "tamp_tpu_torch.compress's stream from the card")
+    note("compress (the card's stream)", ran)
+    report(f"  open, C++ stream of the {len(data)}-byte corpus (4096-byte "
+           f"writes): {len(data) / whole_s / 1e6:.2f} MB/s (host, median of "
+           f"{ONE_SHOT_REPS}), equal to "
+           f"tamp_tpu_torch.compress's from the card ({ms:.1f} ms) [{card}]")
+
+    buf, calls = io.BytesIO(), [0]
+
+    def aborter(_bi, _bo):
+        calls[0] += 1
+        return calls[0] == 2
+
+    c = NativeCompressor(buf)
+    c.set_progress_callback(aborter)
+    try:
+        c.write(big)
+        fail("open: the callback's abort did not stop the write")
+    except tt.AbortedError:
+        pass
+    c.write(b"")  # resume: the rest of the input is held
+    c.close()
+    d = NativeDecompressor(buf.getvalue())
+    d.set_progress_callback(lambda _bi, _bo: True)
+    got = bytearray(len(big))
+    try:
+        d.readinto(got)
+        fail("open: the callback's abort did not stop the read")
+    except tt.AbortedError:
+        pass
+    d.set_progress_callback(None)
+    rest = d.read()
+    k = len(big) - len(rest)
+    if buf.getvalue() != write("native", big, chunks=WHOLE_CHUNKS)[0] or \
+            bytes(got[:k]) + bytes(rest) != big or not 0 < k < len(big):
+        fail("open: an aborted stream did not resume to the same bytes")
+    report(f"  open, abort from a progress callback: the C++ stream of "
+           f"{len(big)} bytes resumed to the same bytes; the decoder stopped "
+           f"after {k} bytes and resumed to the rest")
     return extra
 
 
@@ -3068,9 +3285,11 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
             del os.environ["TAMP_TPU_DECODE"]
 
     for name, fn in (
-            ("encode", lambda: compress_sharded(data, shard_size=shard_size)),
+            ("encode", lambda: compress_sharded(
+                data, shard_size=shard_size, engine="device-commit")),
             ("extended lazy encode", lambda: compress_sharded(
-                data, shard_size=shard_size, lazy_matching=True)),
+                data, shard_size=shard_size, lazy_matching=True,
+                engine="device-commit")),
             ("decode", lambda: decompress_sharded_device(blob)),
             ("decode (chase)", chase),
             ("greedy encode", lambda: compress_sharded(
@@ -3702,7 +3921,8 @@ def main() -> int:
     modes_in = {k: v for k, v in blobs.items()
                 if not k.startswith(("greedy", "optimal", "device"))}
     modes_in["extended w15"] = compress_sharded(
-        data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev)
+        data, window=15, shard_size=DEFAULT_SHARD_SIZE, device=dev,
+        engine="device-commit")
     report(f"phase 3: extended w15 container encoded in "
            f"{time.perf_counter() - t1:.1f} s, ratio "
            f"{len(modes_in['extended w15']) / len(data):.6f}")
@@ -3722,6 +3942,13 @@ def main() -> int:
         for key, counts in keys.items():
             new_launches.setdefault(wrapper, {})[key] = counts
     report(f"phase 3: front door done ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    for wrapper, keys in phase_api_rest(dev, report, data, blobs,
+                                        card).items():
+        for key, counts in keys.items():
+            new_launches.setdefault(wrapper, {})[key] = counts
+    report(f"phase 3: the rest of the API done "
+           f"({time.perf_counter() - t1:.1f} s)")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -3729,8 +3956,9 @@ def main() -> int:
                                  dec_launches, mesh_launches,
                                  DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
-    # the file decode's, entry()'s, the dry run's and the front door's
-    # launches join the row of their kernel (B5's first row for v1_tables)
+    # the file decode's, entry()'s, the dry run's, the front door's and the
+    # rest of the API's launches join the row of their kernel (B5's first
+    # row for v1_tables)
     rows = {}
     for k in kernels:
         rows.setdefault(k["name"].split()[0], k)

@@ -10,26 +10,42 @@ The front door, on the NVIDIA card unless ``device="cpu"`` is asked for:
   (:mod:`tamp_tpu_torch.cli.main`), whose outputs equal ``python -m
   tamp_tpu``'s;
 - the TTPU containers of independent streams:
-  :func:`tamp_tpu_torch.parallel.shard.compress_sharded` (engines
-  ``"device-commit"``, ``"device-greedy"``, ``"device-optimal"``,
-  ``"device"``), ``compress_file_sharded``, ``decompress_sharded_device``
-  (every device decode mode of the JAX package and
-  ``algorithm="serial"``) and ``decompress_file_sharded``.
+  :func:`tamp_tpu_torch.parallel.shard.compress_sharded` (the JAX engine
+  names ``"native"`` (the default), ``"tables"`` and ``"optimal"`` as
+  routes on the card, and ``"device-commit"``, ``"device-greedy"``,
+  ``"device-optimal"``, ``"device"``), ``compress_file_sharded``,
+  ``decompress_sharded`` (kernel X2 a batch of shards),
+  ``decompress_sharded_device`` (every device decode mode of the JAX
+  package and ``algorithm="serial"``) and ``decompress_file_sharded``.
+
+The streaming codec is host code, as in the JAX package: :func:`open`,
+:class:`Compressor` / :class:`Decompressor` and their ``Text*`` forms (the
+port's copies of the Python codec) and, for binary modes by default, the
+C++ streams of :mod:`tamp_tpu_torch.stream` with progress callbacks.  A
+mid-stream flush leaves a window state no device encoder models, and a
+write of a few bytes is work a launch could only slow; these classes take
+no ``device``.
 
 Extended and v1 formats, lazy matching on and off, windows 8-15, literals
 5-8.  The package imports PyTorch and NumPy only; its CUDA kernels
 (``csrc/*.cu``) are built with ``nvcc``, and its host greedy committer
-(``csrc/greedy_commit.cpp``) with the host C++ compiler, at first use
-(:mod:`tamp_tpu_torch.ops._build`).
+and streams (``csrc/greedy_commit.cpp``, ``csrc/stream.cpp``) with the
+host C++ compiler, at first use (:mod:`tamp_tpu_torch.ops._build`).
 """
 
+__version__ = "0.1.0"
+
+from .compressor import Compressor, TextCompressor
 from .constants import compute_min_pattern_size
+from .decompressor import Decompressor, TextDecompressor
 from .dictionary import dictionary_array, initialize_dictionary
-from .exceptions import ExcessBitsError, OutOfBoundsError
+from .exceptions import AbortedError, ExcessBitsError, OutOfBoundsError
 
 __all__ = ["compress", "decompress", "initialize_dictionary",
            "compute_min_pattern_size", "bit_size", "dictionary_array",
-           "ExcessBitsError", "OutOfBoundsError", "MAX_STREAM_BYTES"]
+           "Compressor", "TextCompressor", "Decompressor",
+           "TextDecompressor", "open", "AbortedError", "ExcessBitsError",
+           "OutOfBoundsError", "MAX_STREAM_BYTES", "__version__"]
 
 # The longest input one stream may have.  The encodes pad a stream to a
 # power of two of positions; at 2**27 a stream of literals (9 bits a byte)
@@ -106,3 +122,34 @@ def bit_size(value: int) -> int:
             return i
         value >>= 1
     return -1
+
+
+def open(f, mode: str = "rb", *, implementation: str = "auto", **kwargs):
+    """Open a Tamp stream for reading (decompression) or writing
+    (compression), as ``tamp_tpu.open`` does: ``"r"``/``"rb"`` give a
+    (Text)Decompressor, ``"w"``/``"wb"`` a (Text)Compressor; binary modes
+    take bytes, text modes str.
+
+    ``implementation``: ``"auto"`` and ``"native"`` give the C++ streams
+    (:mod:`tamp_tpu_torch.stream`) for binary modes, ``"python"`` the
+    Python codec; text modes are always Python.  Host code: no device."""
+    if "r" in mode and "w" in mode:
+        raise ValueError(f"Cannot open in both read and write mode: {mode!r}")
+    if implementation not in ("auto", "python", "native"):
+        raise ValueError(f"Unknown implementation: {implementation!r}")
+    native = implementation != "python" and "b" in mode
+    if "r" in mode:
+        if native:
+            from .stream import NativeDecompressor
+
+            return NativeDecompressor(f, **kwargs)
+        cls = Decompressor if "b" in mode else TextDecompressor
+        return cls(f, **kwargs)
+    if "w" in mode:
+        if native:
+            from .stream import NativeCompressor
+
+            return NativeCompressor(f, **kwargs)
+        cls = Compressor if "b" in mode else TextCompressor
+        return cls(f, **kwargs)
+    raise ValueError(f"Invalid mode: {mode!r}")

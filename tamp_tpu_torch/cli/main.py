@@ -8,22 +8,26 @@ tamp_tpu``'s for the same arguments:
 
 - ``compress``: the one-shot :func:`tamp_tpu_torch.compress` (the
   reference greedy encoder's stream, as the native encoder writes it);
+  ``--implementation native`` the port's C++ stream
+  (:class:`tamp_tpu_torch.stream.NativeCompressor`), ``engine``
+  ``engine.encode_device`` (extended) or ``engine.encode_v1`` on the
+  card, ``python`` the Python codec (:mod:`tamp_tpu_torch.compressor`);
 - ``compress --sharded``: the TTPU container of
-  ``compress_sharded(engine="device-greedy")`` (extended) or
-  ``"device-commit"`` (v1), whose streams are the native encoder's; file
-  to file, ``compress_file_sharded`` with ``engine="device-greedy"`` or
-  ``"device"``;
+  ``compress_sharded(engine="native")``, the JAX CLI's engine (the
+  reference greedy encoder's streams, on the card); file to file,
+  ``compress_file_sharded(engine="native")``;
 - ``--optimal``: the minimum-bit parse, one stream or
-  ``engine="device-optimal"`` with ``--sharded``;
+  ``engine="optimal"`` with ``--sharded``;
 - ``decompress``: a TTPU container through ``decompress_file_sharded``
-  (file to file) or ``decompress_sharded_device``, a raw stream through
-  :func:`tamp_tpu_torch.decompress`;
+  (file to file) or ``decompress_sharded`` (kernel X2), a raw stream
+  through :func:`tamp_tpu_torch.decompress`, or with ``--implementation
+  native`` / ``python`` the port's C++ or Python stream decoder;
 - ``build-dictionary``: :mod:`tamp_tpu_torch.dictbuild`.
 
-The JAX CLI's ``--implementation`` names host codecs the port does not
-have; ``--device {cuda,cpu}`` (default ``cuda``) takes its place, and
-without a card the CLI exits with ``resolve_device``'s message unless
-``--device cpu`` is given.
+``--device {cuda,cpu}`` (default ``cuda``) picks where the card's routes
+run: without a card they exit with ``resolve_device``'s message unless
+``--device cpu`` is given.  The host streams of ``--implementation native``
+and ``python`` need no card.
 """
 
 from __future__ import annotations
@@ -46,6 +50,55 @@ def _write(output: Path | None, data: bytes) -> None:
         sys.stdout.buffer.flush()
     else:
         output.write_bytes(bytes(data))
+
+
+def compress_implementation(name: str):
+    """The one-shot compress of the JAX CLI's ``--implementation`` choice:
+    ``fn(data, *, window, literal, extended, lazy_matching, dictionary,
+    device)`` returning the stream; ``device`` is a callable that resolves
+    the card, called by the ``engine`` route only."""
+    if name == "native":
+        import io
+
+        from tamp_tpu_torch.stream import NativeCompressor
+
+        def fn(data, *, device, **kw):
+            buf = io.BytesIO()
+            with NativeCompressor(buf, **kw) as c:
+                c.write(data)
+            return buf.getvalue()
+    elif name == "engine":
+        from tamp_tpu_torch.engine import encode_device, encode_v1
+
+        def fn(data, *, extended, device, **kw):
+            if extended:
+                return encode_device(data, device=device(), **kw)
+            return encode_v1(data, device=device(), **kw)
+    else:
+        from tamp_tpu_torch.compressor import compress
+
+        def fn(data, *, device, **kw):
+            return compress(data, **kw)
+    return fn
+
+
+def decompress_implementation(name: str):
+    """The one-shot decompress of ``--implementation native`` (the C++
+    stream, which raises OutOfBoundsError as the native decoder does) or
+    ``python`` (the Python codec): ``fn(data, *, dictionary)``."""
+    if name == "native":
+        from tamp_tpu_torch.stream import NativeDecompressor
+
+        def fn(data, *, dictionary):
+            with NativeDecompressor(data, dictionary=dictionary) as d:
+                return bytes(d.read())
+    else:
+        from tamp_tpu_torch.decompressor import decompress
+
+        def fn(data, *, dictionary):
+            return bytes(decompress(data, dictionary=None if dictionary is None
+                                    else bytearray(dictionary)))
+    return fn
 
 
 def load_dictionary(path: Path, window: int, literal: int,
@@ -118,6 +171,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="minimum-bit parse (smaller than the reference "
                         "encoder's output, still spec-conforming; combine "
                         "with --no-extended for the v1 format)")
+    c.add_argument("--implementation", choices=("native", "engine", "python"),
+                   default=None,
+                   help="one-shot encoder: the C++ stream (native), the "
+                        "table engine on the card (engine) or the Python "
+                        "codec (python); default: the card's one-shot")
     _add_device_arg(c)
 
     d = sub.add_parser("decompress", help="Decompress an input file or stream.")
@@ -126,6 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--window", "-w", type=_window, default=10)
     d.add_argument("--literal", "-l", type=_literal, default=8)
     d.add_argument("--no-extended", dest="extended", action="store_false")
+    d.add_argument("--implementation", choices=("native", "python"),
+                   default=None,
+                   help="stream decoder: the C++ stream (native) or the "
+                        "Python codec (python); default: the card's X2")
     _add_device_arg(d)
 
     b = sub.add_parser("build-dictionary",
@@ -174,28 +236,29 @@ def _compress(args, dev) -> int:
         compress_file_sharded(
             inp, args.output, lazy_matching=args.lazy_matching,
             dictionary=_dictionary(args), shard_size=args.shard_size,
-            engine="device-greedy" if args.extended else "device",
-            device=dev, **cfg)
+            engine="native", device=dev(), **cfg)
         return 0
     data = _read(inp)
     dictionary = _dictionary(args)
     if args.sharded:
-        if args.optimal:
-            engine = "device-optimal"
-        else:
-            engine = "device-greedy" if args.extended else "device-commit"
         out = compress_sharded(
             data, lazy_matching=args.lazy_matching, dictionary=dictionary,
-            shard_size=args.shard_size, engine=engine, device=dev, **cfg)
+            shard_size=args.shard_size,
+            engine="optimal" if args.optimal else "native", device=dev(),
+            **cfg)
+    elif args.implementation is not None and not args.optimal:
+        out = compress_implementation(args.implementation)(
+            data, lazy_matching=args.lazy_matching, dictionary=dictionary,
+            device=dev, **cfg)
     else:
         if len(data) > tt.MAX_STREAM_BYTES:
             raise SystemExit(
                 f"one stream on the card is limited to {tt.MAX_STREAM_BYTES}"
                 f" bytes ({len(data)} given); use --sharded")
         out = tt.compress(data, lazy_matching=args.lazy_matching,
-                       dictionary=dictionary,
-                       parse="optimal" if args.optimal else "greedy",
-                       device=dev, **cfg)
+                          dictionary=dictionary,
+                          parse="optimal" if args.optimal else "greedy",
+                          device=dev(), **cfg)
     _write(args.output, out)
     return 0
 
@@ -203,7 +266,7 @@ def _compress(args, dev) -> int:
 def _decompress(args, dev) -> int:
     from tamp_tpu_torch import decompress
     from tamp_tpu_torch.parallel.shard import (
-        decompress_file_sharded, decompress_sharded_device,
+        decompress_file_sharded, decompress_sharded,
     )
 
     inp = args.input_opt or args.input
@@ -212,15 +275,18 @@ def _decompress(args, dev) -> int:
             magic = f.read(4)
         if magic == b"TTPU":  # file-to-file container: bounded memory
             decompress_file_sharded(inp, args.output,
-                                    dictionary=_dictionary(args), device=dev)
+                                    dictionary=_dictionary(args),
+                                    device=dev())
             return 0
     data = _read(inp)
     dictionary = _dictionary(args)
     if data[:4] == b"TTPU":
-        out = decompress_sharded_device(data, dictionary=dictionary,
-                                        device=dev)
+        out = decompress_sharded(data, dictionary=dictionary, device=dev())
+    elif args.implementation is not None:
+        out = decompress_implementation(args.implementation)(
+            data, dictionary=dictionary)
     else:
-        out = decompress(data, dictionary=dictionary, device=dev)
+        out = decompress(data, dictionary=dictionary, device=dev())
     _write(args.output, bytes(out))
     return 0
 
@@ -229,10 +295,15 @@ def main(argv=None) -> int:
     from tamp_tpu_torch.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+
+    def dev():
+        """The card (or ``--device cpu``), resolved where a route needs it:
+        the host streams of ``--implementation`` need none."""
+        try:
+            return resolve_device(args.device)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+
     if args.command == "compress":
         return _compress(args, dev)
     if args.command == "decompress":
@@ -244,7 +315,7 @@ def main(argv=None) -> int:
             args.corpus, window=args.window, size=args.size,
             delimiter=args.delimiter, trim_threshold=args.trim_threshold,
             target_fill=args.target_fill, auto_trim=args.auto_trim,
-            auto_size=args.auto_size, device=dev,
+            auto_size=args.auto_size, device=dev(),
         )
         args.output.write_bytes(bytes(dictionary))
         print(f"Wrote {len(dictionary)}-byte dictionary to {args.output}",

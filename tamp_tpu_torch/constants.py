@@ -36,17 +36,33 @@ HUFFMAN_CODES = (
 )
 HUFFMAN_LENGTHS = (2, 3, 5, 5, 6, 7, 7, 7, 8, 8, 9, 9, 9, 7, 9)
 
+#: Number of Huffman symbols (including FLUSH).
+NUM_SYMBOLS = 15
+
 #: Symbol indices with special meaning.
 RLE_SYMBOL = 12
 EXTENDED_MATCH_SYMBOL = 13
 FLUSH_SYMBOL = 14
 
+#: The FLUSH code as written on the wire: 9 bits, value 0x0AB (0b010101011).
+FLUSH_CODE = 0xAB
+FLUSH_BITS = 9
+
 #: Trailing ("extra") bit counts for the secondary extended-Huffman encoding.
 RLE_TRAILING_BITS = 4
 EXTENDED_MATCH_TRAILING_BITS = 3
 
+#: RLE runs encode counts in [2, 241]: (14 << 4) + 15 + 2.
+RLE_MIN_COUNT = 2
+RLE_MAX_COUNT = ((14 << RLE_TRAILING_BITS) + ((1 << RLE_TRAILING_BITS) - 1)
+                 + RLE_MIN_COUNT)
 #: At most this many bytes of an RLE run are written into the window.
 RLE_MAX_WINDOW_WRITE = 8
+
+#: Extended matches span [min_pattern + 12, min_pattern + 131].
+EXTENDED_MATCH_EXTRA_MAX = (14 << EXTENDED_MATCH_TRAILING_BITS) + (
+    (1 << EXTENDED_MATCH_TRAILING_BITS) - 1
+)  # 119
 
 #: XorShift32 seed used for default dictionary initialization
 #: (reference: tamp/__init__.py:37, discovered by tools/find_seed.py).
@@ -63,6 +79,10 @@ WINDOW_BITS_MAX = 15
 LITERAL_BITS_MIN = 5
 LITERAL_BITS_MAX = 8
 
+#: Size of the reference compressor's look-ahead buffer: the streaming
+#: codec (compressor.py) emits tokens only with this many bytes pending.
+INPUT_BUFFER_SIZE = 16
+
 
 def compute_min_pattern_size(window: int, literal: int) -> int:
     """Minimum beneficial match length for a (window, literal) configuration.
@@ -77,3 +97,11 @@ def compute_min_pattern_size(window: int, literal: int) -> int:
     if not (LITERAL_BITS_MIN <= literal <= LITERAL_BITS_MAX):
         raise ValueError(f"literal must be in [5, 8], got {literal}")
     return 2 + (1 if window > 10 + ((literal - 5) << 1) else 0)
+
+
+def max_pattern_size(window: int, literal: int, extended: bool) -> int:
+    """Longest encodable match for a configuration."""
+    mps = compute_min_pattern_size(window, literal)
+    if extended:
+        return mps + 11 + EXTENDED_MATCH_EXTRA_MAX + 1  # mps + 131
+    return mps + 13

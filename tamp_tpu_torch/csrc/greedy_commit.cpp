@@ -9,8 +9,11 @@
 // stream per call.  Behavioral spec: BrianPugh/tamp tamp/compressor.py:281-447
 // and tamp/_c_src/tamp/compressor.c:437-660.
 //
-// The EXTENDED format only (max pattern minp + 131, RLE and extended
-// symbols); the port's v1 streams come from the card's commit kernels.
+// The table encodes write the extended format (max pattern minp + 131, RLE
+// and extended symbols); the port's v1 streams come from the card's commit
+// kernels.  The walk also keeps the native engine's v1 mode (``extended``
+// off: no RLE or extended tokens, max pattern minp + 13), which the
+// streaming handles of csrc/stream.cpp use.
 //
 // Tables (the card's cap-16 and probe tables, ops/match_v1.py)
 // are optional; with none the committer is the reference greedy encoder.
@@ -48,13 +51,14 @@
 // the walk that expands the card's choice plane into tokens
 // (tampn_opt_ext_walk).
 //
-// Left out of the copy: the v1 format (engine="device" sends v1 to the
-// card's commit kernels, engine/pipeline.encode_v1_device_commit, whose
-// streams are the same reference greedy ones), the streaming handles
-// (incremental write, flush, dictionary reset, progress callbacks), the
-// decoders and the native engine's own dictionary generator (the caller
-// passes the window).  The Huffman encode tables are constant data;
-// nothing global is written, so calls run in parallel threads.
+// The streaming handles (incremental write, flush, dictionary reset,
+// progress callbacks) and the stream decoder are in csrc/stream.cpp, which
+// includes this file.  Left out of the copy: the native engine's one-shot
+// decoder and its v1 table encode (engine="device" sends v1 to the card's
+// commit kernels, engine/pipeline.encode_v1_device_commit, whose streams
+// are the same reference greedy ones).  The Huffman encode tables are
+// constant data; nothing global is written, so calls run in parallel
+// threads.
 //
 // Build: c++ -O3 -std=c++17 -shared -fPIC (ops/_build.py).
 
@@ -141,7 +145,7 @@ struct SearchResult { int idx; int size; };
 struct Committer {
   // config
   int W, wmask, wbits, literal, minp, maxpat;
-  bool lazy = false;
+  bool extended = true, lazy = false;
   // Split extended matches at the ring end instead of truncating the window
   // write (one more token a ring cycle, no divergence).
   bool avoid_divergence = false;
@@ -734,60 +738,62 @@ struct Committer {
       return;  // drained input while growing
     }
 
-    // --- RLE accumulation / decision -----------------------------------
-    uint8_t last = last_ring_byte();
+    // --- RLE accumulation / decision (extended format) -----------------
     int pend = (int)(rem < LOOKAHEAD ? rem : LOOKAHEAD);
-    int avail = 0;
-    while (avail < pend && data[t + avail] == last &&
-           rle_count + avail < RLE_MAX) avail++;
-    int total = rle_count + avail;
-    bool ended = (avail < pend) || (total >= RLE_MAX);
-    // A run reaching a plan boundary cannot continue: emit it now so no
-    // pending count leaks into the forced-RLE region.
-    if (plan && t + avail >= B) ended = true;
-    if (!ended && total > 0) {
-      cached_idx = -1;
-      if (rle_count == 0) rle_start = t;
-      rle_count = total;
-      t += avail;
-      return;
-    }
-    if (total >= 2) {
-      bool use_pattern = false;
-      if (total == avail && total <= 6) {
-        SearchResult r = first_search(rem);
-        if (r.size > total) use_pattern = true;
-      }
-      if (!use_pattern) {
+    if (extended) {
+      uint8_t last = last_ring_byte();
+      int avail = 0;
+      while (avail < pend && data[t + avail] == last &&
+             rle_count + avail < RLE_MAX) avail++;
+      int total = rle_count + avail;
+      bool ended = (avail < pend) || (total >= RLE_MAX);
+      // A run reaching a plan boundary cannot continue: emit it now so no
+      // pending count leaks into the forced-RLE region.
+      if (plan && t + avail >= B) ended = true;
+      if (!ended && total > 0) {
         cached_idx = -1;
         if (rle_count == 0) rle_start = t;
-        if (plan && rle_count == 0) {
-          // Steady-state ring-end split: consume only up to the ring end
-          // so the remainder re-enters the full decision at the next
-          // step, as the device planner's next walk entry does.
-          int wr0 = total < RLE_MAX_WIN ? total : RLE_MAX_WIN;
-          int r = W - pos;
-          if (wr0 > r) {
-            if (r >= 2) {
-              t += r;
-              rle_count = r;
-              emit_rle();
-              return;
-            }
-            if (!emit_literal(data[t])) return;  // r == 1
-            t += 1;
-            return;
-          }
-        }
-        t += avail;
         rle_count = total;
-        emit_rle();
+        t += avail;
         return;
       }
-      rle_count = 0;
-    } else if (total == 1) {
-      if (rle_count == 1) { cached_idx = -1; emit_rle(); return; }
-      rle_count = 0;
+      if (total >= 2) {
+        bool use_pattern = false;
+        if (total == avail && total <= 6) {
+          SearchResult r = first_search(rem);
+          if (r.size > total) use_pattern = true;
+        }
+        if (!use_pattern) {
+          cached_idx = -1;
+          if (rle_count == 0) rle_start = t;
+          if (plan && rle_count == 0) {
+            // Steady-state ring-end split: consume only up to the ring end
+            // so the remainder re-enters the full decision at the next
+            // step, as the device planner's next walk entry does.
+            int wr0 = total < RLE_MAX_WIN ? total : RLE_MAX_WIN;
+            int r = W - pos;
+            if (wr0 > r) {
+              if (r >= 2) {
+                t += r;
+                rle_count = r;
+                emit_rle();
+                return;
+              }
+              if (!emit_literal(data[t])) return;  // r == 1
+              t += 1;
+              return;
+            }
+          }
+          t += avail;
+          rle_count = total;
+          emit_rle();
+          return;
+        }
+        rle_count = 0;
+      } else if (total == 1) {
+        if (rle_count == 1) { cached_idx = -1; emit_rle(); return; }
+        rle_count = 0;
+      }
     }
 
     // --- pattern matching ----------------------------------------------
@@ -816,7 +822,7 @@ struct Committer {
     }
 
     if (size >= minp) {
-      if (size > minp + 11) {
+      if (extended && size > minp + 11) {
         if (plan && !from_cache) {
           // One-shot: the longest match over the model stream, capped at
           // the plan boundary keeping its slot (emit_ext_planned).

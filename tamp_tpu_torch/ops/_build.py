@@ -4,14 +4,15 @@ Two routes, one per source kind:
 
 - a CUDA kernel source ``csrc/<name>.cu`` is compiled by ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface;
-- a host source ``csrc/<name>.cpp`` (the greedy committer) is compiled by
-  the host C++ compiler (``$CXX``, else ``c++``) with ``-O3 -std=c++17
-  -shared -fPIC``.
+- a host source ``csrc/<name>.cpp`` (the greedy committer, the streaming
+  handles) is compiled by the host C++ compiler (``$CXX``, else ``c++``)
+  with ``-O3 -std=c++17 -shared -fPIC``.
 
 Each source gets its own compiler process (all processes start together),
 under ``build/tamp_tpu_torch/`` at the repository root, at first use.  The
-file name carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is loaded as is.  The libraries are bound
+file name carries a hash of the source, the files it includes
+(:data:`DEPS`) and the flags, so an edited source rebuilds and an
+unchanged one is loaded as is.  The libraries are bound
 with ``ctypes``.  For a kernel (:func:`launch`) every pointer and the
 stream are passed as ``c_void_p`` (a Python int from ``tensor.data_ptr()``
 or ``stream.cuda_stream``), every C entry returns ``cudaGetLastError()``
@@ -19,7 +20,8 @@ after its launch, and :func:`check` raises on a non-zero code.
 
 Nothing here runs at import: the CPU tests import every module, and a
 build is only started by a wrapper handed a CUDA tensor, by the greedy
-committer's first call (engine/greedy.py), or by ``chip_smoke.py``.
+committer's first call (engine/greedy.py), by the first native stream
+(stream.py), or by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ __all__ = ["load", "build_all", "check", "launch", "SOURCES"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tamp_tpu_torch"
 SOURCES = ("match_ext", "encode_commit", "decode_commit", "decode_wavefront",
-           "decode_serial", "greedy_predict", "opt_parse", "greedy_commit")
+           "decode_serial", "greedy_predict", "opt_parse", "greedy_commit",
+           "stream")
+# the csrc files a source includes, hashed with it
+DEPS = {"stream": ("greedy_commit.cpp",)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
@@ -81,8 +86,9 @@ def _flags(src: Path) -> list[str]:
 
 def _target(name: str) -> Path:
     src = _source(name)
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(_flags(src)).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(
+        (CSRC / dep).read_bytes() for dep in DEPS.get(name, ()))
+    key = hashlib.sha256(text + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 

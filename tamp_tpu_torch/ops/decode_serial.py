@@ -239,7 +239,8 @@ def decode_shards_device(shards, *, dictionary=None, max_out: int,
                          device=None) -> list[bytes]:
     """Decode same-config Tamp streams (header included) token by token on
     the card; ``max_out`` bounds each shard's decoded size (the output is
-    cut there).  All shards must share one header configuration."""
+    cut there).  All shards must share one header configuration.  A match
+    reading past the window raises OutOfBoundsError (a ValueError)."""
     dev = resolve_device(device)
     if not shards:
         return []
@@ -257,6 +258,10 @@ def decode_shards_device(shards, *, dictionary=None, max_out: int,
         torch.from_numpy(default_dict).to(dev), window=window,
         literal=literal, extended=extended, more=more, max_out=max_out)
     errs = errs.cpu().numpy()
+    if (errs == ERR_OOB).any():
+        raise OutOfBoundsError(
+            "window reference outside the window in shard(s) "
+            f"{np.nonzero(errs == ERR_OOB)[0][:4]}")
     if errs.any():
         raise ValueError(
             f"invalid tamp stream in shard(s) {np.nonzero(errs)[0][:4]}")

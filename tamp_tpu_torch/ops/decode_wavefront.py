@@ -68,6 +68,11 @@ MODES = ("commit", "chase", "xla")
 K_PAD = 5       # token-table slot past the last token
 ERR_SEGKEY = 4  # too many double-FLUSH segments for the keyed search
 I32MAX = 2**31 - 1
+# The largest max_out of a decode: kernel B4 takes the power-of-two bucket
+# of max_out as an int, so the bucket stays at most 2**30.  The payload's
+# bit offsets are int32 too (nxt, B4's packed words): payload_parse
+# refuses a bucket of 2**28 payload bytes (2**31 bits) or more.
+MAX_OUT = 1 << 30
 RLE_MAX_WINDOW_WRITE = 8
 BLOCK_BITS = 256  # block of the xla token table; a token is <= 35 bits
 ENTRY_SPAN = 64   # block-exit offsets are < 35: the entry offsets a map needs
@@ -198,6 +203,10 @@ def payload_parse(payloads, *, window: int, literal: int, extended: bool,
     the bucket's last bit is dropped in its commit and chase modes)."""
     S = len(payloads)
     L = _pow2_bucket(max(len(p) for p in payloads) + 1, 64)
+    if 8 * L > I32MAX:
+        raise ValueError(
+            f"a payload of {max(len(p) for p in payloads)} bytes is past the "
+            "wavefront decode's int32 bit offsets")
     # the parse peeks up to ~22 bits past a start at bit 8L: pad 8 bytes
     blobs = np.zeros((S, L + 8), np.uint8)
     nbytes = np.zeros(S, np.int32)

@@ -88,7 +88,7 @@ def compress_distributed(
     dictionary: bytes | None = None,
     shard_size: int = 1 << 20,
     workers: int | None = None,
-    engine: str = "device-commit",
+    engine: str = "native",
     device=None,
 ) -> bytes | None:
     """Compress ``data`` cooperatively across the world's processes.
@@ -96,9 +96,10 @@ def compress_distributed(
     Every process passes the same ``data``.  Each encodes the TTPU shards
     it owns (round-robin: shard i belongs to rank ``i % world``) as one
     batch with ``engine``'s encoder, lazy matching off (the engines of
-    :func:`tamp_tpu_torch.parallel.shard.compress_sharded`; the JAX
-    package's host engines raise NotImplementedError on every rank before
-    any collective).  Two host gathers follow: the shards' sizes, each
+    :func:`tamp_tpu_torch.parallel.shard.compress_sharded`, ``"native"`` by
+    default as in the JAX package; an unknown name, or a shard longer than
+    MAX_STREAM_BYTES, raises ValueError on every rank before any
+    collective).  Two host gathers follow: the shards' sizes, each
     rank filling its own, then one flat buffer a rank, padded to the
     largest rank's total.  Returns the container on rank 0, byte-identical
     to ``compress_sharded``'s, and None elsewhere; a single-process call
@@ -110,7 +111,7 @@ def compress_distributed(
 
     from ..constants import compute_min_pattern_size
     from ..exceptions import ExcessBitsError
-    from .shard import _encoder, _pack_frame, compress_sharded
+    from .shard import _check_shard, _encoder, _pack_frame, compress_sharded
 
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return compress_sharded(
@@ -120,6 +121,7 @@ def compress_distributed(
     # checks that raise alike on every rank, before any collective
     encode = _encoder(engine, extended, workers)
     compute_min_pattern_size(window, literal)
+    _check_shard(shard_size, len(data))
 
     pid, n = dist.get_rank(), dist.get_world_size()
     data = bytes(data)

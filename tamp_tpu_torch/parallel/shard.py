@@ -27,13 +27,19 @@ from __future__ import annotations
 import os
 import struct
 
+from .. import MAX_STREAM_BYTES
+
 __all__ = ["make_mesh", "sharded_search_step", "sharded_decode_step",
-           "compress_sharded", "compress_file_sharded",
+           "compress_sharded", "compress_file_sharded", "decompress_sharded",
            "decompress_sharded_device", "decompress_file_sharded",
-           "DEFAULT_SHARD_SIZE"]
+           "DEFAULT_SHARD_SIZE", "ENGINES"]
 
 MAGIC = b"TTPU"
 DEFAULT_SHARD_SIZE = 1 << 20
+# The container encodes' engines: the JAX package's names, each a route on
+# the card (see _route), and the port's device engines.
+ENGINES = ("native", "tables", "optimal", "device-commit", "device-greedy",
+           "device-optimal", "device")
 
 
 def _pack_frame(blobs, raw_size: int, shard_size: int) -> bytes:
@@ -87,12 +93,58 @@ def _parse_frame(blob):
     return raw_size, shard_size, [_read_exact(read, sz) for sz in sizes]
 
 
-def _max_out(frame_shard_size, shard_size):
-    """The per-shard output bound of a decode: the caller's ``shard_size``,
-    else the v2 frame's, else (a v1 frame) DEFAULT_SHARD_SIZE."""
+def _check_shard(shard_size: int, n: int) -> None:
+    """Refuse, before any read, allocation or launch, a real shard
+    (``min(shard_size, n)`` of an ``n``-byte input) longer than one stream
+    on the card may be (MAX_STREAM_BYTES, the int32 ranges of the encode
+    kernels)."""
+    if min(shard_size, n) > MAX_STREAM_BYTES:
+        raise ValueError(
+            f"a shard on the card is limited to {MAX_STREAM_BYTES} bytes "
+            f"(MAX_STREAM_BYTES); shard_size={shard_size} is too large")
+
+
+def _decode_limit(algorithm: str) -> int:
+    """The largest per-shard output bound of ``algorithm``'s decoder:
+    ``"serial"``, X2's MAX_DECODED (2**31 - 256: int output offsets, and
+    the token crossing max_out runs up to 240 bytes past it);
+    ``"wavefront"``, decode_wavefront.MAX_OUT (2**30: kernel B4 takes the
+    power-of-two bucket of max_out as an int, and its packed words and
+    nxt planes hold int32 bit offsets)."""
+    if algorithm == "serial":
+        from ..ops.decode_serial import MAX_DECODED
+
+        return MAX_DECODED
+    from ..ops.decode_wavefront import MAX_OUT
+
+    return MAX_OUT
+
+
+def _bound(raw_size: int, shard_size: int, algorithm: str,
+           room: int = 0) -> int:
+    """The per-shard output bound ``min(shard_size, raw_size)`` of a frame
+    (at least 1), ValueError where it, plus ``room`` bytes the caller adds,
+    is past ``algorithm``'s limit (:func:`_decode_limit`), before any
+    allocation or launch."""
+    bound = max(1, min(shard_size, raw_size))
+    limit = _decode_limit(algorithm) - room
+    if bound > limit:
+        raise ValueError(
+            f"a shard bound of {bound} bytes is past the {algorithm} "
+            f"decoder's limit of {limit} bytes a shard")
+    return bound
+
+
+def _max_out(raw_size, frame_shard_size, shard_size, algorithm):
+    """The per-shard output bound of a device decode: the caller's
+    ``shard_size``, else the v2 frame's, else (a v1 frame)
+    DEFAULT_SHARD_SIZE, as in the JAX package; cut to the raw size and
+    checked against ``algorithm``'s limit (:func:`_bound`)."""
     if shard_size is None:
         shard_size = frame_shard_size
-    return DEFAULT_SHARD_SIZE if shard_size is None else shard_size
+    if shard_size is None:
+        shard_size = DEFAULT_SHARD_SIZE
+    return _bound(raw_size, shard_size, algorithm)
 
 
 def _decoder(algorithm: str):
@@ -108,11 +160,26 @@ def _decoder(algorithm: str):
     return decode
 
 
+def _route(engine: str, extended: bool) -> str:
+    """The port's device engine for ``engine``: the JAX package's
+    ``"native"`` (the reference greedy encoder) is ``"device-greedy"``
+    (extended) or ``"device-commit"`` (v1), whose streams are that
+    encoder's; ``"tables"`` is ``"device"`` (streams equal to
+    ``encode_extended`` / ``encode_v1``); ``"optimal"`` is
+    ``"device-optimal"``.  ValueError for a name not in :data:`ENGINES`
+    (the JAX package writes its ``"tables"`` container for those)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}: one of {ENGINES}")
+    return {"native": "device-greedy" if extended else "device-commit",
+            "tables": "device",
+            "optimal": "device-optimal"}.get(engine, engine)
+
+
 def _encoder(engine: str, extended: bool, workers: int | None):
     """The batch encoder of ``engine`` (see :func:`compress_sharded`):
     ``encode(shards, *, window, literal, lazy_matching, dictionary,
-    device) -> list[bytes]``, one Tamp stream a shard.  Raises
-    NotImplementedError for the JAX package's host engines."""
+    device) -> list[bytes]``, one Tamp stream a shard."""
+    engine = _route(engine, extended)
     if engine == "device":
         from ..engine.pipeline import encode_device_batch
 
@@ -135,11 +202,6 @@ def _encoder(engine: str, extended: bool, workers: int | None):
                              "v1 engine='device-commit' is already "
                              "reference-exact")
         from ..engine.pipeline_ext import encode_ext_device_greedy as encode
-    elif engine != "device-commit":
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported: the port has the device "
-            "engines 'device-commit', 'device-greedy', 'device-optimal' "
-            "and 'device'; the JAX package's host engines stay there")
     elif extended:
         from ..engine.pipeline_ext import encode_ext_device_commit as encode
     else:
@@ -156,12 +218,18 @@ def compress_sharded(
     lazy_matching: bool = False,
     dictionary: bytes | None = None,
     shard_size: int = DEFAULT_SHARD_SIZE,
-    engine: str = "device-commit",
+    engine: str = "native",
     device=None,
     workers: int | None = None,
 ) -> bytes:
     """Compress ``data`` as a TTPU container, all shards batched on the card.
 
+    The JAX package's engine names are routes on the card, each writing the
+    JAX package's container for that name (:func:`_route`):
+    ``engine="native"`` (the default, as in the JAX package), the reference
+    greedy encoder's streams: ``"device-greedy"`` (extended) or
+    ``"device-commit"`` (v1); ``"tables"``: ``"device"``; ``"optimal"``:
+    ``"device-optimal"``.  The device engines:
     ``engine="device-commit"``, byte-identical to the JAX package's
     ``compress_sharded(engine="device-commit")``: the extended-format
     planned encode (engine/pipeline_ext.py) or, with ``extended=False``,
@@ -184,13 +252,14 @@ def compress_sharded(
     launch for all shards, then the host table committer on ``workers``
     threads (default: the CPU count; engine/encode_extended.py, streams
     equal to ``encode_extended``); v1, the ``"device-commit"`` encode,
-    whose streams are the same reference greedy ones (``encode_v1``).  The JAX
-    package's host engines (``"native"``, ``"tables"``) are not ported
-    (NotImplementedError), and nothing falls back to them.
-    ``dictionary`` (a full-window custom dictionary) seeds every shard's
-    window; pass the same one to the decode side.  ``device``: None for
-    the CUDA card, ``"cpu"`` for the plain versions."""
+    whose streams are the same reference greedy ones (``encode_v1``).  An
+    unknown name raises ValueError, and nothing falls back to another
+    encoder.  ``dictionary`` (a full-window custom dictionary) seeds every
+    shard's window; pass the same one to the decode side.  A shard longer
+    than MAX_STREAM_BYTES raises ValueError.  ``device``: None for the CUDA
+    card, ``"cpu"`` for the plain versions."""
     encode = _encoder(engine, extended, workers)
+    _check_shard(shard_size, len(data))
     data = bytes(data)
     shards = [data[i : i + shard_size]
               for i in range(0, len(data), shard_size)] or [b""]
@@ -211,25 +280,26 @@ def compress_file_sharded(
     dictionary: bytes | None = None,
     shard_size: int = DEFAULT_SHARD_SIZE,
     workers: int | None = None,
-    engine: str = "device",
+    engine: str = "native",
     device=None,
 ) -> int:
     """Bounded-memory TTPU compression of a file (files larger than RAM),
-    the JAX package's ``compress_file_sharded`` with ``engine="device"``
-    or, extended only, ``engine="device-greedy"`` (the streams of the JAX
-    function's ``engine="native"``: the reference greedy encoder's).
+    the JAX package's ``compress_file_sharded`` with its engine names
+    (``"native"`` by default) as routes on the card, and the device engines
+    ``"device"``, ``"device-greedy"`` and ``"device-optimal"``.
 
     Reads ``src`` shard by shard, up to ``2 * workers`` shards at a time
     (default ``workers``: the CPU count + 2, as in the JAX package),
     encodes each such batch with one call of ``engine``'s batch encode
-    (see :func:`compress_sharded`; ``"device"``: one launch of kernel B5
-    and the host committer on ``workers`` threads,
-    engine/pipeline.encode_device_batch; ``"device-greedy"``: kernels B5
-    and B7 once and the host greedy committer,
-    engine/pipeline_ext.encode_ext_device_greedy), and writes the streams
-    to ``dst`` in order: the frame header and a zeroed sizes table go out
-    first and the sizes are patched in place at the end, so ``dst`` must
-    be seekable (a path or a binary file).  The output is byte-identical
+    (see :func:`compress_sharded`; ``"native"``: ``"device-greedy"``,
+    kernels B5 and B7 once and the host greedy committer, or v1
+    ``"device-commit"``; ``"tables"`` / ``"device"``: one launch of kernel
+    B5 and the host committer on ``workers`` threads,
+    engine/pipeline.encode_device_batch; ``"optimal"`` /
+    ``"device-optimal"``: kernel X4, or v1 B5, X3 and B3), and writes the
+    streams to ``dst`` in order: the frame header and a zeroed sizes table
+    go out first and the sizes are patched in place at the end, so ``dst``
+    must be seekable (a path or a binary file).  The output is byte-identical
     to ``compress_sharded(engine=engine)`` on the whole file.  Returns the
     bytes written.
 
@@ -244,20 +314,15 @@ def compress_file_sharded(
     position (16 with lazy matching's probe), until the one pull.  v1
     holds the input, its padded copy and the streams on the host.
 
-    Only ``engine="device"`` and ``"device-greedy"`` stream:
-    ``"device-commit"`` (and the other engines, which batch whole
-    containers) raise ValueError.  The JAX package's own function writes
-    its ``"tables"`` container for any engine name it does not know; the
-    port refuses them instead."""
+    ``engine="device-commit"`` raises ValueError, as in the JAX package.
+    The JAX package's own function writes its ``"tables"`` container for
+    any engine name it does not know; the port refuses them (ValueError).
+    A shard longer than MAX_STREAM_BYTES raises ValueError before ``src``
+    is read."""
     if engine == "device-commit":
         raise ValueError(
             "device-commit batches whole containers; use compress_sharded, "
             "or engine='device' for the per-shard device search pipeline")
-    if engine not in ("device", "device-greedy"):
-        raise ValueError(
-            f"compress_file_sharded streams engine='device' and "
-            f"'device-greedy' only; use compress_sharded for "
-            f"engine={engine!r}")
     from ..device import resolve_device
 
     if workers is None:
@@ -268,11 +333,12 @@ def compress_file_sharded(
     if not hasattr(src, "read"):
         src, close_src = open(str(src), "rb"), True
     try:
-        if not hasattr(dst, "write"):
-            dst, close_dst = open(str(dst), "wb"), True
         pos0 = src.tell()
         raw_size = src.seek(0, 2) - pos0
         src.seek(pos0)
+        _check_shard(shard_size, raw_size)
+        if not hasattr(dst, "write"):
+            dst, close_dst = open(str(dst), "wb"), True
         n_shards = max(1, -(-raw_size // shard_size))
         head_at = dst.tell()
         dst.write(MAGIC + struct.pack(
@@ -312,17 +378,95 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
     ``commit``, kernel B4, when it names none), ops/decode_wavefront.py.
     ``algorithm="serial"``: the token-serial decoder, kernel X2
     (ops/decode_serial.py).  ``shard_size`` (the per-shard output bound)
-    comes from the v2 frame; pass it explicitly only for v1 containers.
-    ``dictionary`` must match the encode side's."""
+    comes from the v2 frame; pass it explicitly only for v1 containers
+    (else DEFAULT_SHARD_SIZE bounds each shard, as in the JAX package; the
+    host-signature :func:`decompress_sharded` needs no bound).  A bound,
+    cut to the raw size, past the decoder's limit (:func:`_decode_limit`)
+    raises ValueError.  ``dictionary`` must match the encode side's."""
     raw_size, frame_shard_size, pieces = _parse_frame(blob)
     decode = _decoder(algorithm)
-    outs = decode(pieces, max_out=_max_out(frame_shard_size, shard_size),
+    outs = decode(pieces, max_out=_max_out(raw_size, frame_shard_size,
+                                           shard_size, algorithm),
                   dictionary=dictionary, device=device)
     out = bytearray()
     for d in outs:
         out += d
     if len(out) != raw_size:
         raise ValueError("container raw-size mismatch")
+    return out
+
+
+def _stream_decoder(pieces, *, max_out, dictionary, device) -> list:
+    """A batch decoder of v1-frame shards, whose decoded sizes the frame
+    does not bound: each shard through ops/decode_serial.decode_stream
+    (kernel X2 from a room of 8 bytes a payload byte, four times larger
+    while the output fills it; the native decoder's errors).  ``max_out``
+    is not used."""
+    from ..ops.decode_serial import decode_stream
+
+    return [bytes(decode_stream(p, dictionary=dictionary, device=device))
+            for p in pieces]
+
+
+def decompress_sharded(blob: bytes, workers: int | None = None,
+                       dictionary: bytes | None = None, *,
+                       device=None) -> bytearray:
+    """Decode a TTPU container on the card: the JAX package's
+    ``decompress_sharded`` (the threaded native decoder) with its
+    signature, its output and its errors, on kernel X2.
+
+    A v2 frame: the shards go in batches of ``2 * workers`` (default
+    ``workers``: the CPU count), one X2 launch a batch and header byte, at
+    the frame's per-shard bound ``min(shard_size, raw_size)`` plus one byte,
+    and each shard's bytes land in its ``i * shard_size`` slice of one
+    output allocated up front.  A shard that decodes past its slice raises
+    ValueError("decoded stream exceeds the provided buffer"), one short of
+    it ValueError("container raw-size mismatch"), as in the JAX package.
+    A v1 frame (no per-shard bound): each shard through
+    ops/decode_serial.decode_stream, whose room grows with the output.
+    A reference outside the window raises OutOfBoundsError, a bad header
+    or a custom-dictionary stream without its dictionary ValueError, and a
+    bound past X2's MAX_DECODED ValueError before any launch.
+    ``dictionary`` must match the encode side's.  ``device``: None for the
+    CUDA card, ``"cpu"`` for the plain versions."""
+    from ..device import resolve_device
+    from ..ops.decode_serial import decode_shards_device
+
+    dev = resolve_device(device)
+    raw_size, shard_size, pieces = _parse_frame(blob)
+    if shard_size is None:
+        out = bytearray(b"".join(_stream_decoder(
+            pieces, max_out=None, dictionary=dictionary, device=dev)))
+        if len(out) != raw_size:
+            raise ValueError("container raw-size mismatch")
+        return out
+    # one byte past the bound tells a shard that overflows its slice
+    max_out = _bound(raw_size, shard_size, "serial", room=1) + 1
+    if workers is None:
+        workers = os.cpu_count() or 4
+    out = bytearray(raw_size)
+    for first in range(0, len(pieces), 2 * workers):
+        batch = pieces[first : first + 2 * workers]
+        # one launch a header byte; an empty stream, or a ``more`` one
+        # without its reserved byte, decodes to nothing (the native decoder)
+        groups: dict[int, list[int]] = {}
+        for k, p in enumerate(batch):
+            if p and not (p[0] & 1 and len(p) < 2):
+                groups.setdefault(p[0], []).append(k)
+        got = [b""] * len(batch)
+        for ks in groups.values():
+            for k, d in zip(ks, decode_shards_device(
+                    [batch[k] for k in ks], dictionary=dictionary,
+                    max_out=max_out, device=dev)):
+                got[k] = d
+        for k, d in enumerate(got):
+            start = (first + k) * shard_size
+            end = min(start + shard_size, raw_size)
+            if len(d) > max(0, end - start):
+                raise ValueError("decoded stream exceeds the provided buffer")
+            if len(d) != end - start:
+                raise ValueError("container raw-size mismatch")
+            out[start:end] = d
     return out
 
 
@@ -343,9 +487,12 @@ def decompress_file_sharded(src, dst, workers: int | None = None,
     read.  ``src`` and ``dst`` are paths or binary files; ``src`` is read
     front to back, so it need not be seekable.  ``shard_size`` bounds each
     shard's output as in :func:`decompress_sharded_device` (from a v2
-    frame; pass it for a v1 one).  Every shard must carry the first
-    shard's header byte.  Raises ValueError for a bad magic, an unknown
-    version, a truncated frame or shard, a header change and a written
+    frame, or the caller's); a v1 frame without a caller bound decodes
+    shard by shard with kernel X2's growing room
+    (ops/decode_serial.decode_stream), as :func:`decompress_sharded` does.
+    Every shard must carry the first shard's header byte.  Raises
+    ValueError for a bad magic, an unknown version, a truncated frame or
+    shard, a header change, a bound past the decoder's limit and a written
     total other than the frame's raw size.  Returns the bytes written.
 
     Memory: on the host one batch's compressed and decoded bytes,
@@ -367,7 +514,12 @@ def decompress_file_sharded(src, dst, workers: int | None = None,
         if not hasattr(dst, "write"):
             dst, close_dst = open(str(dst), "wb"), True
         raw_size, frame_shard_size, sizes = _read_head(src.read)
-        max_out = _max_out(frame_shard_size, shard_size)
+        if frame_shard_size is None and shard_size is None:
+            decode = _stream_decoder
+            max_out = None
+        else:
+            max_out = _max_out(raw_size, frame_shard_size, shard_size,
+                               algorithm)
         head = None
         written = 0
         for first in range(0, len(sizes), 2 * workers):

@@ -655,16 +655,18 @@ def test_b4_kernel_equals_plain(cuda, window, kind):
 
 def test_entry_points_round_trip_and_match_plain(cuda):
     data = _text(40000, 2)
-    blob = compress_sharded(data, shard_size=16384)
-    assert blob == compress_sharded(data, shard_size=16384, device="cpu")
+    blob = compress_sharded(data, shard_size=16384, engine="device-commit")
+    assert blob == compress_sharded(data, shard_size=16384, device="cpu",
+                                    engine="device-commit")
     before = dc.commit_decode.launches
     assert bytes(decompress_sharded_device(blob)) == data
     assert dc.commit_decode.launches == before + 1
     assert bytes(decompress_sharded_device(blob, device="cpu")) == data
     tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
     for raw, size in ((b"", 1024), (tiny, 7), (tiny, 17)):
-        blob = compress_sharded(raw, shard_size=size)
-        assert blob == compress_sharded(raw, shard_size=size, device="cpu")
+        blob = compress_sharded(raw, shard_size=size, engine="device-commit")
+        assert blob == compress_sharded(raw, shard_size=size, device="cpu",
+                                        engine="device-commit")
         assert bytes(decompress_sharded_device(blob)) == raw
 
 
@@ -675,16 +677,18 @@ def test_entry_points_round_trip_and_match_plain(cuda):
 def test_v1_and_lazy_round_trip_and_match_plain(cuda, kw):
     lmask = (1 << kw.get("literal", 8)) - 1
     data = bytes(b & lmask for b in _text(40000, 4))
-    blob = compress_sharded(data, shard_size=16384, **kw)
+    blob = compress_sharded(data, shard_size=16384, engine="device-commit",
+                            **kw)
     assert blob == compress_sharded(data, shard_size=16384, device="cpu",
-                                    **kw)
+                                    engine="device-commit", **kw)
     assert bytes(decompress_sharded_device(blob)) == data
     tiny = b"".join(bytes([97 + k % 3]) * (k % 5) for k in range(40))
     for raw, size in ((b"", 1024), (tiny, 7), (tiny, 17)):
         raw = bytes(b & lmask for b in raw)
-        blob = compress_sharded(raw, shard_size=size, **kw)
+        blob = compress_sharded(raw, shard_size=size, engine="device-commit",
+                                **kw)
         assert blob == compress_sharded(raw, shard_size=size, device="cpu",
-                                        **kw)
+                                        engine="device-commit", **kw)
         assert bytes(decompress_sharded_device(blob)) == raw
 
 
@@ -696,10 +700,11 @@ def test_custom_dictionary_round_trip(cuda, window, literal):
     data = bytes(b & ((1 << literal) - 1) for b in _text(20000, 3))
     data += dictionary[:3000]
     blob = compress_sharded(data, window=window, literal=literal,
-                            dictionary=dictionary, shard_size=8192)
+                            dictionary=dictionary, shard_size=8192,
+                            engine="device-commit")
     assert blob == compress_sharded(data, window=window, literal=literal,
                                     dictionary=dictionary, shard_size=8192,
-                                    device="cpu")
+                                    device="cpu", engine="device-commit")
     assert bytes(decompress_sharded_device(blob, dictionary=dictionary)) \
         == data
 
@@ -713,7 +718,8 @@ def _parse(cuda, streams):
                                   "hazards, T_max clipped"])
 def test_b8_kernel_equals_plain(cuda, case):
     if case == "text":
-        blob = compress_sharded(_text(40000, 6), shard_size=16384)
+        blob = compress_sharded(_text(40000, 6), shard_size=16384,
+                                engine="device-commit")
         nxt, _packed = _parse(cuda, _parse_frame(blob)[2])
     else:  # NBP a multiple of 512, not of the kernel's 4096-bit tile
         nxt = torch.from_numpy(hazard_nxt(
@@ -821,7 +827,8 @@ def test_x1_kernel_equals_plain(cuda, rows):
 def test_x2_kernel_equals_plain(cuda, window):
     data = _text(30000, window)
     data = data[:12000] + b"\x00" * 2000 + data[12000:]
-    blob = compress_sharded(data, window=window, shard_size=16384)
+    blob = compress_sharded(data, window=window, shard_size=16384,
+                            engine="device-commit")
     pieces = [p[1:] for p in _parse_frame(blob)[2]]
     bad = bytearray(pieces[0])
     bad[len(bad) // 2] ^= 0x5A
@@ -926,7 +933,7 @@ def test_x2_kernel_equals_plain_on_hazard_streams(cuda, window, kind):
 @pytest.mark.parametrize("mode", ["chase", "xla", "serial"])
 def test_decode_modes_round_trip_and_match_plain(cuda, mode):
     data = _text(40000, 5)
-    blob = compress_sharded(data, shard_size=16384)
+    blob = compress_sharded(data, shard_size=16384, engine="device-commit")
     if mode == "serial":
         kw = dict(algorithm="serial")
         counter = dser.serial_decode
@@ -1291,7 +1298,7 @@ def test_b5_kernel_at_the_file_path_batch_shapes(cuda, S):
     raw = _text(S * 300 + 100, S)
     dst = io.BytesIO()
     compress_file_sharded(io.BytesIO(raw), dst, shard_size=300,
-                          workers=max(1, S // 2))
+                          workers=max(1, S // 2), engine="device")
     assert dst.getvalue() == compress_sharded(raw, engine="device",
                                               shard_size=300)
 
@@ -1333,7 +1340,8 @@ def test_mesh_steps_launch_b5_b4_and_x1(cuda, mesh1, monkeypatch):
     est = float(estimate_bits(want[0], 10, 8).sum())
     assert float(out["est_bits_total"]) == pytest.approx(est, rel=1e-5)
 
-    _r, _s, pieces = _parse_frame(compress_sharded(raw, shard_size=4096))
+    _r, _s, pieces = _parse_frame(compress_sharded(raw, shard_size=4096,
+                                                   engine="device-commit"))
     for mode, kernel in (("commit", dc.commit_decode),
                          ("xla", dw.trunc_deficits)):
         monkeypatch.setenv("TAMP_TPU_DECODE", mode)
@@ -1381,7 +1389,7 @@ def test_file_decode_launches_a_kernel_a_batch(cuda, monkeypatch, workers):
     from tamp_tpu_torch.parallel.shard import decompress_file_sharded
 
     raw = _text(8 * 4096, 41)[: 8 * 4096 - 100]
-    blob = compress_sharded(raw, shard_size=4096)
+    blob = compress_sharded(raw, shard_size=4096, engine="device-commit")
     batches = 1 if workers is None and 2 * (os.cpu_count() or 4) >= 8 \
         else -(-8 // (2 * (workers or os.cpu_count() or 4)))
     for algorithm, mode, kernel in (

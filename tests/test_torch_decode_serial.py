@@ -141,7 +141,8 @@ def test_serial_decode_wrapper_checks_its_input():
 def test_serial_container_round_trip():
     rng = random.Random(5)
     data = bytes(rng.choice(b"tampa bay buccaneers ") for _ in range(30000))
-    for blob in (tshard.compress_sharded(data, shard_size=4096, device="cpu"),
+    for blob in (tshard.compress_sharded(data, shard_size=4096, device="cpu",
+                                         engine="device-commit"),
                  jshard.compress_sharded(data, shard_size=4096,
                                          engine="native")):
         got = tshard.decompress_sharded_device(blob, algorithm="serial",

@@ -483,17 +483,18 @@ def test_file_container_equals_compress_sharded(tmp_path, extended):
         dst = io.BytesIO(b"prefix")
         dst.seek(6)
         n = compress_file_sharded(io.BytesIO(data), dst, workers=workers,
-                                  **kw)
+                                  engine="device", **kw)
         assert n == len(want) and dst.getvalue() == b"prefix" + want
     src = tmp_path / "raw.bin"
     src.write_bytes(data)
     assert compress_file_sharded(src, tmp_path / "out.ttpu", workers=2,
-                                 lazy_matching=True, **kw) == len(
+                                 lazy_matching=True, engine="device",
+                                 **kw) == len(
         (tmp_path / "out.ttpu").read_bytes())
     assert (tmp_path / "out.ttpu").read_bytes() == compress_sharded(
         data, engine="device", lazy_matching=True, **kw)
     empty = io.BytesIO()
-    compress_file_sharded(io.BytesIO(b""), empty, **kw)
+    compress_file_sharded(io.BytesIO(b""), empty, engine="device", **kw)
     assert empty.getvalue() == compress_sharded(b"", engine="device", **kw)
 
 
@@ -501,10 +502,25 @@ def test_file_path_refuses_other_engines():
     with pytest.raises(ValueError, match="device-commit batches"):
         compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
                               engine="device-commit", device="cpu")
-    for engine in ("device-optimal", "tables", "native"):
-        with pytest.raises(ValueError, match="compress_sharded"):
-            compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
-                                  engine=engine, device="cpu")
+    # the other engines stream a batch of 2 * workers shards at a time, each
+    # equal to the JAX container of its name ("device-optimal": "optimal")
+    rng = np.random.default_rng(6)
+    data = _mixed(rng, 2000, 255)  # 7 shards of 300 bytes, the last 200
+    # (the v1 optimal encode: X4's plain version, the extended one, takes
+    # minutes on batches of several shards)
+    for engine, jax_engine, extended in (
+            ("device-optimal", "optimal", False), ("tables", "tables", True),
+            ("native", "native", True)):
+        dst = io.BytesIO()
+        compress_file_sharded(io.BytesIO(data), dst, engine=engine,
+                              extended=extended, shard_size=300, workers=2,
+                              device="cpu")
+        assert dst.getvalue() == jax_compress_sharded(
+            data, engine=jax_engine, extended=extended, shard_size=300), \
+            engine
+    with pytest.raises(ValueError, match="unknown engine"):
+        compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
+                              engine="bogus", device="cpu")
     # device-greedy streams the extended format only
     with pytest.raises(ValueError, match="extended-format mode"):
         compress_file_sharded(io.BytesIO(b"abc"), io.BytesIO(),
@@ -520,7 +536,11 @@ def test_no_card_raises_and_falls_back_to_nothing(monkeypatch, tmp_path):
         encode_device(b"abcabc", extended=False)
     dst = tmp_path / "out.ttpu"
     with pytest.raises(RuntimeError, match="CUDA"):
-        compress_file_sharded(io.BytesIO(b"abcabc"), dst)
+        compress_file_sharded(io.BytesIO(b"abcabc"), dst, engine="device")
     assert not dst.exists()
-    with pytest.raises(NotImplementedError, match="host engines"):
-        compress_sharded(b"abc", engine="tables", device="cpu")
+    # the JAX name "tables" is engine="device" on the card: no card, no
+    # encode, and with the CPU asked for, the JAX container
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compress_sharded(b"abcabc", engine="tables")
+    assert compress_sharded(b"abcabc", engine="tables", device="cpu") == \
+        jax_compress_sharded(b"abcabc", engine="tables")

@@ -3,8 +3,9 @@ a gloo world of two child processes on the CPU: rank 0's container
 byte-equal to the port's single-process compress_sharded and to the JAX
 package's containers (engine="device-commit" to its "device-commit",
 engine="device" to its "tables", the pairing of the port's single-process
-tests), decodable by the JAX package; every other rank returns None;
-errors raise on every rank."""
+tests, and the JAX engine names "native" and "tables" to the JAX
+containers of those names), decodable by the JAX package; every other rank
+returns None; errors raise on every rank."""
 
 import json
 
@@ -22,10 +23,11 @@ SHARD = 4096
 # name, input size (5 shards with a short last one, or 1 shard: rank 1
 # then owns none), options, the JAX package's engine for the same container
 CASES = (
-    ("commit, 5 shards", 4 * SHARD + 1500, {}, "device-commit"),
-    ("commit, 1 shard", 3000, {}, "device-commit"),
-    ("commit v1, 5 shards", 4 * SHARD + 1500, {"extended": False},
+    ("commit, 5 shards", 4 * SHARD + 1500, {"engine": "device-commit"},
      "device-commit"),
+    ("commit, 1 shard", 3000, {"engine": "device-commit"}, "device-commit"),
+    ("commit v1, 5 shards", 4 * SHARD + 1500,
+     {"engine": "device-commit", "extended": False}, "device-commit"),
     ("device, 5 shards", 4 * SHARD + 1500, {"engine": "device"}, "tables"),
     ("device, 1 shard", 3000, {"engine": "device"}, "tables"),
 )
@@ -44,12 +46,13 @@ for i, (name, kw) in enumerate(spec["cases"]):
     if RANK == 0:
         open(os.path.join(TMP, f"out{i}.ttpu"), "wb").write(blob)
     res[name] = blob is None
-for engine in ("native", "tables"):
-    try:
-        compress_distributed(b"abc", engine=engine, device="cpu")
-        res[engine] = "returned"
-    except NotImplementedError:
-        res[engine] = "NotImplementedError"
+data = open(os.path.join(TMP, "in0.bin"), "rb").read()
+for engine in ("native", "tables"):  # the JAX engine names, on the card
+    blob = compress_distributed(data, engine=engine,
+                                shard_size=spec["shard"], device="cpu")
+    if RANK == 0:
+        open(os.path.join(TMP, f"{engine}.ttpu"), "wb").write(blob)
+    res[engine] = blob is None
 excess = open(os.path.join(TMP, "excess.bin"), "rb").read()
 try:  # a byte of 0x80 in shard 1, which rank 1 encodes, at literal 7
     compress_distributed(excess, literal=7, shard_size=spec["shard"],
@@ -88,6 +91,8 @@ def world(tmp_path_factory):
              for i, (name, _s, _kw, _e) in enumerate(CASES)}
     ranks = [json.loads((tmp / f"rank{r}.json").read_text())
              for r in range(2)]
+    for engine in ("native", "tables"):
+        blobs[engine] = (tmp / f"{engine}.ttpu").read_bytes()
     return blobs, ranks, dict(zip((c[0] for c in CASES), datas))
 
 
@@ -113,10 +118,18 @@ def test_other_ranks_return_none(world):
         assert ranks[0][name] is False and ranks[1][name] is True, name
 
 
+@pytest.mark.skipif(not _native.available(), reason="native engine needed")
 @pytest.mark.parametrize("engine", ["native", "tables"])
 def test_host_engines_raise_on_every_rank(world, engine):
-    _blobs, ranks, _d = world
-    assert [r[engine] for r in ranks] == ["NotImplementedError"] * 2
+    # the JAX engine names are routes on the card: rank 0's container is
+    # the JAX package's for that name, and rank 1 returns None
+    blobs, ranks, datas = world
+    data = datas[CASES[0][0]]
+    assert [r[engine] for r in ranks] == [False, True]
+    assert blobs[engine] == jshard.compress_sharded(
+        data, shard_size=SHARD, engine=engine)
+    assert blobs[engine] == tshard.compress_sharded(
+        data, shard_size=SHARD, engine=engine, device="cpu")
 
 
 def test_excess_bits_raise_on_every_rank(world):
@@ -127,5 +140,7 @@ def test_excess_bits_raise_on_every_rank(world):
 def test_single_process_call_is_compress_sharded():
     assert not dist.is_initialized()  # no world in the test process
     data = _text(2 * SHARD + 700, 50)
-    assert compress_distributed(data, shard_size=SHARD, device="cpu") == \
-        tshard.compress_sharded(data, shard_size=SHARD, device="cpu")
+    assert compress_distributed(data, shard_size=SHARD, device="cpu",
+                                engine="device-commit") == \
+        tshard.compress_sharded(data, shard_size=SHARD, device="cpu",
+                                engine="device-commit")

@@ -115,9 +115,10 @@ def test_port_containers_round_trip_through_both_packages(mode, monkeypatch,
     src, dev_blob = tmp_path / "in.bin", tmp_path / "device.ttpu"
     src.write_bytes(DATA)
     tshard.compress_file_sharded(src, dev_blob, shard_size=SHARD,
-                                 device="cpu")
+                                 device="cpu", engine="device")
     blobs = (dev_blob.read_bytes(),
-             tshard.compress_sharded(DATA, shard_size=SHARD, device="cpu"))
+             tshard.compress_sharded(DATA, shard_size=SHARD, device="cpu",
+                                     engine="device-commit"))
     for blob in blobs:
         assert _jax_decode(blob) == DATA
         for workers in (None, 1):
@@ -129,7 +130,7 @@ def test_port_containers_round_trip_through_both_packages(mode, monkeypatch,
 @pytest.mark.parametrize("payload", [b"", b"tiny"], ids=["empty", "tiny"])
 def test_empty_and_one_shard(payload, mode, monkeypatch):
     for blob in (tshard.compress_sharded(payload, shard_size=SHARD,
-                                         device="cpu"),
+                                         device="cpu", engine="device-commit"),
                  jshard.compress_sharded(payload, shard_size=SHARD)):
         n, got = _decode(blob, mode, monkeypatch)
         assert got == payload and n == len(payload)
@@ -203,7 +204,8 @@ def test_paths_and_files_and_the_return_value(tmp_path, monkeypatch):
 def test_needs_a_card_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")
-    blob = tshard.compress_sharded(b"abc", device="cpu")
+    blob = tshard.compress_sharded(b"abc", device="cpu",
+                                   engine="device-commit")
     with pytest.raises(RuntimeError):
         tshard.decompress_file_sharded(io.BytesIO(blob), io.BytesIO())
     with pytest.raises(ValueError):

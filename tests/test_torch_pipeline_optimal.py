@@ -130,7 +130,8 @@ def test_container_equals_jax_and_round_trips(extended):
     assert bytes(jshard.decompress_sharded(blob)) == data
     if not extended:  # minimum bits over the greedy parse's token family
         assert len(blob) <= len(tshard.compress_sharded(
-            data, shard_size=4096, extended=False, device="cpu"))
+            data, shard_size=4096, extended=False, device="cpu",
+            engine="device-commit"))
 
 
 def test_default_windows_of_the_two_formats():

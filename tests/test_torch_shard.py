@@ -29,7 +29,8 @@ def _corpus(n: int, seed: int) -> bytes:
 @pytest.mark.skipif(not _native.available(), reason="native engine needed")
 def test_container_matches_jax_and_cross_decodes():
     data = _corpus(9000, 1)
-    blob = tshard.compress_sharded(data, shard_size=3000, device="cpu")
+    blob = tshard.compress_sharded(data, shard_size=3000, device="cpu",
+                                   engine="device-commit")
     assert blob == jshard.compress_sharded(data, shard_size=3000,
                                            engine="device-commit")
     # port container -> JAX package's decoder
@@ -68,12 +69,13 @@ def test_container_custom_dictionary_and_empty():
     dictionary = bytes(rng.integers(97, 123, 1024).astype(np.uint8))
     data = dictionary[:2500] * 2 + _corpus(800, 3)
     blob = tshard.compress_sharded(data, shard_size=2048,
-                                   dictionary=dictionary, device="cpu")
+                                   dictionary=dictionary, device="cpu",
+                                   engine="device-commit")
     assert blob == jshard.compress_sharded(
         data, shard_size=2048, dictionary=dictionary, engine="device-commit")
     assert bytes(tshard.decompress_sharded_device(
         blob, dictionary=dictionary, device="cpu")) == data
-    empty = tshard.compress_sharded(b"", device="cpu")
+    empty = tshard.compress_sharded(b"", device="cpu", engine="device-commit")
     assert empty == jshard.compress_sharded(b"", engine="device-commit")
     assert bytes(tshard.decompress_sharded_device(empty, device="cpu")) == b""
 
@@ -82,8 +84,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")
     with pytest.raises(RuntimeError):
-        tshard.compress_sharded(b"abc")
-    blob = tshard.compress_sharded(b"abc", device="cpu")
+        tshard.compress_sharded(b"abc", engine="device-commit")
+    blob = tshard.compress_sharded(b"abc", device="cpu",
+                                   engine="device-commit")
     with pytest.raises(RuntimeError):
         tshard.decompress_sharded_device(blob)
 
@@ -96,7 +99,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 def test_v1_and_lazy_containers_match_jax(kw):
     lmask = (1 << kw.get("literal", 8)) - 1
     data = bytes(b & lmask for b in _corpus(7000, 4))
-    blob = tshard.compress_sharded(data, shard_size=2500, device="cpu", **kw)
+    blob = tshard.compress_sharded(data, shard_size=2500, device="cpu",
+                                   engine="device-commit", **kw)
     assert blob == jshard.compress_sharded(data, shard_size=2500,
                                            engine="device-commit", **kw)
     assert bytes(jshard.decompress_sharded(blob)) == data
@@ -110,7 +114,8 @@ def test_v1_container_custom_dictionary():
     for lazy in (False, True):
         blob = tshard.compress_sharded(data, shard_size=1500, extended=False,
                                        lazy_matching=lazy,
-                                       dictionary=dictionary, device="cpu")
+                                       dictionary=dictionary, device="cpu",
+                                       engine="device-commit")
         assert blob == jshard.compress_sharded(
             data, shard_size=1500, extended=False, lazy_matching=lazy,
             dictionary=dictionary, engine="device-commit")
@@ -119,16 +124,22 @@ def test_v1_container_custom_dictionary():
 
 
 def test_not_ported_modes_raise():
-    # the JAX package's host engines stay there; engine="device" is ported
+    # the JAX package's engine names are routes on the card, each writing
+    # that name's JAX container; an unknown name is a ValueError
+    data = _corpus(3000, 9)
     for kw in ({"engine": "native"}, {"engine": "tables"}):
-        with pytest.raises(NotImplementedError):
-            tshard.compress_sharded(b"abc", device="cpu", **kw)
+        assert tshard.compress_sharded(
+            data, shard_size=1024, device="cpu", **kw) == \
+            jshard.compress_sharded(data, shard_size=1024, **kw)
+    with pytest.raises(ValueError, match="unknown engine"):
+        tshard.compress_sharded(b"abc", engine="bogus", device="cpu")
     blob = tshard.compress_sharded(b"abc", engine="device", device="cpu")
     assert bytes(tshard.decompress_sharded_device(blob, device="cpu")) \
         == b"abc"
     # every decode algorithm is ported: an unknown one is a ValueError, as
     # in the JAX package
-    blob = tshard.compress_sharded(b"abc", device="cpu")
+    blob = tshard.compress_sharded(b"abc", device="cpu",
+                                   engine="device-commit")
     for algorithm in ("wavefront", "serial"):
         assert bytes(tshard.decompress_sharded_device(
             blob, algorithm=algorithm, device="cpu")) == b"abc"
