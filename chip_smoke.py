@@ -152,7 +152,12 @@ Phases (any failure raises, and the script exits non-zero):
    with host MB/s; the C++ stream of the whole corpus without the flush
    equal to ``tamp_tpu_torch.compress``'s stream from the card; an abort
    from a progress callback resumed to the same bytes, in both
-   directions;
+   directions; then the port's bench (``phase_bench``): ``bench_torch``
+   in this process at BENCH_ARGV (8 MiB headline and device batch, 2
+   reps), every key of its line present (BENCH_KEYS), every rate
+   positive, the greedy and optimal v1 containers byte-equal to their
+   host references (each key 1), its line printed, and
+   tools/torch_commit_kernel_bench.py's ``measure(1.0, 2)`` once;
 4. each kernel at its path's shapes: its time, its plain version's time
    and result, and its bound (the least time the card could take; for the
    tables B1, B2 and B5, lazy or not, the larger of their bytes and one
@@ -173,7 +178,7 @@ Phases (any failure raises, and the script exits non-zero):
    decodes, ``entry()``, the dry run, the one-shots and the CLI launched
    carry those counts too (``file_launches``, ``entry_launches``,
    ``dryrun_launches``, ``api_launches``, ``cli_launches``,
-   ``api_rest_launches``).
+   ``api_rest_launches``, ``bench_launches``).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -188,6 +193,11 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+# the corpus, the kernels' launch counters, the idle share and nvidia-smi's
+# line are the port's bench's (one copy)
+from bench_torch import build_corpus as corpus
+from bench_torch import counters, idle_share, smi
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 lanes (H100 whitepaper)
@@ -291,6 +301,19 @@ STREAM_CHUNKS = ((1, 1 / 128), (7, 1 / 16), (4096, 1.0))
 WHOLE_CHUNKS = ((4096, 1.0),)  # the corpus's C++ stream: 4096-byte writes
 C2_BYTES = (1 << 20) + 4096    # one v1-frame shard past the 1 MiB default
 DICT_SAMPLES = 2000    # records of build-dictionary's seeded corpus
+# phase_bench: bench_torch's arguments, and the keys its line must carry
+# (bench.py's headline keys and device stages, by the same names)
+BENCH_ARGV = ("--mb", "8", "--device-mb", "8", "--reps", "2")
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "pipeline", "corpus_mb",
+    "ratio", "decode_mb_s", "decode_vs_baseline", "optimal_ratio",
+    "optimal_mb_s", "container_decode_mb_s", "container_decode_chase_mb_s",
+    "container_decode_xla_mb_s", "container_decode_serial_mb_s",
+    "v1_encode_mb_s", "ext_encode_mb_s", "ext_ratio", "greedy_encode_mb_s",
+    "greedy_byte_equal_reference", "optimal_encode_mb_s", "optimal_v1_ratio",
+    "optimal_byte_equal_host_dp", "decode_commit_compute_ms_mb",
+    "encode_commit_compute_ms_mb", "compute_dispatch_ms", "device_batch_mb",
+    "setup_s", "device")
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
 # the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
@@ -316,14 +339,6 @@ def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
-        f"nvidia-smi failed: {r.stderr.strip()}"
-
-
 def int_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer instructions: SMs x INT32
     lanes per SM x the maximum SM clock that nvidia-smi reports."""
@@ -337,25 +352,6 @@ def int_ops_per_s() -> float:
     mhz = float(r.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * INT32_LANES_PER_SM * mhz * 1e6
-
-
-def corpus(size: int, seed: int = 0x7A3B) -> bytes:
-    """Seeded text: 200 000 draws from 512 random lower-case words (2-9
-    letters), space-separated and repeated, with a run-heavy stretch of
-    1/16 of the size in its middle so forced RLE regions occur."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    words = [rng.integers(97, 123, rng.integers(2, 10)).astype(np.uint8)
-             .tobytes() for _ in range(512)]
-    base = b" ".join(words[int(i) % 512]
-                     for i in rng.integers(0, 512, 200_000))
-    text = (base * (-(-size // len(base))))[:size]
-    runs = b"".join(bytes([int(b)]) * int(c) for b, c in zip(
-        rng.integers(0, 256, 4096), rng.integers(1, 400, 4096)))
-    mid = size // 2
-    stretch = runs[: size // 16]
-    return text[:mid] + stretch + text[mid + len(stretch):]
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -1916,26 +1912,6 @@ def b7_err(got, plain) -> int:
         (ent[s, :k], pent[s, :k]) for s, k in enumerate(n)])
 
 
-def counters():
-    """Every kernel wrapper of the port, by name: each counts its launches."""
-    from tamp_tpu_torch.ops import decode_commit as dc
-    from tamp_tpu_torch.ops.decode_serial import serial_decode
-    from tamp_tpu_torch.ops.decode_wavefront import trunc_deficits
-    from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_v1_lazy
-    from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
-    from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
-    from tamp_tpu_torch.ops.match_v1 import v1_tables
-    from tamp_tpu_torch.ops.opt_parse import opt_v1_choice
-    from tamp_tpu_torch.ops.opt_parse_ext import opt_ext_choice
-    from tamp_tpu_torch.ops.token_chase import token_table_chase
-
-    fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
-           v1_tables, commit_v1_lazy, token_table_chase, trunc_deficits,
-           serial_decode, greedy_predict_batch, opt_v1_choice,
-           opt_ext_choice)
-    return {fn.__name__: fn for fn in fns}
-
-
 def phase_main_path(dev, report, data, shard_size: int, card: str,
                     name: str, kw: dict, kernels, rates=None):
     """Phase 3: one round trip at full size, which must launch each of
@@ -2874,6 +2850,44 @@ def phase_api_rest(dev, report, data, blobs, card: str):
     return extra
 
 
+def phase_bench(dev, report, card: str):
+    """Phase 3, the port's bench in this process (see the module
+    docstring): bench_torch at BENCH_ARGV and ``measure(1.0, 2)``.
+    Returns the bench's launch counts by wrapper name
+    (``bench_launches``, by leg)."""
+    import bench_torch
+    from tools.torch_commit_kernel_bench import measure
+
+    t = time.perf_counter()
+    line = bench_torch.run(bench_torch.parse_args(
+        [*BENCH_ARGV, "--device", dev.type]), report)
+    missing = [k for k in BENCH_KEYS if k not in line]
+    rates = {k: v for k, v in line.items()
+             if k == "value" or k.endswith(("_mb_s", "_ms_mb", "_ms"))}
+    low = [k for k, v in rates.items() if not v > 0]
+    flags = [k for k in ("greedy_byte_equal_reference",
+                         "optimal_byte_equal_host_dp") if line.get(k) != 1]
+    if missing or low or flags:
+        fail(f"bench_torch: keys missing {missing}, rates not positive "
+             f"{low}, byte-equal flags not 1 {flags}")
+    report(json.dumps(line))
+    report(f"  bench_torch: {len(line)} keys, {len(rates)} rates positive, "
+           f"the greedy and optimal v1 containers equal to their host "
+           f"references, in {time.perf_counter() - t:.1f} s [{card}]")
+    t = time.perf_counter()
+    r = measure(1.0, 2, device=dev)
+    if not (r["decode_commit_ms_per_mb"] > 0
+            and r["encode_commit_ms_per_mb"] > 0):
+        fail(f"measure(1.0, 2): {r}")
+    report(f"  measure(1.0, 2): {json.dumps(r)} in "
+           f"{time.perf_counter() - t:.1f} s [{card}]")
+    extra: dict[str, dict] = {}
+    for leg, ran in line["launches"].items():
+        for k, n in ran.items():
+            extra.setdefault(k, {}).setdefault("bench_launches", {})[leg] = n
+    return extra
+
+
 def dist_child(rank: int, addr: str, out_dir: str) -> int:
     """Rank ``rank`` of ``phase_distributed``'s two-process world: join
     over ``addr``, time ``compress_distributed`` for each engine of
@@ -3298,36 +3312,6 @@ def phase_profile(report, data, blob, shard_size: int, card: str):
                 data, shard_size=shard_size, engine="device-greedy",
                 lazy_matching=True))):
         idle_share(report, name, fn, card)
-
-
-def idle_share(report, name: str, fn, card: str) -> float:
-    """Device busy time and idle share of one call of ``fn`` (after a warm
-    call), from a torch.profiler trace: the device activity (kernels and
-    copies) summed over the call's wall time; reports the five largest
-    device rows and returns the idle share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(r[0] for r in rows)
-    if busy <= 0:
-        fail(f"the profiler saw no device activity in the {name}")
-    report(f"  profile {name}: wall {wall:.1f} ms, device busy "
-           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f} [{card}]")
-    for ms, key, count in sorted(rows, reverse=True)[:5]:
-        report(f"    {ms:8.3f} ms x{count} {key[:80]}")
-    return 1 - busy / wall
 
 
 def launch_split(fn, parts, reps: int = 5, traces: int = 3):
@@ -3949,6 +3933,11 @@ def main() -> int:
             new_launches.setdefault(wrapper, {})[key] = counts
     report(f"phase 3: the rest of the API done "
            f"({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    for wrapper, keys in phase_bench(dev, report, card).items():
+        for key, counts in keys.items():
+            new_launches.setdefault(wrapper, {})[key] = counts
+    report(f"phase 3: the bench done ({time.perf_counter() - t1:.1f} s)")
     report(f"phase 3: done ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -3956,9 +3945,9 @@ def main() -> int:
                                  dec_launches, mesh_launches,
                                  DEFAULT_SHARD_SIZE, card)
     report(f"phase 4: done ({time.perf_counter() - t0:.1f} s)")
-    # the file decode's, entry()'s, the dry run's, the front door's and the
-    # rest of the API's launches join the row of their kernel (B5's first
-    # row for v1_tables)
+    # the file decode's, entry()'s, the dry run's, the front door's, the
+    # rest of the API's and the bench's launches join the row of their
+    # kernel (B5's first row for v1_tables)
     rows = {}
     for k in kernels:
         rows.setdefault(k["name"].split()[0], k)

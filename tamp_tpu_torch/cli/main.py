@@ -52,52 +52,68 @@ def _write(output: Path | None, data: bytes) -> None:
         output.write_bytes(bytes(data))
 
 
-def compress_implementation(name: str):
-    """The one-shot compress of the JAX CLI's ``--implementation`` choice:
-    ``fn(data, *, window, literal, extended, lazy_matching, dictionary,
-    device)`` returning the stream; ``device`` is a callable that resolves
-    the card, called by the ``engine`` route only."""
-    if name == "native":
+def get_compress_implementation(impl_name: str | None):
+    """The one-shot compress of the JAX CLI's ``--implementation`` choice,
+    as the JAX module's function of this name returns it: ``fn(data, *,
+    window, literal, extended, lazy_matching, dictionary, device=None)``
+    returning the stream.  ``"native"`` (also for None) the port's C++
+    stream (:class:`tamp_tpu_torch.stream.NativeCompressor`), ``"engine"``
+    ``engine.encode_device`` (extended) or ``engine.encode_v1`` on
+    ``device`` (None: the card), ``"python"`` the Python codec
+    (:mod:`tamp_tpu_torch.compressor`); the host routes take no device.
+    SystemExit for another name, as in the JAX package."""
+    impl_name = "native" if impl_name is None else impl_name.lower()
+    if impl_name == "native":
         import io
 
         from tamp_tpu_torch.stream import NativeCompressor
 
-        def fn(data, *, device, **kw):
+        def fn(data, *, device=None, **kw):
             buf = io.BytesIO()
             with NativeCompressor(buf, **kw) as c:
                 c.write(data)
             return buf.getvalue()
-    elif name == "engine":
+    elif impl_name == "engine":
         from tamp_tpu_torch.engine import encode_device, encode_v1
 
-        def fn(data, *, extended, device, **kw):
+        def fn(data, *, extended=True, device=None, **kw):
             if extended:
-                return encode_device(data, device=device(), **kw)
-            return encode_v1(data, device=device(), **kw)
-    else:
+                return encode_device(data, device=device, **kw)
+            return encode_v1(data, device=device, **kw)
+    elif impl_name == "python":
         from tamp_tpu_torch.compressor import compress
 
-        def fn(data, *, device, **kw):
+        def fn(data, *, device=None, **kw):
             return compress(data, **kw)
+    else:
+        raise SystemExit(
+            f"Unknown implementation: {impl_name}. "
+            "Valid options are 'native', 'engine' or 'python'.")
     return fn
 
 
-def decompress_implementation(name: str):
-    """The one-shot decompress of ``--implementation native`` (the C++
-    stream, which raises OutOfBoundsError as the native decoder does) or
-    ``python`` (the Python codec): ``fn(data, *, dictionary)``."""
-    if name == "native":
+def get_decompress_implementation(impl_name: str | None):
+    """The one-shot decompress of ``--implementation``: ``fn(data, *,
+    dictionary=None)``; ``"native"`` (also for None) the C++ stream, which
+    raises OutOfBoundsError as the native decoder does, ``"python"`` the
+    Python codec.  SystemExit for another name, as in the JAX package."""
+    impl_name = "native" if impl_name is None else impl_name.lower()
+    if impl_name == "native":
         from tamp_tpu_torch.stream import NativeDecompressor
 
-        def fn(data, *, dictionary):
+        def fn(data, *, dictionary=None):
             with NativeDecompressor(data, dictionary=dictionary) as d:
                 return bytes(d.read())
-    else:
+    elif impl_name == "python":
         from tamp_tpu_torch.decompressor import decompress
 
-        def fn(data, *, dictionary):
+        def fn(data, *, dictionary=None):
             return bytes(decompress(data, dictionary=None if dictionary is None
                                     else bytearray(dictionary)))
+    else:
+        raise SystemExit(
+            f"Unknown implementation: {impl_name}. "
+            "Valid options are 'native' or 'python'.")
     return fn
 
 
@@ -247,9 +263,9 @@ def _compress(args, dev) -> int:
             engine="optimal" if args.optimal else "native", device=dev(),
             **cfg)
     elif args.implementation is not None and not args.optimal:
-        out = compress_implementation(args.implementation)(
+        out = get_compress_implementation(args.implementation)(
             data, lazy_matching=args.lazy_matching, dictionary=dictionary,
-            device=dev, **cfg)
+            device=dev() if args.implementation == "engine" else None, **cfg)
     else:
         if len(data) > tt.MAX_STREAM_BYTES:
             raise SystemExit(
@@ -283,7 +299,7 @@ def _decompress(args, dev) -> int:
     if data[:4] == b"TTPU":
         out = decompress_sharded(data, dictionary=dictionary, device=dev())
     elif args.implementation is not None:
-        out = decompress_implementation(args.implementation)(
+        out = get_decompress_implementation(args.implementation)(
             data, dictionary=dictionary)
     else:
         out = decompress(data, dictionary=dictionary, device=dev())

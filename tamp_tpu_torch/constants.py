@@ -84,6 +84,26 @@ LITERAL_BITS_MAX = 8
 INPUT_BUFFER_SIZE = 16
 
 
+def _build_decode_table():
+    """The 256-entry Huffman decode table: indexed by the next 8 bits of the
+    stream (MSB-first, the literal flag excluded), each entry is ``(symbol,
+    nbits)`` with ``nbits`` the Huffman bits only.  The code is complete,
+    so every entry is valid (none stays ``(-1, 0)``)."""
+    table = [(-1, 0)] * 256
+    for sym in range(NUM_SYMBOLS):
+        nbits = HUFFMAN_LENGTHS[sym] - 1  # strip the flag bit
+        code = HUFFMAN_CODES[sym] & ((1 << nbits) - 1)  # strip the 0 flag
+        pad = 8 - nbits  # every 8-bit word starting with the code
+        base = code << pad
+        for fill in range(1 << pad):
+            table[base | fill] = (sym, nbits)
+    return tuple(table)
+
+
+#: 256-entry (symbol, huffman_bits) decode table, indexed by the next 8 bits.
+HUFFMAN_DECODE_TABLE = _build_decode_table()
+
+
 def compute_min_pattern_size(window: int, literal: int) -> int:
     """Minimum beneficial match length for a (window, literal) configuration.
 

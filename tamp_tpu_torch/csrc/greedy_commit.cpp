@@ -49,7 +49,9 @@
 // khat write counts of forced RLE (tampn_v1_tables, its prefix-property
 // seed kept as it is so that fidx stays the lowest slot among ties), and
 // the walk that expands the card's choice plane into tokens
-// (tampn_opt_ext_walk).
+// (tampn_opt_ext_walk); and the host minimum-bit v1 parse
+// (tampn_opt_v1_plan), the reference that bench_torch.py holds the card's
+// optimal v1 encode to.
 //
 // The streaming handles (incremental write, flush, dictionary reset,
 // progress callbacks) and the stream decoder are in csrc/stream.cpp, which
@@ -989,6 +991,48 @@ int tpt_v1_tables(const uint8_t* data, int64_t n, const uint8_t* dict,
     prev_idx = r.idx;
     if (!khat || khat[t + 1] > khat[t]) c.ring_push(data[t]);
   }
+  return 0;
+}
+
+// Minimum-bit v1 parse over exact tables: cost[i] = fewest payload bits to
+// encode data[i..n), a literal (where data[i] fits `literal` bits) or a
+// match of any size s in [minp, min(flen[i], minp + 13)] at fidx[i].  The
+// host reference of the card's optimal v1 encode (kernel X3).  sizes gets
+// the tokens' sizes (1 = literal), n_tokens their count.  Returns 0, or -2
+// where a byte fits no literal and no match covers it.  A copy of
+// tampn_opt_v1_plan.
+int tpt_opt_v1_plan(const uint8_t* data, const uint8_t* flen, int64_t n,
+                    int window, int literal, uint8_t* sizes,
+                    int64_t* n_tokens) {
+  const int minp = min_pattern_size(window, literal);
+  const int maxpat = minp + 13;
+  const uint32_t INF = 0x7FFFFFFFu;
+  const uint32_t lit_cost = (uint32_t)(1 + literal);
+  const int lit_limit = literal == 8 ? 256 : (1 << literal);
+  std::vector<uint32_t> cost((size_t)n + 1);
+  std::vector<uint8_t> choice((size_t)n);
+  cost[(size_t)n] = 0;
+  for (int64_t i = n - 1; i >= 0; i--) {
+    uint32_t best = INF;
+    uint8_t ch = 0;
+    if (data[i] < lit_limit && cost[(size_t)i + 1] < INF) {
+      best = cost[(size_t)i + 1] + lit_cost;
+      ch = 1;
+    }
+    int cap = flen[i] < maxpat ? flen[i] : maxpat;
+    for (int s = minp; s <= cap; s++) {
+      uint32_t below = cost[(size_t)(i + s)];
+      if (below >= INF) continue;
+      uint32_t c = below + HUFF_BITS[s - minp] + (uint32_t)window;
+      if (c < best) { best = c; ch = (uint8_t)s; }
+    }
+    if (ch == 0) return -2;
+    cost[(size_t)i] = best;
+    choice[(size_t)i] = ch;
+  }
+  int64_t t = 0;
+  for (int64_t i = 0; i < n; i += choice[(size_t)i]) sizes[t++] = choice[(size_t)i];
+  *n_tokens = t;
   return 0;
 }
 

@@ -1,10 +1,13 @@
-"""Tamp stream header, v1 window model, bit packing and the optimal
-extended encode's host helpers.
+"""Tamp stream header, v1 window model, bit packing, the optimal encodes'
+host helpers, and the JAX module's one-stream encodes on the card.
 
-``build_header``, ``model_history``, ``opt_ext_runs`` and ``opt_ext_emit``
-are copies of the JAX package's ``engine.encode``, ``pack_bits_np`` of its
-``ops.bitpack``; :func:`bits_to_bytes` finishes a stream behind a commit
-kernel's bit remainder."""
+``build_header``, ``model_history``, ``opt_ext_runs``, ``opt_ext_emit``
+and ``v1_plan_fields`` are copies of the JAX package's ``engine.encode``,
+``pack_bits_np`` of its ``ops.bitpack``; :func:`bits_to_bytes` finishes a
+stream behind a commit kernel's bit remainder.  :func:`encode_v1` and
+:func:`encode_extended_optimal` are that module's encodes under its names
+and signatures, one shard of the card's batch encodes
+(engine/pipeline.py, engine/pipeline_ext.py)."""
 
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
 
 __all__ = ["build_header", "model_history", "bits_to_bytes", "pack_bits_np",
-           "opt_ext_runs", "opt_ext_emit"]
+           "opt_ext_runs", "opt_ext_emit", "v1_plan_fields", "encode_v1",
+           "encode_extended_optimal"]
 
 
 def build_header(
@@ -96,6 +100,32 @@ def pack_bits_np(values: np.ndarray, nbits: np.ndarray) -> tuple[bytes, int]:
                                          minlength=nbytes + 8)
     packed = out[:nbytes].astype(np.uint64).astype(np.uint8)
     return packed.tobytes(), total_bits
+
+
+def v1_plan_fields(data: np.ndarray, sizes: np.ndarray, fidx: np.ndarray, *,
+                   window: int, literal: int):
+    """(values uint32, nbits uint8) fields of a v1 token plan: ``sizes``
+    per token (1 a literal), a match at the table's ring slot ``fidx`` of
+    its first position (any prefix of the longest match is a match at the
+    same slot).  ExcessBitsError for a literal wider than ``literal``
+    bits.  A copy of the JAX module's ``_emit_v1_plan``."""
+    minp = compute_min_pattern_size(window, literal)
+    T = sizes.shape[0]
+    starts = np.zeros(T, np.int64)
+    np.cumsum(sizes[:-1], out=starts[1:] if T else starts[:0])
+    lit = sizes == 1
+    lit_limit = 256 if literal == 8 else (1 << literal)
+    dstart = data[starts] if T else np.zeros(0, np.uint8)
+    if np.any(lit & (dstart >= lit_limit)):
+        raise ExcessBitsError
+    sym = np.clip(sizes.astype(np.int32) - minp, 0, 13)
+    HC = np.asarray(HUFFMAN_CODES[:14], np.uint32)
+    HL = np.asarray(HUFFMAN_LENGTHS[:14], np.uint32)
+    idx = fidx[starts].astype(np.uint32) if T else np.zeros(0, np.uint32)
+    values = np.where(lit, (1 << literal) | dstart.astype(np.uint32),
+                      (HC[sym] << window) | idx).astype(np.uint32)
+    nbits = np.where(lit, literal + 1, HL[sym] + window).astype(np.uint8)
+    return values, nbits
 
 
 def opt_ext_runs(data: np.ndarray, window: int):
@@ -208,3 +238,45 @@ def opt_ext_emit(data: np.ndarray, sizes, kinds, fidx, *, window: int,
         [np.array([nb for _, nb in head], np.uint8), nbits])
     packed, _ = pack_bits_np(all_values, all_nbits)
     return packed
+
+
+def encode_v1(data, *, window: int = 10, literal: int = 8,
+              lazy_matching: bool = False, dictionary=None, search_fn=None,
+              parse: str = "greedy", device=None) -> bytes:
+    """One v1 Tamp stream of ``data`` on the card, byte-equal to the JAX
+    package's ``engine.encode_v1``: ``parse="greedy"``, one shard of
+    ``engine/pipeline.encode_v1_device_commit`` (the reference greedy
+    encoder's stream; kernels B5 and B3, or B5 with the probe and B6 under
+    ``lazy_matching``); ``parse="optimal"``, one shard of
+    ``encode_v1_device_optimal`` (B5, X3 and B3; ``lazy_matching`` does
+    not apply).  ValueError for another ``parse``, and for a
+    ``search_fn``: the JAX module's table backend hook, whose tables here
+    are kernel B5's.  ``device``: None for the CUDA card, ``"cpu"`` for
+    the plain versions."""
+    from .pipeline import encode_v1_device_commit, encode_v1_device_optimal
+
+    if search_fn is not None:
+        raise ValueError("search_fn is not supported: the tables are "
+                         "kernel B5's")
+    if parse == "optimal":
+        return encode_v1_device_optimal(
+            [data], window=window, literal=literal, dictionary=dictionary,
+            device=device)[0]
+    if parse != "greedy":
+        raise ValueError(f"unknown parse strategy: {parse!r}")
+    return encode_v1_device_commit(
+        [data], window=window, literal=literal, lazy_matching=lazy_matching,
+        dictionary=dictionary, device=device)[0]
+
+
+def encode_extended_optimal(data, *, window: int = 10, literal: int = 8,
+                            dictionary=None, device=None) -> bytes:
+    """One extended-format stream of the minimum-bit parse, byte-equal to
+    the JAX package's ``engine.encode_extended_optimal``: one shard of
+    ``engine/pipeline_ext.encode_ext_device_optimal`` (the host tables and
+    walk, kernel X4's DP).  ``device``: as :func:`encode_v1`."""
+    from .pipeline_ext import encode_ext_device_optimal
+
+    return encode_ext_device_optimal(
+        [data], window=window, literal=literal, dictionary=dictionary,
+        device=device)[0]

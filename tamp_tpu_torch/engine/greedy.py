@@ -23,7 +23,10 @@ The same library holds the host half of the optimal extended encode
 the exact tables at any cap with forced RLE's write counts (counterpart of
 ``_native.native_v1_tables(..., ext_dict=True, khat=...)``), and
 :func:`opt_ext_walk`, the expansion of the card's choice plane into tokens
-(``_native.native_opt_ext_walk``).
+(``_native.native_opt_ext_walk``).  :func:`host_optimal_v1` is the
+minimum-bit v1 parse on the host (``encode_v1(parse="optimal")`` on the
+JAX package's native engine), the reference of the card's optimal v1
+encode.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ from ..constants import compute_min_pattern_size
 from ..dictionary import dictionary_array
 from ..exceptions import ExcessBitsError
 from ..ops import _build
+from .encode import build_header, model_history, pack_bits_np, v1_plan_fields
 
 __all__ = ["greedy_compress", "table_compress", "host_v1_tables",
-           "opt_ext_walk", "window_array", "SPARSE_NONE"]
+           "opt_ext_walk", "host_optimal_v1", "window_array", "SPARSE_NONE"]
 
 SPARSE_NONE = 0xFF  # table length of a position with no shipped entry
 
@@ -51,6 +55,7 @@ _HOST_ARGTYPES = {
                            + [_P, _P, _I, _P, _I64, _P]),
     "tpt_v1_tables": [_P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "tpt_opt_ext_walk": [_P, _I64, _I, _P, _I, _P, _P, _P],
+    "tpt_opt_v1_plan": [_P, _P, _I64, _I, _I, _P, _P],
 }
 
 
@@ -235,3 +240,37 @@ def opt_ext_walk(choice, minp: int, runs=()):
     if rc != 0:
         raise ValueError(f"optimal choice walk failed: rc={rc}")
     return sizes[: n_tokens.value], kinds[: n_tokens.value]
+
+
+def host_optimal_v1(data, *, window: int = 10, literal: int = 8,
+                    dictionary=None) -> bytes:
+    """One v1 stream of the minimum-bit parse, all on the host: the exact
+    tables of the v1 window model (:func:`host_v1_tables` at cap
+    ``min(16, minp + 13)``), the DP ``tpt_opt_v1_plan`` and the packing
+    of engine/encode.py.  The counterpart of the JAX package's
+    ``encode_v1(parse="optimal")`` on its native engine; bench_torch.py
+    holds the card's optimal v1 encode (kernel X3) to it.
+    ExcessBitsError where a byte fits no literal and no match covers it."""
+    arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
+    n = arr.shape[0]
+    if n > (200 << 20):  # the DP's uint32 costs: <= 9 bits a byte must fit
+        raise ValueError("optimal parse is limited to 200 MiB per stream")
+    dict_arr, _ = model_history(arr, window, literal, False, dictionary)
+    cap = min(16, compute_min_pattern_size(window, literal) + 13)
+    flen, fidx = host_v1_tables(arr, window=window, literal=literal, cap=cap,
+                                dictionary=dict_arr)
+    sizes = np.empty(max(n, 1), np.uint8)
+    n_tokens = ctypes.c_int64(0)
+    rc = _host_entry("tpt_opt_v1_plan")(
+        _ptr(arr), _ptr(np.ascontiguousarray(flen)), n, window, literal,
+        _ptr(sizes), ctypes.addressof(n_tokens))
+    if rc == -2:
+        raise ExcessBitsError
+    if rc != 0:
+        raise RuntimeError(f"optimal v1 plan failed: rc={rc}")
+    values, nbits = v1_plan_fields(arr, sizes[: n_tokens.value], fidx,
+                                   window=window, literal=literal)
+    head = build_header(window, literal, dictionary is not None, False, False)
+    return pack_bits_np(
+        np.concatenate([np.array([v for v, _ in head], np.uint32), values]),
+        np.concatenate([np.array([b for _, b in head], np.uint8), nbits]))[0]

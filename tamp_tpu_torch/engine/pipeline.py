@@ -59,7 +59,7 @@ from ..ops.opt_parse import opt_v1_choice
 from .commit import ring_find_longest, ring_model_snapshot
 from .encode import bits_to_bytes, build_header, model_history
 
-__all__ = ["encode_v1", "encode_v1_device_commit", "encode_v1_device_optimal",
+__all__ = ["encode_v1_device_commit", "encode_v1_device_optimal",
            "v1_optimal_stage", "optimal_fields_v1", "optimal_streams_v1",
            "finish_streams",
            "pad_shards", "pull_body_bytes", "per_shard", "device_tables",
@@ -397,27 +397,6 @@ def encode_device(data, *, window: int = 10, literal: int = 8,
         [data], window=window, literal=literal, extended=extended,
         lazy_matching=lazy_matching, dictionary=dictionary,
         device=device)[0]
-
-
-def encode_v1(data, *, window: int = 10, literal: int = 8,
-              lazy_matching: bool = False, dictionary=None,
-              parse: str = "greedy", device=None) -> bytes:
-    """One v1 Tamp stream of ``data`` on the card, byte-equal to the JAX
-    package's ``engine.encode_v1``: ``parse="greedy"``, one shard of
-    :func:`encode_v1_device_commit` (the reference greedy encoder's
-    stream; kernels B5 and B3, or B5 with the probe and B6 under
-    ``lazy_matching``); ``parse="optimal"``, one shard of
-    :func:`encode_v1_device_optimal` (B5, X3 and B3; ``lazy_matching``
-    does not apply).  ValueError for another ``parse``."""
-    if parse == "optimal":
-        return encode_v1_device_optimal(
-            [data], window=window, literal=literal, dictionary=dictionary,
-            device=device)[0]
-    if parse != "greedy":
-        raise ValueError(f"unknown parse strategy: {parse!r}")
-    return encode_v1_device_commit(
-        [data], window=window, literal=literal, lazy_matching=lazy_matching,
-        dictionary=dictionary, device=device)[0]
 
 
 def device_pipeline_available() -> bool:

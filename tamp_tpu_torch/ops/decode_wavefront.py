@@ -58,6 +58,7 @@ from .decode_commit import (
 from .token_chase import token_table_chase
 
 __all__ = ["decode_shards_wavefront", "decode_group", "payload_groups",
+           "wavefront_decode_payload",
            "payload_parse", "speculative_parse", "wavefront_finish",
            "fold_inputs", "trunc_deficits", "trunc_deficits_plain",
            "resolve_mode", "MODES"]
@@ -531,6 +532,25 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
     del nxt
     return wavefront_finish(starts, T, packed, di, dr, window=window,
                             more=more, max_out=max_out)
+
+
+def wavefront_decode_payload(payload: bytes, *, window: int, literal: int,
+                             extended: bool, more: bool, dict_init,
+                             dict_reset=None, max_out: int, device=None,
+                             mode: str | None = None) -> bytes:
+    """Decode one header-less Tamp payload on the card: the JAX module's
+    ``wavefront_decode_payload``, one :func:`decode_group` (the parse, then
+    ``mode`` as :func:`resolve_mode` picks it).  ``dict_reset`` (None:
+    ``dict_init``) is what a double FLUSH resets the window to; the
+    decode's errors raise as in :func:`decode_shards_wavefront`."""
+    if dict_reset is None:
+        dict_reset = dict_init
+    outs, lens, errs = decode_group(
+        [bytes(payload)], window=window, literal=literal, extended=extended,
+        more=more, dict_init=dict_init, dict_reset=dict_reset,
+        max_out=max_out, device=resolve_device(device), mode=mode)
+    _raise_err(int(errs[0]))
+    return outs[0, : int(lens[0])].cpu().numpy().tobytes()
 
 
 def split_streams(shards, dictionary):

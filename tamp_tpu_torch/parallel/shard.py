@@ -370,12 +370,15 @@ def compress_file_sharded(
 def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
                               algorithm: str = "wavefront",
                               dictionary: bytes | None = None,
-                              device=None) -> bytearray:
+                              device=None, mode: str | None = None
+                              ) -> bytearray:
     """Decode a TTPU container on the card.
 
     ``algorithm="wavefront"`` (default): the per-bit parse, then the decode
-    mode that ``TAMP_TPU_DECODE`` names (``commit``, ``chase`` or ``xla``;
-    ``commit``, kernel B4, when it names none), ops/decode_wavefront.py.
+    ``mode`` (``commit``, ``chase`` or ``xla``; None: the one that
+    ``TAMP_TPU_DECODE`` names, else ``commit``, kernel B4),
+    ops/decode_wavefront.py; a ``mode`` with another algorithm raises
+    ValueError.
     ``algorithm="serial"``: the token-serial decoder, kernel X2
     (ops/decode_serial.py).  ``shard_size`` (the per-shard output bound)
     comes from the v2 frame; pass it explicitly only for v1 containers
@@ -385,9 +388,13 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
     raises ValueError.  ``dictionary`` must match the encode side's."""
     raw_size, frame_shard_size, pieces = _parse_frame(blob)
     decode = _decoder(algorithm)
+    if mode is not None and algorithm != "wavefront":
+        raise ValueError("a decode mode applies to algorithm='wavefront' "
+                         "only")
     outs = decode(pieces, max_out=_max_out(raw_size, frame_shard_size,
                                            shard_size, algorithm),
-                  dictionary=dictionary, device=device)
+                  dictionary=dictionary, device=device,
+                  **({} if mode is None else {"mode": mode}))
     out = bytearray()
     for d in outs:
         out += d
