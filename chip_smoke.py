@@ -2932,18 +2932,30 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
     ``lazy`` the extended lazy one's, kernel B2 in place of B1), and for the
     main path one decode's: each stage, host clock around work that ends in
     a synchronize, median of 3 after a warm-up; the encode's framed streams
-    equal to the round trip's container (``blob``)."""
+    equal to the round trip's container (``blob``).  The host half runs in
+    the port's C++ (engine/greedy.host_ext_prep a thread a shard,
+    host_ext_tail_bits one shard after another); beside it, timed and held
+    equal to it, its plain versions one shard after another:
+    engine/plan.ext_prep (the same (plans, khat, dh, rc), element for
+    element) and engine/tail.ext_tail_bits with the 16 table rows a shard
+    it pulls from the card (the same tail bytes)."""
     import numpy as np
     import torch
 
     from tamp_tpu_torch.constants import compute_min_pattern_size
     from tamp_tpu_torch.dictionary import dictionary_array
+    from tamp_tpu_torch.engine.pipeline import pull_body_bytes
     from tamp_tpu_torch.engine.pipeline_ext import (
-        encode_ext_device_commit, ext_fields, prepare_batch,
+        encode_ext_device_commit, ext_fields, ext_tails, prepare_batch,
+        resume_position,
     )
+    from tamp_tpu_torch.engine.plan import ext_prep
+    from tamp_tpu_torch.engine.tail import TAIL_ROWS, ext_tail_bits
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
-    from tamp_tpu_torch.ops.encode_commit import commit_fields
+    from tamp_tpu_torch.ops.encode_commit import (
+        S_ACC, S_AN, S_T, commit_fields,
+    )
     from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
     from tamp_tpu_torch.parallel.shard import _pack_frame, _parse_frame
 
@@ -2958,28 +2970,73 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
                           else "B1 ext_tables alone")
     fields = (f"{pre} planned fields ({kern} + region planes + field "
               "planner)")
-    stage_names = [f"{pre} host prep (plan, model, chunk counts)",
-                   f"{pre} host->device", fields, f"{pre} B3 commit_fields"]
+    stage_names = [f"{pre} host prep (plan, model, chunk counts; C++, a "
+                   "thread a shard)",
+                   f"{pre} host->device", fields, f"{pre} B3 commit_fields",
+                   f"{pre} device->host (state rows, body bytes)",
+                   f"{pre} tail walks (C++, one shard after another)"]
+    plain_prep = (f"{pre} plain host prep (NumPy engine/plan.ext_prep, one "
+                  "shard after another)")
+    plain_tail = (f"{pre} plain tail walks (16-row pull + Python "
+                  "engine/tail.ext_tail_bits, one shard after another)")
     whole = f"{pre} whole call (prep .. tail, for the rest)"
+    dict_np = dictionary_array(W, literal)
+
+    def python_tails(prep, state, tabs, npos_d, NP):
+        base = torch.clamp_min(npos_d - TAIL_ROWS, 0)
+        ridx = torch.clamp_max(
+            base[:, None] + torch.arange(TAIL_ROWS, device=dev)[None, :],
+            NP - 1).long()
+        rows = torch.stack([torch.gather(t, 1, ridx)
+                            for t in tabs]).cpu().numpy()
+        base = base.cpu().numpy()
+        out = []
+        for i, x in enumerate(shards):
+            plans, khat, dhi, _rc = prep[i]
+            st = state[i]
+            t_in = resume_position(khat, int(st[S_T]), dhi.shape[0])
+            out.append(ext_tail_bits(
+                x, t_in, dhi, khat, plans, tuple(rows[:, i]), int(base[i]),
+                window=window, literal=literal, acc=int(st[S_ACC]),
+                an=int(st[S_AN]), dict_last=int(dict_np[-1])))
+        return out
 
     timed = timed_stages(dev, stages)
 
     for _ in range(4):
-        _p, dh, rc, npos = timed(stage_names[0],
-                                 lambda: prepare_batch(shards, window=window))
+        prep, dh, rc, npos = timed(
+            stage_names[0], lambda: prepare_batch(shards, window=window))
+        ref = timed(plain_prep, lambda: [ext_prep(x, window) for x in shards])
+        for i, (got, want) in enumerate(zip(prep, ref)):
+            if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                       for g, w in zip(got, want)):
+                fail(f"{pre}: host_ext_prep differs from plan.ext_prep on "
+                     f"shard {i}")
         dh_d, rc_d, npos_d, dict_d = timed(stage_names[1], lambda: (
             torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev),
             torch.from_numpy(npos).to(dev),
-            torch.from_numpy(dictionary_array(W, literal)).to(dev)))
+            torch.from_numpy(dict_np).to(dev)))
         timed(tables, lambda: (ext_tables_probe if lazy else ext_tables)(
             dh_d, npos_d, dict_d, window_bits=window, LEXT=lext))
         tabs, A, B = timed(fields, lambda: ext_fields(
             dh_d, rc_d, npos_d, dict_d, window=window, literal=literal,
             lazy=lazy))
         NP = dh.shape[1]
-        timed(stage_names[3], lambda: commit_fields(
+        out, state = timed(stage_names[3], lambda: commit_fields(
             A, B, npos_d, max_out=NP + NP // 8 + 64, idx_bits=0))
-        del A, B, tabs
+        del A, B
+        state, _bodies = timed(stage_names[4], lambda: (
+            state.cpu().numpy(), pull_body_bytes(out, state)))
+        tails = timed(stage_names[5], lambda: ext_tails(
+            shards, prep, state, window=window, literal=literal, lazy=lazy,
+            dict_arr=dict_np))
+        ref = timed(plain_tail, lambda: python_tails(prep, state, tabs,
+                                                     npos_d, NP))
+        if tails != ref:
+            bad = [i for i, (a, b) in enumerate(zip(tails, ref)) if a != b]
+            fail(f"{pre}: host_ext_tail_bits differs from tail.ext_tail_bits"
+                 f" on shards {bad}")
+        del out, tabs
         streams = timed(whole, lambda: encode_ext_device_commit(
             shards, window=window, literal=literal, lazy_matching=lazy,
             device=dev))
@@ -3011,9 +3068,13 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
         report(f"  {name}: {ms:.2f} ms [{card}]")
     report(f"  {pre} region planes + field planner (fields - {kern}): "
            f"{med[fields] - med[tables]:.2f} ms [{card}]")
-    report(f"  {pre} device->host + tail walk (whole call - prep - h2d - "
-           f"fields - B3): {med[whole] - sum(med[n] for n in stage_names):.2f}"
-           f" ms [{card}]")
+    report(f"  {pre} host prep, plain / C++: "
+           f"{med[plain_prep] / med[stage_names[0]]:.2f}x; tail walks, "
+           f"plain / C++: {med[plain_tail] / med[stage_names[5]]:.2f}x "
+           f"[{card}]")
+    report(f"  {pre} rest of the whole call (whole - prep - h2d - fields - "
+           f"B3 - d2h - tails): "
+           f"{med[whole] - sum(med[n] for n in stage_names):.2f} ms [{card}]")
 
 
 def phase_v1_split(dev, report, data, blob, shard_size: int, card: str,

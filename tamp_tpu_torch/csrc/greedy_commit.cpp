@@ -53,6 +53,14 @@
 // (tampn_opt_v1_plan), the reference that bench_torch.py holds the card's
 // optimal v1 encode to.
 //
+// And the host half of the planned extended encode, on its main path
+// (engine/pipeline_ext.encode_ext_device_commit, a thread a shard): the
+// one-pass run plan, model history and chunk counts (tampn_ext_prep, also
+// the model inputs of engine="device") and the tail walk that finishes a
+// shard after the card's commit kernel (tampn_ext_tail_bits: the planned
+// walk resumed over a replayed ring, no table rows).  engine/plan.py and
+// engine/tail.py are their plain versions, reached only by the tests.
+//
 // The streaming handles (incremental write, flush, dictionary reset,
 // progress callbacks) and the stream decoder are in csrc/stream.cpp, which
 // includes this file.  Left out of the copy: the native engine's one-shot
@@ -1069,6 +1077,130 @@ int tpt_opt_ext_walk(const uint8_t* choice, int64_t n, int minp,
   }
   *n_tokens = t;
   return 0;
+}
+
+// One-pass host prep of the planned extended encode (the device-commit
+// encode's first stage): plans, the (rle_start = s + 1, end) int64 pairs of
+// the maximal byte runs >= 9; khat, uint32[n + 1], the kept (window-written)
+// bytes among positions < t; dh, the kept byte stream (the model history);
+// rc, uint8[dh_len], the forced-RLE chunk's input count (2..241) at each
+// chunk's model start, 0 elsewhere.  Chunk rule (left-greedy): c = min(241,
+// remn), c-- where it would leave a single trailing byte; keep = min(8, c,
+// W - k % W), k the model position at the chunk's start (keeps never wrap
+// the ring); a chunk keeps its first `keep` input bytes.  dh and rc hold n
+// bytes.  Returns 0, or -1 where plans_cap is too small (n / 9 + 1 always
+// suffices).  A copy of tampn_ext_prep; engine/plan.py is its plain
+// version.
+int tpt_ext_prep(const uint8_t* data, int64_t n, int window, int64_t* plans,
+                 int64_t plans_cap, int64_t* n_plans, uint32_t* khat,
+                 uint8_t* dh, uint8_t* rc, int64_t* dh_len) {
+  const int64_t W = (int64_t)1 << window;
+  const int64_t MIN_RUN = 9;
+  int64_t np_ = 0, k = 0, t = 0;
+  khat[0] = 0;
+  while (t < n) {
+    const uint8_t b = data[t];
+    int64_t e = t + 1;
+    while (e < n && data[e] == b) e++;
+    if (e - t < MIN_RUN) {  // ordinary bytes: all kept
+      for (int64_t p = t; p < e; p++) {
+        dh[k] = data[p];
+        rc[k] = 0;
+        khat[p + 1] = (uint32_t)++k;
+      }
+      t = e;
+      continue;
+    }
+    // a run >= 9: the byte at t is ordinary (the region starts at t + 1)
+    dh[k] = b;
+    rc[k] = 0;
+    khat[t + 1] = (uint32_t)++k;
+    if (np_ >= plans_cap) return -1;
+    plans[2 * np_] = t + 1;
+    plans[2 * np_ + 1] = e;
+    np_++;
+    int64_t p = t + 1;
+    while (p < e) {
+      int64_t remn = e - p;
+      int64_t c = remn < RLE_MAX ? remn : RLE_MAX;
+      if (remn - c == 1) c--;
+      int64_t keep = c < RLE_MAX_WIN ? c : RLE_MAX_WIN;
+      int64_t room = W - (k % W);
+      if (keep > room) keep = room;  // room >= 1: keep >= 1
+      int64_t k0 = k;
+      rc[k0] = (uint8_t)c;
+      for (int64_t j = 0; j < keep; j++) {
+        dh[k] = b;
+        if (j) rc[k] = 0;
+        k++;
+      }
+      for (int64_t q = 0; q < c; q++)
+        khat[p + q + 1] = (uint32_t)(k0 + (q + 1 < keep ? q + 1 : keep));
+      p += c;
+    }
+    t = e;
+  }
+  *n_plans = np_;
+  *dh_len = k;
+  return 0;
+}
+
+// Finish a planned extended stream from input position t_in (a walk entry
+// of the card's commit kernel, which stops at the first token start >=
+// npos - 15, possibly a chunk start inside a forced-RLE region): the
+// planned walk with divergence avoidance over data[t_in..n), its bytes
+// written after the kernel's bit remainder (acc, an <= 31 bits), the last
+// partial byte zero-padded.  dh: the model stream (khat[n] bytes); only its
+// last window is replayed into the ring, so no table row is needed.  khat,
+// plans/n_plan: as tpt_ext_prep gives them.  dict: the initial window, 1 <<
+// window bytes.  Returns 0 ok, -1 output full, -2 a literal wider than
+// `literal` bits, -3 a null dict.  A copy of tampn_ext_tail_bits;
+// engine/tail.py is its plain version.
+int tpt_ext_tail_bits(const uint8_t* data, int64_t n, int64_t t_in,
+                      const uint8_t* dh, const uint32_t* khat,
+                      const int64_t* plans, int n_plan, const uint8_t* dict,
+                      int window, int literal, int lazy, uint32_t acc, int an,
+                      uint8_t* out, int64_t out_cap, int64_t* out_len) {
+  *out_len = 0;
+  if (!dict) return -3;
+  Committer c;
+  c.W = 1 << window; c.wmask = c.W - 1; c.wbits = window; c.literal = literal;
+  c.minp = min_pattern_size(window, literal);
+  c.maxpat = c.minp + 131;
+  c.lazy = lazy != 0;
+  c.avoid_divergence = true;  // the planned model never diverges
+  c.data = data; c.N = n;
+  c.khat = khat; c.plan = plans; c.n_plan = n_plan;
+  c.dh = dh; c.M = (int64_t)khat[n];
+  c.full_cap = LOOKAHEAD < c.maxpat ? LOOKAHEAD : c.maxpat;
+  c.ring.assign(dict, dict + c.W);
+  c.seed_chains();
+  // Replay the last K model bytes: the first lands at ring slot 0
+  // ((kwr - K) % W == 0; the model puts byte p at slot p % W), the write
+  // head ends at kwr % W, and every chain entry left is one the whole walk
+  // would also hold (dictionary entries expire iff kwr >= W).
+  const int64_t kwr = (int64_t)khat[t_in];
+  int64_t K = kwr <= (int64_t)c.W ? kwr : (int64_t)c.W + (kwr & c.wmask);
+  if (K) c.ring_push_run(dh + (kwr - K), (int)K);
+  c.t = t_in;
+  BitWriter bw(out, out_cap);
+  if (an > 0) bw.put(acc, an);
+  // A resume inside a forced-RLE region is a chunk start (the chunks are
+  // left-greedy, so re-cutting from any chunk boundary gives the same
+  // chunks); step() fires forced_rle only at a region's start, so finish
+  // the region here first.
+  while (c.plan_i < n_plan && c.t >= plans[2 * c.plan_i + 1]) c.plan_i++;
+  if (c.plan_i < n_plan && c.t > plans[2 * c.plan_i] &&
+      c.t < plans[2 * c.plan_i + 1]) {
+    int64_t end = plans[2 * c.plan_i + 1];
+    c.plan_i++;
+    c.bw = &bw;
+    c.forced_rle(end);
+    if (bw.overflow) { *out_len = bw.n; return -1; }
+  }
+  int rc = c.run(bw);
+  *out_len = bw.n;
+  return rc;
 }
 
 }  // extern "C"

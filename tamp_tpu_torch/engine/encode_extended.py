@@ -4,8 +4,9 @@ model history, then the host table committer.
 Counterpart of the JAX package's ``engine/encode_extended.encode_extended``
 as its ``engine/pipeline.encode_device`` runs it (the Pallas search):
 
-  1. host, per shard: the run plan and the exact ring-aware model history
-     (engine/plan.py: ``plans``, ``khat``, the model stream ``dh``);
+  1. host, one thread a shard: the run plan and the exact ring-aware
+     model history (engine/greedy.host_ext_prep, the C++ ``tpt_ext_prep``:
+     ``plans``, ``khat``, the model stream ``dh``);
   2. card, one launch per batch: kernel B5's cap-16 tables (and, under lazy
      matching, the probe family) of ``dh`` against the extended dictionary,
      pulled in one copy (engine/pipeline.card_tables);
@@ -25,9 +26,8 @@ import numpy as np
 
 from ..constants import compute_min_pattern_size
 from ..device import resolve_device
-from .greedy import table_compress, window_array
+from .greedy import host_ext_prep, table_compress, window_array
 from .pipeline import card_tables, per_shard, unpack_tables
-from .plan import build_model_history, plan_runs
 
 __all__ = ["encode_extended", "encode_extended_batch", "model_inputs",
            "commit_extended", "ext_commits"]
@@ -35,10 +35,8 @@ __all__ = ["encode_extended", "encode_extended_batch", "model_inputs",
 
 def model_inputs(data: np.ndarray, window: int):
     """(plans, khat, dh) of one shard: the run plan, the model write counts
-    and the model stream (engine/plan.py)."""
-    plans = plan_runs(data)
-    _keep, khat, dh = build_model_history(data, plans, window)
-    return plans, khat, dh
+    and the model stream (engine/greedy.host_ext_prep)."""
+    return host_ext_prep(data, window)[:3]
 
 
 def commit_extended(data: np.ndarray, plans, khat, tables, *, window: int,

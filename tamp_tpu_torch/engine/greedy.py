@@ -23,7 +23,14 @@ The same library holds the host half of the optimal extended encode
 the exact tables at any cap with forced RLE's write counts (counterpart of
 ``_native.native_v1_tables(..., ext_dict=True, khat=...)``), and
 :func:`opt_ext_walk`, the expansion of the card's choice plane into tokens
-(``_native.native_opt_ext_walk``).  :func:`host_optimal_v1` is the
+(``_native.native_opt_ext_walk``).  It also holds the host half of the
+planned extended encode (engine/pipeline_ext.encode_ext_device_commit,
+and the model inputs of ``engine="device"``): :func:`host_ext_prep`, the
+one-pass run plan, model history and chunk counts
+(``_native.native_ext_prep``), and :func:`host_ext_tail_bits`, the walk
+over a shard's last < 16 model bytes after the card's commit
+(``_native.native_ext_tail_bits``); engine/plan.py and engine/tail.py are
+their plain versions, off the main path.  :func:`host_optimal_v1` is the
 minimum-bit v1 parse on the host (``encode_v1(parse="optimal")`` on the
 JAX package's native engine), the reference of the card's optimal v1
 encode.
@@ -43,7 +50,8 @@ from ..ops import _build
 from .encode import build_header, model_history, pack_bits_np, v1_plan_fields
 
 __all__ = ["greedy_compress", "table_compress", "host_v1_tables",
-           "opt_ext_walk", "host_optimal_v1", "window_array", "SPARSE_NONE"]
+           "opt_ext_walk", "host_optimal_v1", "host_ext_prep",
+           "host_ext_tail_bits", "window_array", "SPARSE_NONE"]
 
 SPARSE_NONE = 0xFF  # table length of a position with no shipped entry
 
@@ -56,6 +64,9 @@ _HOST_ARGTYPES = {
     "tpt_v1_tables": [_P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "tpt_opt_ext_walk": [_P, _I64, _I, _P, _I, _P, _P, _P],
     "tpt_opt_v1_plan": [_P, _P, _I64, _I, _I, _P, _P],
+    "tpt_ext_prep": [_P, _I64, _I, _P, _I64, _P, _P, _P, _P, _P],
+    "tpt_ext_tail_bits": ([_P, _I64, _I64, _P, _P, _P, _I, _P, _I, _I, _I,
+                           ctypes.c_uint32, _I, _P, _I64, _P]),
 }
 
 
@@ -274,3 +285,76 @@ def host_optimal_v1(data, *, window: int = 10, literal: int = 8,
     return pack_bits_np(
         np.concatenate([np.array([v for v, _ in head], np.uint32), values]),
         np.concatenate([np.array([b for _, b in head], np.uint8), nbits]))[0]
+
+
+def host_ext_prep(data, window: int):
+    """(plans (k, 2) int64, khat uint32[n + 1], dh uint8, rc uint8) of one
+    shard in one pass: the run plan, the model write counts, the model
+    stream and the chunk counts at the chunks' model starts; the arrays of
+    engine/plan.ext_prep, its plain version (``tpt_ext_prep``).  Releases
+    the GIL, so shards run in parallel threads."""
+    if not 8 <= window <= 15:
+        raise ValueError(f"window must lie in [8, 15], not {window}")
+    arr = np.ascontiguousarray(data, dtype=np.uint8)
+    n = arr.shape[0]
+    plans = np.zeros((n // 9 + 2, 2), np.int64)
+    khat = np.zeros(n + 1, np.uint32)
+    dh = np.zeros(max(n, 1), np.uint8)
+    rc = np.zeros(max(n, 1), np.uint8)
+    n_plans = ctypes.c_int64(0)
+    dh_len = ctypes.c_int64(0)
+    code = _host_entry("tpt_ext_prep")(
+        _ptr(arr), n, window, _ptr(plans), plans.shape[0],
+        ctypes.addressof(n_plans), _ptr(khat), _ptr(dh), _ptr(rc),
+        ctypes.addressof(dh_len))
+    if code != 0:
+        raise ValueError(f"ext prep failed: rc={code}")
+    k = dh_len.value
+    return plans[: n_plans.value], khat, dh[:k], rc[:k]
+
+
+def host_ext_tail_bits(data, t_in: int, dh, khat, plans, *, window: int,
+                       literal: int, acc: int, an: int, lazy: bool = False,
+                       dictionary=None) -> bytes:
+    """The tail bytes of a planned extended stream from input position
+    ``t_in`` (a walk entry where the card's commit stopped): the kernel's
+    bit remainder ``(acc, an)`` then the planned walk's tokens over the
+    rest, the last partial byte zero-padded (``tpt_ext_tail_bits``;
+    engine/tail.ext_tail_bits is its plain version).  ``dh``, ``khat``,
+    ``plans``: :func:`host_ext_prep`'s; the walk replays the model
+    stream's last window into the ring and searches it, so it needs no
+    table row.  ``dictionary``: the initial window (bytes or uint8 array),
+    else the default at ``literal``.  ExcessBitsError for a byte wider than
+    ``literal`` bits."""
+    compute_min_pattern_size(window, literal)  # validates the config
+    arr = np.ascontiguousarray(data, dtype=np.uint8)
+    n = arr.shape[0]
+    kh = np.ascontiguousarray(khat, np.uint32)
+    if kh.shape != (n + 1,):
+        raise ValueError("khat must hold n + 1 write counts")
+    if not 0 <= t_in <= n:
+        raise ValueError("t_in must lie in [0, n]")
+    d = np.ascontiguousarray(dh, np.uint8)
+    if d.shape != (int(kh[n]),):
+        raise ValueError("dh must hold khat[n] model bytes")
+    pl = np.ascontiguousarray(plans, np.int64).reshape(-1)
+    if pl.shape[0] % 2 or (pl.size and (pl.min() < 0 or pl.max() > n or (
+            np.diff(pl) < 0).any())):
+        raise ValueError("plans must hold sorted (rle_start, end) pairs "
+                         "inside the input")
+    n_plan = pl.shape[0] // 2
+    if n_plan == 0:
+        pl = np.zeros(2, np.int64)  # a plan pointer holding no pairs
+    dict_arr = window_array(window, literal, dictionary)
+    cap = (n - t_in) * 2 + 64
+    out = np.zeros(cap, np.uint8)
+    out_len = ctypes.c_int64(0)
+    code = _host_entry("tpt_ext_tail_bits")(
+        _ptr(arr), n, t_in, _ptr(d), _ptr(kh), _ptr(pl), n_plan,
+        _ptr(dict_arr), window, literal, int(lazy), acc, an, _ptr(out), cap,
+        ctypes.addressof(out_len))
+    if code == -2:
+        raise ExcessBitsError
+    if code != 0:
+        raise ValueError(f"ext tail walk failed: rc={code}")
+    return out[: out_len.value].tobytes()

@@ -4,18 +4,25 @@
 ``tamp_tpu/engine/pipeline_ext.encode_ext_device_commit`` (its
 device-tables branch and the fused stage ``_ext_device_stage_impl``):
 
-  1. host: run plan, exact ring-aware model history and chunk counts per
-     shard (engine/plan.py);
+  1. host, one thread a shard: run plan, exact ring-aware model history
+     and chunk counts in one pass (engine/greedy.host_ext_prep, the C++
+     ``tpt_ext_prep`` of csrc/greedy_commit.cpp);
   2. device, one stage per batch (:func:`ext_device_stage`): the planned
      fields (:func:`ext_fields`: region planes from the chunk counts, the
      sentinel-filled model bytes, kernel B1 (both match-table families)
      or, under lazy matching, kernel B2 (the same and the probe family),
      the field planner of ops/plan_ext.py with its lazy deferral), then
      kernel B3 (the planned-fields commit);
-  3. host: the last < 16 model bytes of each shard (engine/tail.py), from
-     the kernel's stop and bit remainder and a few table rows.  The
-     planned walk never defers there (its lazy deferral needs 16 bytes
-     ahead), so the tail is the same with lazy matching on or off.
+  3. host, one shard after another: the last < 16 model bytes of each
+     shard from the kernel's stop and bit remainder
+     (engine/greedy.host_ext_tail_bits, the C++ ``tpt_ext_tail_bits``),
+     which replays the model stream's last window into its ring and
+     searches there, so no table row leaves the card.  The planned walk
+     never defers there (its lazy deferral needs 16 bytes ahead), so the
+     tail is the same with lazy matching on or off.
+
+engine/plan.py and engine/tail.py are the plain versions of steps 1 and 3
+that the tests hold the C++ to; the main path reaches neither.
 
 Output is byte-identical to the JAX package's device-commit encode and to
 the native planned committer (``force_planned=True,
@@ -59,16 +66,16 @@ from ..ops.plan_ext import (
 )
 from .encode import build_header, opt_ext_emit, opt_ext_runs
 from .greedy import (
-    SPARSE_NONE, greedy_compress, host_v1_tables, opt_ext_walk, window_array,
+    SPARSE_NONE, greedy_compress, host_ext_prep, host_ext_tail_bits,
+    host_v1_tables, opt_ext_walk, window_array,
 )
 from .pipeline import (
     pack_tables, pad_shards, per_shard, pull_body_bytes, unpack_tables,
 )
-from .plan import ext_prep
-from .tail import TAIL_ROWS, ext_tail_bits
 
 __all__ = ["encode_ext_device_commit", "encode_ext_device_greedy",
-           "ext_device_stage", "ext_fields", "prepare_batch",
+           "ext_device_stage", "ext_fields", "prepare_batch", "ext_tails",
+           "resume_position",
            "greedy_tables", "greedy_predict_planes", "greedy_sparse_stage",
            "greedy_dense_stage", "pull_sparse", "sparse_tables",
            "greedy_commits", "encode_ext_device_optimal", "optimal_prep",
@@ -109,24 +116,22 @@ def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
 def ext_device_stage(dh_u8: torch.Tensor, rc_u8: torch.Tensor,
                      npos: torch.Tensor, dict_u8: torch.Tensor, *,
                      window: int, literal: int, lazy: bool = False):
-    """Device half of the encode for one batch: (bytes, state, tables).
+    """Device half of the encode for one batch: (bytes, state).
 
     Inputs as :func:`ext_fields`.  Returns the commit's (kernel B3) byte
-    rows and state rows and the four match tables the host tail reads a
-    few rows of."""
-    tabs, A, B = ext_fields(dh_u8, rc_u8, npos, dict_u8, window=window,
-                            literal=literal, lazy=lazy)
+    rows and state rows."""
+    A, B = ext_fields(dh_u8, rc_u8, npos, dict_u8, window=window,
+                      literal=literal, lazy=lazy)[1:]
     NP = dh_u8.shape[1]
-    out, state = commit_fields(
-        A, B, npos, max_out=NP + NP // 8 + 64,
-        idx_bits=window if window >= SPLIT_WINDOW else 0)
-    return out, state, tabs
+    return commit_fields(A, B, npos, max_out=NP + NP // 8 + 64,
+                         idx_bits=window if window >= SPLIT_WINDOW else 0)
 
 
 def prepare_batch(datas, *, window: int):
-    """Host prep of a batch: per-shard (plans, khat, dh, rc) and the padded
-    (S, NP) uint8 model-byte and chunk-count planes plus (S,) npos."""
-    prep = [ext_prep(d, window) for d in datas]
+    """Host prep of a batch: per-shard (plans, khat, dh, rc) from
+    engine/greedy.host_ext_prep, one thread a shard, and the padded (S, NP)
+    uint8 model-byte and chunk-count planes plus (S,) npos."""
+    prep = per_shard(lambda i: host_ext_prep(datas[i], window), len(datas))
     S = len(prep)
     maxM = max(p[2].shape[0] for p in prep)
     NP = 1 << (max(maxM, TILE, 1) - 1).bit_length()
@@ -163,9 +168,9 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
         return []
     prep, dh, rc, npos = prepare_batch(datas, window=window)
 
-    npos_d = torch.from_numpy(npos).to(dev)
-    out, state, tabs = ext_device_stage(
-        torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev), npos_d,
+    out, state = ext_device_stage(
+        torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev),
+        torch.from_numpy(npos).to(dev),
         torch.from_numpy(dict_arr.copy()).to(dev), window=window,
         literal=literal, lazy=lazy_matching)
     state = state.cpu().numpy()
@@ -174,33 +179,40 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
     if (state[:, S_ERR] != 0).any():
         raise RuntimeError("commit walk stalled on malformed fields")
     bodies = pull_body_bytes(out, state)
-    # the tail walk reads table rows at model positions >= npos - 15 only
-    base = torch.clamp_min(npos_d - TAIL_ROWS, 0)
-    ridx = torch.clamp_max(
-        base[:, None] + torch.arange(TAIL_ROWS, device=dev)[None, :],
-        dh.shape[1] - 1).long()
-    rows = torch.stack([torch.gather(t, 1, ridx) for t in tabs]).cpu().numpy()
-    base = base.cpu().numpy()
+    tails = ext_tails(datas, prep, state, window=window, literal=literal,
+                      lazy=lazy_matching, dict_arr=dict_arr)
+    (hv, _hn), = build_header(window, literal, dictionary is not None, True,
+                              False)
+    return [bytes([hv]) + body.tobytes() + tail
+            for body, tail in zip(bodies, tails)]
 
-    (hv, hn), = build_header(window, literal, dictionary is not None, True,
-                             False)
-    results: list[bytes] = []
-    for i, data in enumerate(datas):
-        st = state[i]
-        plans, khat, dhi, _rc = prep[i]
-        t_m = int(st[S_T])
-        # model position t_m -> the input position holding it (khat is
-        # nondecreasing; the kept position where it first reaches t_m + 1)
-        if t_m < dhi.shape[0]:
-            t_in = int(np.searchsorted(khat, t_m + 1, side="left")) - 1
-        else:
-            t_in = data.shape[0]
-        tail = ext_tail_bits(
-            data, t_in, dhi, khat, plans, tuple(rows[:, i]), int(base[i]),
-            window=window, literal=literal, acc=int(st[S_ACC]),
-            an=int(st[S_AN]), dict_last=int(dict_arr[-1]))
-        results.append(bytes([hv]) + bodies[i].tobytes() + tail)
-    return results
+
+def ext_tails(datas, prep, state: np.ndarray, *, window: int, literal: int,
+              lazy: bool, dict_arr: np.ndarray) -> list[bytes]:
+    """Each shard's tail bytes after the commit kernel (``state`` on the
+    host): engine/greedy.host_ext_tail_bits from the kernel's stop and bit
+    remainder, one shard after another on the calling thread, as the JAX
+    package runs them: a tail walks < 16 bytes (~0.05 ms), less than a
+    thread pool's start (~1.7 ms for 8 shards on an H100 host)."""
+    tails = []
+    for data, (plans, khat, dhi, _rc), st in zip(datas, prep, state):
+        tails.append(host_ext_tail_bits(
+            data, resume_position(khat, int(st[S_T]), dhi.shape[0]), dhi,
+            khat, plans, window=window, literal=literal, acc=int(st[S_ACC]),
+            an=int(st[S_AN]), lazy=lazy, dictionary=dict_arr))
+    return tails
+
+
+def resume_position(khat: np.ndarray, t_m: int, M: int) -> int:
+    """The input position of model position ``t_m`` (the commit kernel's
+    stop) of a shard with ``M`` model bytes: where the nondecreasing
+    ``khat`` first reaches ``t_m + 1``, less one; the input's end past
+    the model's."""
+    if t_m >= M:
+        return khat.shape[0] - 1
+    # a key of khat's own type: with a Python int NumPy casts the whole
+    # array first (~0.7 ms a MiB)
+    return int(np.searchsorted(khat, khat.dtype.type(t_m + 1))) - 1
 
 
 def greedy_tables(dh_u8: torch.Tensor, npos: torch.Tensor,

@@ -1,7 +1,12 @@
-"""Host run planning for the planned extended-format encode.
+"""Host run planning for the planned extended-format encode: the plain
+version.
 
 Copy of the JAX package's ``engine/plan.py`` plus its chunk-count stream
-(``engine/pipeline_ext._chunk_counts``).  Long byte runs (>= 9) are
+(``engine/pipeline_ext._chunk_counts``).  The main path does not run it:
+the encodes call ``engine/greedy.host_ext_prep``, the one-pass C++ copy of
+the JAX native engine's ``tampn_ext_prep`` (``tpt_ext_prep`` in
+csrc/greedy_commit.cpp), a thread a shard, whose arrays the tests hold
+equal to :func:`ext_prep`'s.  Long byte runs (>= 9) are
 RLE-encoded at fixed positions, so the window-write truncations of RLE
 become part of the model history ``C-hat`` and the match tables stay
 exact.  Per maximal run ``[s, e)``:

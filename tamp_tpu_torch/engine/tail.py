@@ -1,11 +1,15 @@
-"""Host tail walk of the planned extended encode.
+"""Host tail walk of the planned extended encode: the plain version.
 
-The commit kernel stops at the first token start >= npos - 15; this module
-finishes the last < 16 model bytes of a shard on the host.  It is a Python
-copy of the JAX package's tail owner, the native planned committer
-(``tamp_tpu/_native/tampnative.cpp``: ``tampn_ext_tail_bits`` resuming
-``Committer::step`` in planned mode with ``avoid_divergence``), differential
-tested against it (tests/test_torch_tail.py).
+The commit kernel stops at the first token start >= npos - 15; the tail
+walk finishes the last < 16 model bytes of a shard on the host.  The main
+path runs ``engine/greedy.host_ext_tail_bits``, the C++ copy of the JAX
+package's tail owner (``tampn_ext_tail_bits`` resuming ``Committer::step``
+in planned mode with ``avoid_divergence``; ``tpt_ext_tail_bits`` in
+csrc/greedy_commit.cpp), a thread a shard.  This module is a Python copy
+of the same walk, differential tested against both
+(tests/test_torch_tail.py, tests/test_torch_host_prep.py); it has no lazy
+rule, which the planned walk never applies with fewer than 16 model bytes
+ahead.
 
 The native walk re-searches the ring at each tail position; in planned mode
 that search equals the model-space match tables at the same model position

@@ -77,13 +77,13 @@ def _check(ok: bool, msg: str) -> None:
 def planned_reference(raw: bytes, window: int, literal: int) -> bytes:
     """The native planned committer's stream of ``raw`` (the JAX entry's
     ``native_planned``) from the port's host parts: the run plan and model
-    history (``engine/plan.ext_prep``), the exact cap-16 tables of the
-    model stream gathered at the input positions, the table committer
+    history (``engine/greedy.host_ext_prep``), the exact cap-16 tables of
+    the model stream gathered at the input positions, the table committer
     forced into planned mode, with divergence avoidance."""
-    from .engine.greedy import host_v1_tables, table_compress
-    from .engine.plan import ext_prep
+    from .engine.greedy import host_ext_prep, host_v1_tables, table_compress
 
-    plans, khat, dh, _rc = ext_prep(np.frombuffer(raw, np.uint8), window)
+    plans, khat, dh, _rc = host_ext_prep(np.frombuffer(raw, np.uint8),
+                                         window)
     l16, i16 = host_v1_tables(dh, window=window, literal=literal, cap=16)
     rows = np.minimum(khat[:-1].astype(np.int64), max(0, dh.shape[0] - 1))
     return table_compress(raw, window=window, literal=literal,

@@ -21,6 +21,8 @@ from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import decode_commit as dc
 from tamp_tpu_torch.ops import decode_serial as dser
 from tamp_tpu_torch.ops import decode_wavefront as dw
+from tamp_tpu_torch.engine import plan as plan_mod
+from tamp_tpu_torch.engine import tail as tail_mod
 from tamp_tpu_torch.engine.greedy import (
     SPARSE_NONE, greedy_compress, host_v1_tables,
 )
@@ -668,6 +670,29 @@ def test_entry_points_round_trip_and_match_plain(cuda):
         assert blob == compress_sharded(raw, shard_size=size, device="cpu",
                                         engine="device-commit")
         assert bytes(decompress_sharded_device(blob)) == raw
+
+
+def test_device_commit_host_cpp_on_the_card_equals_cpu(cuda, monkeypatch):
+    # the default device encode of 8 shards, lazy and not: the host prep
+    # and the tail walk in the port's C++ (one thread a shard) around B1
+    # or B2, the planner and B3 on the card; the plain prep and tail must
+    # not be reached
+    def refuse(*_a, **_k):
+        raise AssertionError("the main path reached a plain version")
+
+    for name in ("ext_prep", "plan_runs", "build_model_history",
+                 "chunk_counts"):
+        monkeypatch.setattr(plan_mod, name, refuse)
+    monkeypatch.setattr(tail_mod, "ext_tail_bits", refuse)
+    data = _text(8 * 2048 - 300, 8)  # _text adds a run of 300 bytes
+    for lazy in (False, True):
+        blob = compress_sharded(data, shard_size=2048, lazy_matching=lazy,
+                                engine="device-commit")
+        assert len(_parse_frame(blob)[2]) == 8
+        assert blob == compress_sharded(data, shard_size=2048, device="cpu",
+                                        lazy_matching=lazy,
+                                        engine="device-commit")
+        assert bytes(decompress_sharded_device(blob)) == data
 
 
 @pytest.mark.parametrize("kw", [

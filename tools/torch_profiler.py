@@ -6,7 +6,9 @@
 
 The counterpart of tools/profiler.py.  ``--engine``: ``native``,
 ``tables``, ``device-commit`` (the default: the main path, whose host prep
-in engine/plan.py is the question of ROADMAP A5) or ``optimal``, each
+and tails run in the host C++, engine/greedy.host_ext_prep and
+host_ext_tail_bits; tools/torch_host_prep_probe.py times them apart) or
+``optimal``, each
 ``compress_sharded`` of that engine name on the card; or ``python``, the
 port's Python codec (``compressor.compress``, host only, ~0.5 MB/s).  The
 input is ``--mb`` MiB of bench_torch.build_corpus in 1 MiB shards.  One
