@@ -223,6 +223,10 @@ struct Committer {
   int cached_idx = -1, cached_size = 0;
   BitWriter* bw = nullptr;
   bool excess_bits = false;
+  // How each table_search ended (tpt_greedy_compress's stats): lookups,
+  // entries taken without a search, searches at a hole, searches seeded
+  // from the entry after a divergence, unseeded searches after one.
+  int64_t n_lookups = 0, n_hits = 0, n_holes = 0, n_seeded = 0, n_full = 0;
 
   int64_t del_upto(int64_t p) const {  // deleted input positions < p
     if (dels.empty() || p <= dels.front().from) return 0;
@@ -520,20 +524,29 @@ struct Committer {
   SearchResult table_search(const uint8_t* lens, const int32_t* idxs,
                             const uint8_t* target, int tl, int cap,
                             bool first) {
+    n_lookups++;
     int len = lens[t]; int x = idxs[t];
-    if (len == SPARSE_NONE) return chain_search(target, tl, cap, 0);
-    if (len > cap) len = cap;
-    if (!diverged) return {x, len};
-    if (exact_tables) {
-      int slot = (len >= minp) ? validate(t, x, len) : -1;
-      if (slot >= 0) return chain_search(target, tl, cap, 0, len, slot);
+    if (len == SPARSE_NONE) {
+      n_holes++;
       return chain_search(target, tl, cap, 0);
     }
-    if (first && len < minp) return {x, len};
+    if (len > cap) len = cap;
+    if (!diverged) { n_hits++; return {x, len}; }
+    if (exact_tables) {
+      int slot = (len >= minp) ? validate(t, x, len) : -1;
+      if (slot >= 0) {
+        n_seeded++;
+        return chain_search(target, tl, cap, 0, len, slot);
+      }
+      n_full++;
+      return chain_search(target, tl, cap, 0);
+    }
+    if (first && len < minp) { n_hits++; return {x, len}; }
     if (len >= minp) {
       int slot = validate(t, x, len);  // probe slots share the t-basis
-      if (slot >= 0) return {slot, len};
+      if (slot >= 0) { n_hits++; return {slot, len}; }
     }
+    n_full++;
     return chain_search(target, tl, cap, 0);
   }
 
@@ -890,28 +903,16 @@ struct Committer {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-// One extended-format Tamp stream (header included) of data[0..n) from the
-// card's tables: the arguments of the native engine's tampn_compress with
-// extended and write_header fixed to 1 and dict required (the caller passes
-// the initial window).  flen/fidx: the cap-16 table (nullable), plen/pidx
-// the probe table (nullable); exact_tables: 1 exact-table mode, 0 table
-// mode; khat: n + 1 model write counts (nullable without a plan);
-// plan/n_plan: sorted (rle_start, end) pairs (null: no plan; non-null with
-// n_plan = 0: the planned mode without runs).  out_cap >= 16 + n +
-// n * (1 + literal) / 8 always suffices.  Returns 0 ok, -1 output full, -2
-// a literal wider than `literal` bits, -3 a null dict or a plan without
-// khat.
-int tpt_table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
-                       const int32_t* fidx, const uint8_t* plen,
-                       const int32_t* pidx, const uint8_t* dict, int window,
-                       int literal, int lazy, int custom_dict,
-                       int avoid_divergence, int exact_tables,
-                       const uint32_t* khat, const int64_t* plan, int n_plan,
-                       uint8_t* out, int64_t out_cap, int64_t* out_len) {
+// tpt_table_compress's body; ``stats`` (nullable) receives the committer's
+// five table_search counts.
+int table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
+                   const int32_t* fidx, const uint8_t* plen,
+                   const int32_t* pidx, const uint8_t* dict, int window,
+                   int literal, int lazy, int custom_dict,
+                   int avoid_divergence, int exact_tables,
+                   const uint32_t* khat, const int64_t* plan, int n_plan,
+                   uint8_t* out, int64_t out_cap, int64_t* out_len,
+                   int64_t* stats) {
   *out_len = 0;
   if (!dict || (plan && !khat)) return -3;
   Committer c;
@@ -942,7 +943,39 @@ int tpt_table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
   bw.put(h, 8);
   int rc = c.run(bw);
   *out_len = bw.n;
+  if (stats) {
+    stats[0] = c.n_lookups; stats[1] = c.n_hits; stats[2] = c.n_holes;
+    stats[3] = c.n_seeded; stats[4] = c.n_full;
+  }
   return rc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One extended-format Tamp stream (header included) of data[0..n) from the
+// card's tables: the arguments of the native engine's tampn_compress with
+// extended and write_header fixed to 1 and dict required (the caller passes
+// the initial window).  flen/fidx: the cap-16 table (nullable), plen/pidx
+// the probe table (nullable); exact_tables: 1 exact-table mode, 0 table
+// mode; khat: n + 1 model write counts (nullable without a plan);
+// plan/n_plan: sorted (rle_start, end) pairs (null: no plan; non-null with
+// n_plan = 0: the planned mode without runs).  out_cap >= 16 + n +
+// n * (1 + literal) / 8 always suffices.  Returns 0 ok, -1 output full, -2
+// a literal wider than `literal` bits, -3 a null dict or a plan without
+// khat.
+int tpt_table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
+                       const int32_t* fidx, const uint8_t* plen,
+                       const int32_t* pidx, const uint8_t* dict, int window,
+                       int literal, int lazy, int custom_dict,
+                       int avoid_divergence, int exact_tables,
+                       const uint32_t* khat, const int64_t* plan, int n_plan,
+                       uint8_t* out, int64_t out_cap, int64_t* out_len) {
+  return table_compress(data, n, flen, fidx, plen, pidx, dict, window,
+                        literal, lazy, custom_dict, avoid_divergence,
+                        exact_tables, khat, plan, n_plan, out, out_cap,
+                        out_len, nullptr);
 }
 
 // One extended-format stream of the greedy-parity encode: exact-table mode,
@@ -950,15 +983,18 @@ int tpt_table_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
 // hole; null for the table-less exact search.  plen/pidx: the lazy probe
 // table, the same way (null without tables or without lazy matching).
 // dict: the initial window, 1 << window bytes; custom_dict sets the
-// header's flag.  Returns as tpt_table_compress.
+// header's flag.  stats: null, or 5 slots that receive how the table lookups
+// ended: lookups, entries taken without a search (before the first
+// divergence), searches at a hole, searches seeded from the entry after a
+// divergence, unseeded searches after one.  Returns as tpt_table_compress.
 int tpt_greedy_compress(const uint8_t* data, int64_t n, const uint8_t* flen,
                         const int32_t* fidx, const uint8_t* plen,
                         const int32_t* pidx, const uint8_t* dict, int window,
                         int literal, int lazy, int custom_dict, uint8_t* out,
-                        int64_t out_cap, int64_t* out_len) {
-  return tpt_table_compress(data, n, flen, fidx, plen, pidx, dict, window,
-                            literal, lazy, custom_dict, 0, 1, nullptr, nullptr,
-                            0, out, out_cap, out_len);
+                        int64_t out_cap, int64_t* out_len, int64_t* stats) {
+  return table_compress(data, n, flen, fidx, plen, pidx, dict, window,
+                        literal, lazy, custom_dict, 0, 1, nullptr, nullptr, 0,
+                        out, out_cap, out_len, stats);
 }
 
 // Exact per-position tables of data[0..n) against the v1 ring model

@@ -51,14 +51,22 @@ from .encode import build_header, model_history, pack_bits_np, v1_plan_fields
 
 __all__ = ["greedy_compress", "table_compress", "host_v1_tables",
            "opt_ext_walk", "host_optimal_v1", "host_ext_prep",
-           "host_ext_tail_bits", "window_array", "SPARSE_NONE"]
+           "host_ext_tail_bits", "window_array", "SPARSE_NONE",
+           "COMMIT_STATS"]
 
 SPARSE_NONE = 0xFF  # table length of a position with no shipped entry
+# The slots of greedy_compress's ``stats``, as the trace's counters name
+# them: table lookups, then how each ended (the entry taken without a
+# search; a search at a hole; a search seeded from the entry after a
+# window truncation; an unseeded search after one).
+COMMIT_STATS = ("commit.lookups", "commit.table_hits", "commit.hole_searches",
+                "commit.seeded_searches", "commit.full_searches")
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _HOST_ARGTYPES = {
-    "tpt_greedy_compress": [_P, _I64] + [_P] * 5 + [_I] * 4 + [_P, _I64, _P],
+    "tpt_greedy_compress": ([_P, _I64] + [_P] * 5 + [_I] * 4
+                            + [_P, _I64, _P, _P]),
     "tpt_table_compress": ([_P, _I64] + [_P] * 5 + [_I] * 6
                            + [_P, _P, _I, _P, _I64, _P]),
     "tpt_v1_tables": [_P, _I64, _P, _I, _I, _I, _P, _P, _P],
@@ -120,15 +128,17 @@ def _planes(tables, n: int, window: int, lazy: bool) -> list:
     return planes
 
 
-def _compress(entry: str, arr: np.ndarray, literal: int, *args) -> bytes:
+def _compress(entry: str, arr: np.ndarray, literal: int, *args,
+              after=()) -> bytes:
     """Call ``entry`` on ``arr`` with ``args`` between the input and the
-    output buffer; raise ExcessBitsError on -2, RuntimeError otherwise."""
+    output buffer and ``after`` behind it; raise ExcessBitsError on -2,
+    RuntimeError otherwise."""
     n = arr.shape[0]
     cap = 16 + n + ((n * (1 + literal)) >> 3)
     out = np.empty(cap, np.uint8)
     out_len = ctypes.c_int64(0)
     rc = _host_entry(entry)(_ptr(arr), n, *args, _ptr(out), cap,
-                            ctypes.addressof(out_len))
+                            ctypes.addressof(out_len), *after)
     if rc == -2:
         raise ExcessBitsError
     if rc != 0:
@@ -138,7 +148,7 @@ def _compress(entry: str, arr: np.ndarray, literal: int, *args) -> bytes:
 
 def greedy_compress(data, *, window: int = 10, literal: int = 8,
                     lazy_matching: bool = False, dictionary=None,
-                    tables=None) -> bytes:
+                    tables=None, stats=None) -> bytes:
     """One extended-format Tamp stream of ``data``, header included.
 
     ``dictionary``: a full-window custom dictionary (bytes or uint8 array),
@@ -146,15 +156,24 @@ def greedy_compress(data, *, window: int = 10, literal: int = 8,
     table-less exact search, else ``(flen, fidx)`` or, with lazy matching,
     ``(flen, fidx, plen, pidx)``: per input position the cap-16 match
     (and the cap-15 probe) as uint8 lengths and int32 ring slots, with
-    ``SPARSE_NONE`` lengths at holes.  Raises ExcessBitsError for a byte
+    ``SPARSE_NONE`` lengths at holes.  ``stats``: None, or a writable
+    (5,) int64 array that receives the counts of :data:`COMMIT_STATS` (the
+    stream is the same either way).  Raises ExcessBitsError for a byte
     wider than ``literal`` bits."""
     compute_min_pattern_size(window, literal)  # validates the config
     arr = np.ascontiguousarray(np.frombuffer(bytes(data), np.uint8))
     dict_arr = window_array(window, literal, dictionary)
     planes = _planes(tables, arr.shape[0], window, lazy_matching)
+    if stats is not None and not (
+            isinstance(stats, np.ndarray) and stats.dtype == np.int64
+            and stats.shape == (len(COMMIT_STATS),)
+            and stats.flags.c_contiguous
+            and stats.flags.writeable):
+        raise ValueError("stats must be a writable (5,) int64 array")
     return _compress("tpt_greedy_compress", arr, literal,
                      *(_ptr(p) for p in planes), _ptr(dict_arr), window,
-                     literal, int(lazy_matching), int(dictionary is not None))
+                     literal, int(lazy_matching), int(dictionary is not None),
+                     after=(_ptr(stats),))
 
 
 def table_compress(data, *, window: int = 10, literal: int = 8,

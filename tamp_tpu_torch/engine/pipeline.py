@@ -44,6 +44,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import trace
 from ..constants import (
     HUFFMAN_CODES, HUFFMAN_LENGTHS, compute_min_pattern_size,
 )
@@ -74,6 +75,7 @@ def pull_body_bytes(out: torch.Tensor, state: np.ndarray):
     per-shard uint8 arrays of exact length."""
     nbs = [int(r[S_NBYTES]) for r in state]
     blk = out[:, : max([1] + nbs)].cpu().numpy()
+    trace.count("encode.pull_bytes", blk.nbytes)
     return [blk[i, :nb] for i, nb in enumerate(nbs)]
 
 
@@ -155,27 +157,39 @@ def encode_v1_device_commit(shards, *, window: int = 10, literal: int = 8,
     """
     compute_min_pattern_size(window, literal)  # validates the config
     dev = resolve_device(device)
-    datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
-    S = len(datas)
-    if S == 0:
-        return []
-    histories = [model_history(d, window, literal, False, dictionary)[1]
-                 for d in datas]
-    dict_arr = histories[0][: 1 << window]
-    batch, npos = pad_shards(datas)
+    with trace.span("tamp.encode.prep"):
+        datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
+        if not datas:
+            return []
+        with trace.span("tamp.encode.history"):
+            histories = [model_history(d, window, literal, False,
+                                       dictionary)[1] for d in datas]
+            dict_arr = histories[0][: 1 << window]
+        batch, npos = pad_shards(datas)
     NP = batch.shape[1]
-
-    out, state = encode_v1_fused(
-        torch.from_numpy(batch).to(dev), torch.from_numpy(npos).to(dev),
-        torch.from_numpy(dict_arr.copy()).to(dev), window=window,
-        literal=literal, lazy=lazy_matching, max_out=NP + NP // 8 + 64)
-    state = state.cpu().numpy()
-    if (state[:, S_ERR] != 0).any():
-        raise ExcessBitsError
-    bodies = pull_body_bytes(out, state)
-    return finish_streams(datas, histories, state, bodies, window=window,
-                          literal=literal, lazy_matching=lazy_matching,
-                          custom=dictionary is not None)
+    with trace.span("tamp.encode.h2d"):
+        batch_d = torch.from_numpy(batch).to(dev)
+        npos_d = torch.from_numpy(npos).to(dev)
+        dict_d = torch.from_numpy(dict_arr.copy()).to(dev)
+        trace.count("encode.h2d_bytes",
+                    batch.nbytes + npos.nbytes + dict_arr.nbytes)
+    with trace.span("tamp.encode.device", device=dev):
+        out, state = encode_v1_fused(
+            batch_d, npos_d, dict_d, window=window, literal=literal,
+            lazy=lazy_matching, max_out=NP + NP // 8 + 64)
+        # the inputs' device memory goes back before the pull
+        del batch_d, npos_d, dict_d
+    with trace.span("tamp.encode.pull"):
+        state = state.cpu().numpy()
+        trace.count("encode.pull_bytes", state.nbytes)
+        if (state[:, S_ERR] != 0).any():
+            raise ExcessBitsError
+        bodies = pull_body_bytes(out, state)
+    with trace.span("tamp.encode.tail"):
+        return finish_streams(datas, histories, state, bodies,
+                              window=window, literal=literal,
+                              lazy_matching=lazy_matching,
+                              custom=dictionary is not None)
 
 
 def finish_streams(datas, histories, state: np.ndarray, bodies, *,
@@ -313,6 +327,7 @@ def per_shard(fn, n: int, workers: int | None = None) -> list:
     table search and choice walk release the GIL."""
     if n <= 1:
         return [fn(i) for i in range(n)]
+    fn = trace.bind(fn)
     with ThreadPoolExecutor(max_workers=workers or os.cpu_count() or 4) as ex:
         return list(ex.map(fn, range(n)))
 

@@ -51,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..constants import HUFFMAN_LENGTHS, compute_min_pattern_size
 from ..device import resolve_device
 from ..exceptions import ExcessBitsError
@@ -66,8 +67,8 @@ from ..ops.plan_ext import (
 )
 from .encode import build_header, opt_ext_emit, opt_ext_runs
 from .greedy import (
-    SPARSE_NONE, greedy_compress, host_ext_prep, host_ext_tail_bits,
-    host_v1_tables, opt_ext_walk, window_array,
+    COMMIT_STATS, SPARSE_NONE, greedy_compress, host_ext_prep,
+    host_ext_tail_bits, host_v1_tables, opt_ext_walk, window_array,
 )
 from .pipeline import (
     pack_tables, pad_shards, per_shard, pull_body_bytes, unpack_tables,
@@ -253,7 +254,9 @@ def pull_sparse(bm: torch.Tensor, ent: torch.Tensor, lazy: bool):
                          bitorder="little")
     kmax = int(bits.sum(axis=1).max()) * (2 if lazy else 1)
     K = min(1 << max(9, (max(kmax, 1) - 1).bit_length()), ent.shape[1])
-    return bits, ent[:, :K].cpu().numpy()
+    ent_h = ent[:, :K].cpu().numpy()
+    trace.count("encode.pull_bytes", bm.nbytes + ent_h.nbytes)
+    return bits, ent_h
 
 
 def greedy_dense_stage(dh_u8: torch.Tensor, npos: torch.Tensor,
@@ -289,11 +292,26 @@ def greedy_commits(datas, tables, *, window: int = 10, literal: int = 8,
                    lazy_matching: bool = False, dictionary=None) -> list[bytes]:
     """The host committer on each shard of ``datas`` (uint8 arrays), one
     thread per shard; ``tables(i)`` makes shard i's committer tables in its
-    thread (None: the table-less exact search)."""
-    return per_shard(lambda i: greedy_compress(
-        datas[i], window=window, literal=literal,
-        lazy_matching=lazy_matching, dictionary=dictionary,
-        tables=tables(i)), len(datas))
+    thread (None: the table-less exact search).  While tracing is on, each
+    shard's table lookups are counted by outcome (engine/greedy.py's
+    ``COMMIT_STATS``)."""
+    def commit(i: int) -> bytes:
+        with trace.span("tamp.encode.commit.shard", bytes=datas[i].nbytes):
+            with trace.span("tamp.encode.tables"):
+                tabs = tables(i)
+            stats = np.zeros(len(COMMIT_STATS), np.int64) \
+                if trace.enabled() else None
+            blob = greedy_compress(
+                datas[i], window=window, literal=literal,
+                lazy_matching=lazy_matching, dictionary=dictionary,
+                tables=tabs, stats=stats)
+            if stats is not None:
+                for name, n in zip(COMMIT_STATS, stats.tolist()):
+                    trace.count(name, n)
+            return blob
+
+    with trace.span("tamp.encode.commit"):
+        return per_shard(commit, len(datas))
 
 
 def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
@@ -332,24 +350,36 @@ def encode_ext_device_greedy(shards, *, window: int = 10, literal: int = 8,
     compute_min_pattern_size(window, literal)  # validates the config
     dev = resolve_device(device)
     dict_arr = window_array(window, literal, dictionary)
-    datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
-    if not datas:
-        return []
-    dh, npos = pad_shards(datas)
-    dh_d = torch.from_numpy(dh).to(dev)
-    npos_d = torch.from_numpy(npos).to(dev)
-    dict_d = torch.from_numpy(dict_arr.copy()).to(dev)
+    with trace.span("tamp.encode.prep"):
+        datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
+        if not datas:
+            return []
+        dh, npos = pad_shards(datas)
+    with trace.span("tamp.encode.h2d"):
+        dh_d = torch.from_numpy(dh).to(dev)
+        npos_d = torch.from_numpy(npos).to(dev)
+        dict_d = torch.from_numpy(dict_arr.copy()).to(dev)
+        trace.count("encode.h2d_bytes",
+                    dh.nbytes + npos.nbytes + dict_arr.nbytes)
     lazy = lazy_matching
     if pull == "dense":
-        planes = greedy_dense_stage(dh_d, npos_d, dict_d, window=window,
-                                    lazy=lazy).cpu().numpy()
+        with trace.span("tamp.encode.device", device=dev):
+            planes_d = greedy_dense_stage(dh_d, npos_d, dict_d,
+                                          window=window, lazy=lazy)
+        with trace.span("tamp.encode.pull"):
+            planes = planes_d.cpu().numpy()
+            del planes_d  # its device memory goes back before the commits
+            trace.count("encode.pull_bytes", planes.nbytes)
 
         def tables(i):
             return unpack_tables(planes[:, i, : datas[i].shape[0]])
     else:
-        bm, ent, _state = greedy_sparse_stage(
-            dh_d, npos_d, dict_d, window=window, literal=literal, lazy=lazy)
-        bits, ent_h = pull_sparse(bm, ent, lazy)
+        with trace.span("tamp.encode.device", device=dev):
+            bm, ent, _state = greedy_sparse_stage(
+                dh_d, npos_d, dict_d, window=window, literal=literal,
+                lazy=lazy)
+        with trace.span("tamp.encode.pull"):
+            bits, ent_h = pull_sparse(bm, ent, lazy)
 
         def tables(i):
             return sparse_tables(bits[i], ent_h[i], datas[i].shape[0], lazy)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..constants import (
     EXTENDED_MATCH_SYMBOL,
     FLUSH_SYMBOL,
@@ -244,30 +245,39 @@ def decode_shards_device(shards, *, dictionary=None, max_out: int,
     dev = resolve_device(device)
     if not shards:
         return []
-    (window, literal, extended, more, dict_init, default_dict,
-     payloads) = split_streams(shards, dictionary)
-    S = len(payloads)
-    Lp = padded_width(max(len(p) for p in payloads))
-    blobs = np.zeros((S, Lp), np.uint8)
-    for i, p in enumerate(payloads):
-        blobs[i, : len(p)] = np.frombuffer(p, np.uint8)
-    nb = np.asarray([len(p) for p in payloads], np.int32)
-    out, lens, errs = serial_decode(
-        torch.from_numpy(blobs).to(dev), torch.from_numpy(nb).to(dev),
-        torch.from_numpy(np.array(dict_init, np.uint8)).to(dev),
-        torch.from_numpy(default_dict).to(dev), window=window,
-        literal=literal, extended=extended, more=more, max_out=max_out)
-    errs = errs.cpu().numpy()
-    if (errs == ERR_OOB).any():
-        raise OutOfBoundsError(
-            "window reference outside the window in shard(s) "
-            f"{np.nonzero(errs == ERR_OOB)[0][:4]}")
-    if errs.any():
-        raise ValueError(
-            f"invalid tamp stream in shard(s) {np.nonzero(errs)[0][:4]}")
-    lens = lens.cpu().numpy()
-    blk = out[:, : max(1, int(lens.max()))].cpu().numpy()
-    return [blk[i, : int(lens[i])].tobytes() for i in range(S)]
+    with trace.span("tamp.decode.h2d"):
+        (window, literal, extended, more, dict_init, default_dict,
+         payloads) = split_streams(shards, dictionary)
+        S = len(payloads)
+        Lp = padded_width(max(len(p) for p in payloads))
+        blobs = np.zeros((S, Lp), np.uint8)
+        for i, p in enumerate(payloads):
+            blobs[i, : len(p)] = np.frombuffer(p, np.uint8)
+        nb = np.asarray([len(p) for p in payloads], np.int32)
+        args = (torch.from_numpy(blobs).to(dev), torch.from_numpy(nb).to(dev),
+                torch.from_numpy(np.array(dict_init, np.uint8)).to(dev),
+                torch.from_numpy(default_dict).to(dev))
+        trace.count("decode.h2d_bytes", sum(a.nbytes for a in args))
+    with trace.span("tamp.decode.kernel", device=dev):
+        out, lens, errs = serial_decode(
+            *args, window=window, literal=literal, extended=extended,
+            more=more, max_out=max_out)
+        del args  # the inputs' device memory goes back before the pull
+    with trace.span("tamp.decode.d2h"):
+        errs = errs.cpu().numpy()
+        if (errs == ERR_OOB).any():
+            raise OutOfBoundsError(
+                "window reference outside the window in shard(s) "
+                f"{np.nonzero(errs == ERR_OOB)[0][:4]}")
+        if errs.any():
+            raise ValueError(
+                f"invalid tamp stream in shard(s) {np.nonzero(errs)[0][:4]}")
+        lens = lens.cpu().numpy()
+        blk = out[:, : max(1, int(lens.max()))].cpu().numpy()
+        trace.count("decode.d2h_bytes", errs.nbytes + lens.nbytes + blk.nbytes)
+    with trace.span("tamp.decode.copy"):
+        trace.count("decode.copy_bytes", int(lens.sum()))
+        return [blk[i, : int(lens[i])].tobytes() for i in range(S)]
 
 
 def decode_stream(data, *, dictionary=None, device=None) -> bytearray:

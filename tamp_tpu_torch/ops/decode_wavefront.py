@@ -37,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from ..constants import (
     EXTENDED_MATCH_SYMBOL,
     EXTENDED_MATCH_TRAILING_BITS,
@@ -208,17 +209,20 @@ def payload_parse(payloads, *, window: int, literal: int, extended: bool,
         raise ValueError(
             f"a payload of {max(len(p) for p in payloads)} bytes is past the "
             "wavefront decode's int32 bit offsets")
-    # the parse peeks up to ~22 bits past a start at bit 8L: pad 8 bytes
-    blobs = np.zeros((S, L + 8), np.uint8)
-    nbytes = np.zeros(S, np.int32)
-    for i, p in enumerate(payloads):
-        blobs[i, : len(p)] = np.frombuffer(p, np.uint8)
-        nbytes[i] = len(p)
-    pp = torch.from_numpy(blobs).to(device).to(torch.int64)
-    nb = torch.from_numpy(nbytes).to(device)
-    nxt, kind, cnt, idx = speculative_parse(pp, nb * 8, 8 * L, window,
-                                            literal, extended)
-    return nxt, kind | (cnt << 3) | (idx << 11)
+    with trace.span("tamp.decode.h2d"):
+        # the parse peeks up to ~22 bits past a start at bit 8L: pad 8 bytes
+        blobs = np.zeros((S, L + 8), np.uint8)
+        nbytes = np.zeros(S, np.int32)
+        for i, p in enumerate(payloads):
+            blobs[i, : len(p)] = np.frombuffer(p, np.uint8)
+            nbytes[i] = len(p)
+        pp = torch.from_numpy(blobs).to(device).to(torch.int64)
+        nb = torch.from_numpy(nbytes).to(device)
+        trace.count("decode.h2d_bytes", blobs.nbytes + nbytes.nbytes)
+    with trace.span("tamp.decode.parse", device=device):
+        nxt, kind, cnt, idx = speculative_parse(pp, nb * 8, 8 * L, window,
+                                                literal, extended)
+        return nxt, kind | (cnt << 3) | (idx << 11)
 
 
 def _token_table(nxt: torch.Tensor, NBP: int, literal: int, T_max: int):
@@ -517,21 +521,22 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
     mode = resolve_mode(mode)
     nxt, packed = payload_parse(payloads, window=window, literal=literal,
                                 extended=extended, device=device)
-    di = torch.from_numpy(np.array(dict_init, np.uint8)).to(device)
-    dr = torch.from_numpy(np.array(dict_reset, np.uint8)).to(device)
-    max_out = _pow2_bucket(max_out, 1024)
-    if mode == "commit":
-        return commit_decode(nxt, packed, di, dr, W=1 << window, more=more,
-                             max_out=max_out)
-    NBP = nxt.shape[1]
-    T_max = NBP // (1 + literal) + 2
-    if mode == "chase":
-        starts, T = token_table_chase(nxt, NBP, T_max)
-    else:
-        starts, T = _token_table(nxt, NBP, literal, T_max)
-    del nxt
-    return wavefront_finish(starts, T, packed, di, dr, window=window,
-                            more=more, max_out=max_out)
+    with trace.span("tamp.decode.kernel", device=device):
+        di = torch.from_numpy(np.array(dict_init, np.uint8)).to(device)
+        dr = torch.from_numpy(np.array(dict_reset, np.uint8)).to(device)
+        max_out = _pow2_bucket(max_out, 1024)
+        if mode == "commit":
+            return commit_decode(nxt, packed, di, dr, W=1 << window,
+                                 more=more, max_out=max_out)
+        NBP = nxt.shape[1]
+        T_max = NBP // (1 + literal) + 2
+        if mode == "chase":
+            starts, T = token_table_chase(nxt, NBP, T_max)
+        else:
+            starts, T = _token_table(nxt, NBP, literal, T_max)
+        del nxt
+        return wavefront_finish(starts, T, packed, di, dr, window=window,
+                                more=more, max_out=max_out)
 
 
 def wavefront_decode_payload(payload: bytes, *, window: int, literal: int,
@@ -634,11 +639,16 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
             group, window=window, literal=literal, extended=extended,
             more=more, dict_init=dict_init, dict_reset=default_dict,
             max_out=max_out, device=dev, mode=mode)
-        errs = errs.cpu().numpy()
-        lens = lens.cpu().numpy()
-        for k in range(len(group)):
-            _raise_err(int(errs[k]))
-        blk = outs[:, : max(1, int(lens.max()))].cpu().numpy()
-        out.extend(blk[k, : int(lens[k])].tobytes()
-                   for k in range(len(group)))
+        with trace.span("tamp.decode.d2h"):
+            errs = errs.cpu().numpy()
+            lens = lens.cpu().numpy()
+            for k in range(len(group)):
+                _raise_err(int(errs[k]))
+            blk = outs[:, : max(1, int(lens.max()))].cpu().numpy()
+            trace.count("decode.d2h_bytes",
+                        errs.nbytes + lens.nbytes + blk.nbytes)
+        with trace.span("tamp.decode.copy"):
+            trace.count("decode.copy_bytes", int(lens.sum()))
+            out.extend(blk[k, : int(lens[k])].tobytes()
+                       for k in range(len(group)))
     return out

@@ -27,7 +27,7 @@ from __future__ import annotations
 import os
 import struct
 
-from .. import MAX_STREAM_BYTES
+from .. import MAX_STREAM_BYTES, trace
 
 __all__ = ["make_mesh", "sharded_search_step", "sharded_decode_step",
            "compress_sharded", "compress_file_sharded", "decompress_sharded",
@@ -45,10 +45,11 @@ ENGINES = ("native", "tables", "optimal", "device-commit", "device-greedy",
 def _pack_frame(blobs, raw_size: int, shard_size: int) -> bytes:
     """TTPU v2 frame: records shard_size so decoders can place every
     shard's output at ``i * shard_size`` without decoding in order."""
-    head = MAGIC + struct.pack("<BBIQQ", 2, 0, len(blobs), raw_size,
-                               shard_size)
-    sizes = struct.pack(f"<{len(blobs)}I", *(len(b) for b in blobs))
-    return head + sizes + b"".join(blobs)
+    with trace.span("tamp.frame.pack"):
+        head = MAGIC + struct.pack("<BBIQQ", 2, 0, len(blobs), raw_size,
+                                   shard_size)
+        sizes = struct.pack(f"<{len(blobs)}I", *(len(b) for b in blobs))
+        return head + sizes + b"".join(blobs)
 
 
 def _read_exact(read, k: int) -> bytes:
@@ -89,8 +90,9 @@ def _parse_frame(blob):
         at += k
         return blob[at - k : at]
 
-    raw_size, shard_size, sizes = _read_head(read)
-    return raw_size, shard_size, [_read_exact(read, sz) for sz in sizes]
+    with trace.span("tamp.frame.parse"):
+        raw_size, shard_size, sizes = _read_head(read)
+        return raw_size, shard_size, [_read_exact(read, sz) for sz in sizes]
 
 
 def _check_shard(shard_size: int, n: int) -> None:
@@ -209,6 +211,7 @@ def _encoder(engine: str, extended: bool, workers: int | None):
     return encode
 
 
+@trace.spanned("tamp.compress_sharded")
 def compress_sharded(
     data: bytes,
     *,
@@ -260,9 +263,11 @@ def compress_sharded(
     card, ``"cpu"`` for the plain versions."""
     encode = _encoder(engine, extended, workers)
     _check_shard(shard_size, len(data))
-    data = bytes(data)
-    shards = [data[i : i + shard_size]
-              for i in range(0, len(data), shard_size)] or [b""]
+    with trace.span("tamp.encode.split"):
+        data = bytes(data)
+        shards = [data[i : i + shard_size]
+                  for i in range(0, len(data), shard_size)] or [b""]
+    trace.count("encode.raw_bytes", len(data))
     blobs = encode(
         shards, window=window, literal=literal, lazy_matching=lazy_matching,
         dictionary=dictionary, device=device)
@@ -367,6 +372,7 @@ def compress_file_sharded(
             dst.close()
 
 
+@trace.spanned("tamp.decompress_sharded_device")
 def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
                               algorithm: str = "wavefront",
                               dictionary: bytes | None = None,
@@ -395,9 +401,11 @@ def decompress_sharded_device(blob: bytes, shard_size: int | None = None,
                                            shard_size, algorithm),
                   dictionary=dictionary, device=device,
                   **({} if mode is None else {"mode": mode}))
-    out = bytearray()
-    for d in outs:
-        out += d
+    with trace.span("tamp.decode.copy"):
+        out = bytearray()
+        for d in outs:
+            out += d
+        trace.count("decode.copy_bytes", len(out))
     if len(out) != raw_size:
         raise ValueError("container raw-size mismatch")
     return out
@@ -415,6 +423,7 @@ def _stream_decoder(pieces, *, max_out, dictionary, device) -> list:
             for p in pieces]
 
 
+@trace.spanned("tamp.decompress_sharded")
 def decompress_sharded(blob: bytes, workers: int | None = None,
                        dictionary: bytes | None = None, *,
                        device=None) -> bytearray:
@@ -451,7 +460,8 @@ def decompress_sharded(blob: bytes, workers: int | None = None,
     max_out = _bound(raw_size, shard_size, "serial", room=1) + 1
     if workers is None:
         workers = os.cpu_count() or 4
-    out = bytearray(raw_size)
+    with trace.span("tamp.decode.copy"):
+        out = bytearray(raw_size)
     for first in range(0, len(pieces), 2 * workers):
         batch = pieces[first : first + 2 * workers]
         # one launch a header byte; an empty stream, or a ``more`` one
@@ -466,14 +476,16 @@ def decompress_sharded(blob: bytes, workers: int | None = None,
                     [batch[k] for k in ks], dictionary=dictionary,
                     max_out=max_out, device=dev)):
                 got[k] = d
-        for k, d in enumerate(got):
-            start = (first + k) * shard_size
-            end = min(start + shard_size, raw_size)
-            if len(d) > max(0, end - start):
-                raise ValueError("decoded stream exceeds the provided buffer")
-            if len(d) != end - start:
-                raise ValueError("container raw-size mismatch")
-            out[start:end] = d
+        with trace.span("tamp.decode.copy"):
+            for k, d in enumerate(got):
+                start = (first + k) * shard_size
+                end = min(start + shard_size, raw_size)
+                if len(d) > max(0, end - start):
+                    raise ValueError("decoded stream exceeds the provided buffer")
+                if len(d) != end - start:
+                    raise ValueError("container raw-size mismatch")
+                out[start:end] = d
+            trace.count("decode.copy_bytes", sum(len(d) for d in got))
     return out
 
 

@@ -1568,3 +1568,38 @@ def test_stream_limit_one_shots(cuda, route):
     print(f"\n{route}: {n} bytes as one stream, ratio {len(blob) / n:.6f}; "
           f"compress {enc_s:.2f} s (peak {enc_peak:.2f} GiB), decompress "
           f"{dec_s:.2f} s (peak {dec_peak:.2f} GiB)")
+
+
+def test_spans_time_the_card_under_the_profiler(cuda):
+    """Under ``torch.profiler`` the spans given the card carry their CUDA
+    events' time, the outputs equal those of calls without it, the
+    committer's lookups are counted by outcome, and the snapshot's launch
+    counts are the wrappers' own."""
+    from torch import profiler as tp
+
+    from tamp_tpu_torch import trace
+    from tamp_tpu_torch.engine.greedy import COMMIT_STATS
+    from tamp_tpu_torch.parallel.shard import decompress_sharded
+
+    raw = _text(4 * 8192, 43)
+    blob = compress_sharded(raw, shard_size=8192)
+    trace.reset()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]):
+        traced = compress_sharded(raw, shard_size=8192)
+        wave = decompress_sharded_device(blob, mode="commit")
+        serial = decompress_sharded(blob)
+    snap = trace.snapshot()
+    trace.reset()
+    assert traced == blob and bytes(wave) == raw and bytes(serial) == raw
+    timed = {s.name for s in snap.spans if s.device_ms is not None}
+    assert timed == {"tamp.encode.device", "tamp.decode.parse",
+                     "tamp.decode.kernel"}
+    assert all(s.device_ms > 0 for s in snap.spans
+               if s.device_ms is not None)
+    c = snap.counters
+    assert c["commit.lookups"] == sum(c[n] for n in COMMIT_STATS[1:]) > 0
+    assert snap.launches["decode_commit.commit_decode"] == \
+        dc.commit_decode.launches
+    assert snap.launches["decode_serial.serial_decode"] == \
+        dser.serial_decode.launches

@@ -124,3 +124,43 @@ def test_malformed_tables_raise():
         greedy_compress(data, tables=(ok[0][:5], ok[1][:5]))
     with pytest.raises(ValueError):
         greedy_compress(data, tables=ok, lazy_matching=True)
+
+
+@pytest.mark.parametrize("holed", [False, True])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_stats_count_each_lookup_once(lazy, holed):
+    """``stats`` receives how each table lookup ended: with B5's full
+    tables no lookup meets a hole, with holed tables some do; the four
+    outcomes sum to the lookups, and the stream is the one without
+    ``stats``."""
+    rng = np.random.default_rng(77 + lazy)
+    data = (_gen(rng, 2, 2500, 255) + _gen(rng, 1, 900, 255)
+            + _gen(rng, 0, 600, 255))
+    n = len(data)
+    row = np.frombuffer(data, np.uint8)[None].copy()
+    tabs = v1_tables(torch.from_numpy(row),
+                     torch.tensor([n], dtype=torch.int32),
+                     torch.from_numpy(dictionary_array(1 << 10, 8)),
+                     window_bits=10, cap=16, probe=lazy)
+    tabs = [t[0].numpy().astype(np.uint8 if k % 2 == 0 else np.int32)
+            for k, t in enumerate(tabs)]
+    if holed:
+        hole = rng.random(n) < 0.5
+        for k in range(0, len(tabs), 2):
+            tabs[k][hole] = SPARSE_NONE
+    stats = np.full(5, -1, np.int64)
+    got = greedy_compress(data, lazy_matching=lazy, tables=tabs,
+                          stats=stats)
+    assert got == greedy_compress(data, lazy_matching=lazy, tables=tabs)
+    assert got == greedy_compress(data, lazy_matching=lazy)
+    lookups, hits, holes, seeded, full = stats.tolist()
+    assert lookups == hits + holes + seeded + full > 0
+    assert (holes > 0) == holed
+    # searches after the run region truncates the window
+    assert hits > 0 and seeded + full > 0
+    table_less = np.full(5, -1, np.int64)
+    greedy_compress(data, lazy_matching=lazy, stats=table_less)
+    assert table_less.tolist() == [0] * 5
+    for bad in (np.zeros(4, np.int64), np.zeros(5, np.int32), [0] * 5):
+        with pytest.raises(ValueError):
+            greedy_compress(data, tables=tabs[:2], stats=bad)
