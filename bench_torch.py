@@ -120,7 +120,9 @@ def counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
     from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops.decode_serial import serial_decode
-    from tamp_tpu_torch.ops.decode_wavefront import trunc_deficits
+    from tamp_tpu_torch.ops.decode_wavefront import (
+        parse_words, trunc_deficits,
+    )
     from tamp_tpu_torch.ops.encode_commit import commit_fields, commit_v1_lazy
     from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
     from tamp_tpu_torch.ops.match_ext import ext_tables, ext_tables_probe
@@ -132,7 +134,7 @@ def counters():
     fns = (ext_tables, ext_tables_probe, commit_fields, dc.commit_decode,
            v1_tables, commit_v1_lazy, token_table_chase, trunc_deficits,
            serial_decode, greedy_predict_batch, opt_v1_choice,
-           opt_ext_choice)
+           opt_ext_choice, parse_words)
     return {fn.__name__: fn for fn in fns}
 
 

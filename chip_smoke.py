@@ -173,7 +173,9 @@ Phases (any failure raises, and the script exits non-zero):
    launch call to the first kernel on the profiler's clocks,
    ``launch_lag_us``), X1 is timed alone beside its
    call (the call zero-fills the (S, T_max) output) and in ns a truncating
-   token, and the X1, X2, X3 and X4 rows print their first ports' times
+   token, X5 (the per-bit parse) is timed as B4's words and as the pair
+   of the chase and xla modes, its plain version the tensor ops on the
+   card, and the X1, X2, X3 and X4 rows print their first ports' times
    (FIRST_PORT_MS) beside; the rows of the kernels that phase 3's file
    decodes, ``entry()``, the dry run, the one-shots and the CLI launched
    carry those counts too (``file_launches``, ``entry_launches``,
@@ -260,9 +262,10 @@ DIST_TIMEOUT_S = 300
 # its algorithm and the kernels (wrapper names) it must launch once a batch
 FILE_WORKERS = (None, 2)
 FILE_DECODES = (
-    ("commit", "wavefront", ("commit_decode",)),
-    ("chase", "wavefront", ("token_table_chase", "trunc_deficits")),
-    ("xla", "wavefront", ("trunc_deficits",)),
+    ("commit", "wavefront", ("parse_words", "commit_decode")),
+    ("chase", "wavefront", ("parse_words", "token_table_chase",
+                            "trunc_deficits")),
+    ("xla", "wavefront", ("parse_words", "trunc_deficits")),
     ("serial", "serial", ("serial_decode",)),
 )
 # the kernels (wrapper names) the dry run must launch
@@ -316,11 +319,11 @@ BENCH_KEYS = (
     "setup_s", "device")
 GREEDY_B7_CASES = ((10, 8, False), (10, 8, True), (15, 8, False),
                    (14, 6, True))  # window, literal, lazy (w14 l6: minp 3)
-# the decode modes of phase 3: name, the kernels (wrapper names, B8, X1,
-# X2) each must launch; none of them launches B4
+# the decode modes of phase 3: name, the kernels (wrapper names, X5, B8,
+# X1, X2) each must launch; none of them launches B4
 DECODES = (
-    ("chase", ("token_table_chase", "trunc_deficits")),
-    ("xla", ("trunc_deficits",)),
+    ("chase", ("parse_words", "token_table_chase", "trunc_deficits")),
+    ("xla", ("parse_words", "trunc_deficits")),
     ("serial", ("serial_decode",)),
 )
 # two w10/l8 streams whose 64-byte payload fills its bucket, the last token
@@ -1982,7 +1985,8 @@ def phase_decode_modes(dev, report, data, blobs, shard_size: int,
     fns = counters()
     launches, rates = {}, {}
     for name, blob in blobs.items():
-        for mode, kernels in (("commit", ("commit_decode",)),) + DECODES:
+        for mode, kernels in (("commit", ("parse_words", "commit_decode")),
+                              ) + DECODES:
             alg = "serial" if mode == "serial" else "wavefront"
             os.environ["TAMP_TPU_DECODE"] = mode if alg == "wavefront" \
                 else "commit"
@@ -2291,7 +2295,8 @@ def phase_file_entry(dev, report, data, blobs, card: str):
                                  f"{workers}: the output differs")
                         for k in kernels:
                             if ran.get(k, 0) < batches or (
-                                    k in ("commit_decode", "serial_decode")
+                                    k in ("parse_words", "commit_decode",
+                                          "serial_decode")
                                     and ran[k] != batches):
                                 fail(f"file decode {name}, mode {mode}: "
                                      f"launches {ran} for {batches} batches")
@@ -3047,14 +3052,12 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
 
         _raw, _ss, pieces = _parse_frame(blob)
         payloads = timed("dec host frame", lambda: [p[1:] for p in pieces])
-        nxt, packed = timed(
-            "dec payload planes + host->device + per-bit parse",
+        pk = timed(
+            "dec payload plane + host->device + per-bit parse (X5, B4's "
+            "words)",
             lambda: dw.payload_parse(payloads, window=window,
                                      literal=literal, extended=True,
-                                     device=dev))
-        pk = timed("dec fuse parse words",
-                   lambda: dc.fuse_parse(nxt, packed))
-        del nxt, packed
+                                     device=dev, fused=True))
         di = torch.from_numpy(dictionary_array(W, literal)).to(dev)
         out, lens, _e = timed("dec B4 commit_decode", lambda: dc._launch(
             pk, di, di, W=W, more=False,
@@ -3437,15 +3440,13 @@ def walk_count(rows, stops, step):
 def stream_tokens(dev, blob, window: int, literal: int, extended: bool):
     """The fused parse words of a container's streams on the card and the
     number of tokens in them: (words (S, NBP), tokens)."""
-    from tamp_tpu_torch.ops import decode_commit as dc
     from tamp_tpu_torch.ops import decode_wavefront as dw
     from tamp_tpu_torch.parallel.shard import _parse_frame
 
     _raw, _ss, pieces = _parse_frame(blob)
-    nxt, packed = dw.payload_parse([p[1:] for p in pieces], window=window,
-                                   literal=literal, extended=extended,
-                                   device=dev)
-    pk = dc.fuse_parse(nxt, packed)
+    pk = dw.payload_parse([p[1:] for p in pieces], window=window,
+                          literal=literal, extended=extended, device=dev,
+                          fused=True)
     # a decode walk reads one parse word per token, jumping by its bits
     tokens = walk_count(pk.cpu().numpy(), [pk.shape[1]] * len(pieces),
                         lambda p: (p >> 11) & 63)
@@ -3736,6 +3737,46 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
            f"{xms:.3f} ms; wavefront_finish (tensor ops and X1, both "
            f"modes): {fms:.3f} ms [{card}]")
     del nxt, nxt_h, ptab, _xtab, _fin
+
+    # X5: the per-bit parse of the main path's payloads, as B4's words and
+    # as the pair of the chase and xla modes; the plain version is the
+    # tensor ops on the card
+    payloads = [p[1:] for p in pieces]
+    L = dw._pow2_bucket(max(len(p) for p in payloads) + 1, 64)
+    blob_h = np.zeros((len(payloads), L + 16), np.uint8)
+    for i, p in enumerate(payloads):
+        blob_h[i, : len(p)] = np.frombuffer(p, np.uint8)
+    pp_d = torch.from_numpy(blob_h).to(dev)
+    nb_d = torch.tensor([len(p) for p in payloads], dtype=torch.int32,
+                        device=dev)
+    pkw = dict(window=window, literal=literal, extended=True)
+    ms, words = cuda_ms(lambda: dw.parse_words(pp_d, nb_d, 8 * L,
+                                               fused=True, **pkw))
+    pair_ms, pair = cuda_ms(lambda: dw.parse_words(pp_d, nb_d, 8 * L,
+                                                   fused=False, **pkw))
+    sync(dev)
+    h0 = time.perf_counter()
+    p_nxt, p_kind, p_cnt, p_idx = dw.speculative_parse(
+        pp_d.to(torch.int64), nb_d * 8, 8 * L, window, literal, True)
+    p_packed = p_kind | (p_cnt << 3) | (p_idx << 11)
+    p_words = dc.fuse_parse(p_nxt, p_packed)
+    sync(dev)
+    pms = (time.perf_counter() - h0) * 1e3
+    bits = len(payloads) * 8 * L
+    report(f"  X5 as the pair (nxt, packed): {pair_ms:.4f} ms, bound "
+           f"{(blob_h.nbytes + 8 * bits) / HBM_BYTES_PER_S * 1e3:.4f} ms by "
+           f"bytes, max_abs_err "
+           f"{max_abs_err(zip(pair, (p_nxt, p_packed)))} [{card}]")
+    # the blob read once, a word written a bit; at least an operation a bit
+    kernels.append(dict(
+        name="parse_words (X5)", route="cuda",
+        source="tamp_tpu_torch/csrc/decode_parse.cu",
+        replaces="tamp_tpu/ops/decode_wavefront.py:135",
+        launches=dec_launches["extended", "commit"]["parse_words"],
+        max_abs_err=max(max_abs_err([(words, p_words)]),
+                        max_abs_err(zip(pair, (p_nxt, p_packed)))),
+        ms=ms, plain_ms=pms, bytes=blob_h.nbytes + 4 * bits, ops=bits))
+    del pp_d, words, pair, p_nxt, p_kind, p_cnt, p_idx, p_packed, p_words
 
     # X1: the truncation deficits of the main path's token table
     x1_in = dw.fold_inputs(*tab, packed, more=False)

@@ -2,11 +2,13 @@
 
 Counterpart of ``tamp_tpu/ops/decode_commit_pallas.py::commit_decode_batch``
 (the ``_kernel`` kernel, separate-ring form for every stream and window).
-Input: the per-bit parse of S payloads (ops/decode_wavefront.py) as
-``nxt`` and ``packed = kind | cnt << 3 | idx << 11``, both (S, NBP) int32;
-they are fused into one word per bit, ``kind(3) | cnt(8) | delta(6) |
-idx << 17`` with ``delta = 0`` where ``nxt >= NBP`` (a trailing incomplete
-token), else ``min(nxt - b, 63)``.  Output: decoded bytes (S, max_out)
+Input: the per-bit parse of S payloads (ops/decode_wavefront.py) as one
+int32 word per bit, ``kind(3) | cnt(8) | delta(6) | idx << 17`` with
+``delta = 0`` where ``nxt >= NBP`` (a trailing incomplete token), else
+``min(nxt - b, 63)``: the parse kernel's fused form
+(:func:`commit_decode_words`), or :func:`fuse_parse` of the pair form
+``nxt`` and ``packed = kind | cnt << 3 | idx << 11``, both (S, NBP) int32
+(:func:`commit_decode`).  Output: decoded bytes (S, max_out)
 uint8 (zero past each length), lengths (S,) and error codes (S,) int32.
 Window-write rules (reference decompressor): basic matches write fully
 with wrap; RLE writes at most 8 bytes and never wraps; extended matches
@@ -21,8 +23,8 @@ import torch
 
 from . import _build
 
-__all__ = ["commit_decode", "commit_decode_plain", "fuse_parse",
-           "ERR_OK", "ERR_INVALID", "ERR_OOB", "ERR_OVERFLOW"]
+__all__ = ["commit_decode", "commit_decode_words", "commit_decode_plain",
+           "fuse_parse", "ERR_OK", "ERR_INVALID", "ERR_OOB", "ERR_OVERFLOW"]
 
 ERR_OK, ERR_INVALID, ERR_OOB, ERR_OVERFLOW = 0, 1, 2, 3
 K_LIT, K_MATCH, K_RLE, K_EXT, K_FLUSH = 0, 1, 2, 3, 4  # parse token kinds
@@ -112,21 +114,38 @@ def commit_decode_plain(pk: torch.Tensor, dict_init: torch.Tensor,
             torch.from_numpy(errs).to(dev))
 
 
+def _check_dicts(dict_init, dict_reset, W: int, device) -> None:
+    for d in (dict_init, dict_reset):
+        if d.dtype != torch.uint8 or d.shape != (W,):
+            raise ValueError("dictionaries must be (W,) uint8 tensors")
+    if not device == dict_init.device == dict_reset.device:
+        raise ValueError("all inputs must share one device")
+
+
 def commit_decode(nxt: torch.Tensor, packed: torch.Tensor,
                   dict_init: torch.Tensor, dict_reset: torch.Tensor, *,
                   W: int, more: bool, max_out: int):
     """(out (S, max_out) uint8, lens (S,), errs (S,)): kernel B4 for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors, on the parse's pair form
+    (fused by :func:`fuse_parse`)."""
     if nxt.dtype != torch.int32 or packed.dtype != torch.int32 \
             or nxt.dim() != 2 or nxt.shape != packed.shape:
         raise ValueError("nxt and packed must be (S, NBP) int32 tensors")
-    for d in (dict_init, dict_reset):
-        if d.dtype != torch.uint8 or d.shape != (W,):
-            raise ValueError("dictionaries must be (W,) uint8 tensors")
-    if not (nxt.device == packed.device == dict_init.device
-            == dict_reset.device):
+    _check_dicts(dict_init, dict_reset, W, nxt.device)
+    if nxt.device != packed.device:
         raise ValueError("all inputs must share one device")
-    pk = fuse_parse(nxt, packed)
+    return commit_decode_words(fuse_parse(nxt, packed), dict_init,
+                               dict_reset, W=W, more=more, max_out=max_out)
+
+
+def commit_decode_words(pk: torch.Tensor, dict_init: torch.Tensor,
+                        dict_reset: torch.Tensor, *, W: int, more: bool,
+                        max_out: int):
+    """:func:`commit_decode` on the fused parse words ``pk`` (S, NBP) int32
+    (:func:`fuse_parse`'s, or the fused form of the parse kernel)."""
+    if pk.dtype != torch.int32 or pk.dim() != 2:
+        raise ValueError("pk must be an (S, NBP) int32 tensor")
+    _check_dicts(dict_init, dict_reset, W, pk.device)
     if pk.device.type == "cpu":
         return commit_decode_plain(pk, dict_init, dict_reset, W=W, more=more,
                                    max_out=max_out)

@@ -4,12 +4,18 @@ three modes.
 Counterpart of ``tamp_tpu/ops/decode_wavefront.py``
 (``decode_shards_wavefront`` -> ``_decode_group`` -> ``_wavefront_batch``):
 
-1. **Speculative per-bit parse** (:func:`speculative_parse`, tensor ops):
-   for every bit offset of every payload, decode the token that would start
-   there: kind, count, index, and the next token's bit offset.  The JAX
-   package does this bit math in uint32; here it is int64 with explicit
-   32-bit masks.  It allocates about a dozen (S, NBP) int64 temporaries, a
-   few GB at 8 shards of 1 MiB: memory traded for simplicity.
+1. **Speculative per-bit parse** (:func:`parse_words`): for every bit
+   offset of every payload, decode the token that would start there: kind,
+   count, index, and the next token's bit offset.  On the card this is
+   kernel X5 (``csrc/decode_parse.cu``), one pass from the payload bytes to
+   the words its consumer reads: B4's fused word in mode ``commit``, the
+   pair ``(nxt, packed)`` in the others.  Its working set is the payload
+   blob and the output plane: 4 bytes a bucket bit fused, 8 as a pair.
+   On the CPU it is the plain version, :func:`speculative_parse` (tensor
+   ops; the JAX package does this bit math in uint32, here it is int64
+   with explicit 32-bit masks), which allocates about a dozen (S, NBP)
+   int64 temporaries: ~232 bytes a bucket bit, 15,569,258,496 B of device
+   memory at 8 shards of 1 MiB when an H100 ran it.
 2. One of three modes (``mode``, or ``TAMP_TPU_DECODE``; ``"commit"`` by
    default at every window):
 
@@ -54,13 +60,14 @@ from ..exceptions import OutOfBoundsError
 from . import _build
 from .decode_commit import (
     ERR_OK, ERR_OOB, ERR_OVERFLOW, K_EXT, K_FLUSH, K_LIT, K_MATCH, K_RLE,
-    commit_decode,
+    commit_decode_words, fuse_parse,
 )
 from .token_chase import token_table_chase
 
 __all__ = ["decode_shards_wavefront", "decode_group", "payload_groups",
            "wavefront_decode_payload",
-           "payload_parse", "speculative_parse", "wavefront_finish",
+           "payload_parse", "parse_words", "speculative_parse",
+           "wavefront_finish",
            "fold_inputs", "trunc_deficits", "trunc_deficits_plain",
            "resolve_mode", "MODES"]
 
@@ -116,6 +123,17 @@ def _decode_symbol(pk):
         s_out = torch.where(hit, s, s_out)
         n_out = torch.where(hit, nb, n_out)
     return s_out, n_out
+
+
+def _symbol_table() -> np.ndarray:
+    """:func:`_decode_symbol` of every 8-bit peek as kernel X5 reads it:
+    (256,) uint8, ``symbol | code length << 4``."""
+    s_out, n_out = _decode_symbol(torch.arange(256))
+    return (s_out | (n_out << 4)).to(torch.uint8).numpy()
+
+
+_SYMBOLS = _symbol_table()
+_symbols_on: dict = {}  # the table on each CUDA device
 
 
 def speculative_parse(pp: torch.Tensor, nb_valid: torch.Tensor, NBP: int,
@@ -194,15 +212,68 @@ def _raise_err(e: int) -> None:
     raise ValueError("invalid tamp stream")
 
 
+def parse_words(pp: torch.Tensor, nbytes: torch.Tensor, NBP: int, *,
+                window: int, literal: int, extended: bool, fused: bool):
+    """The per-bit parse of S payloads: ``pp`` (S, R) uint8 payload bytes,
+    zero past each payload, R >= NBP / 8 + 8 a multiple of 16; ``nbytes``
+    (S,) int32 their lengths.  ``fused``: B4's words (S, NBP) int32 (as
+    ``fuse_parse`` packs them), else ``(nxt, packed)`` (S, NBP) int32 with
+    ``packed = kind | cnt << 3 | idx << 11``.  Kernel X5 for CUDA tensors,
+    :func:`speculative_parse` (and ``fuse_parse``) for CPU tensors."""
+    if pp.dtype != torch.uint8 or pp.dim() != 2:
+        raise ValueError("pp must be an (S, R) uint8 tensor")
+    S, R = pp.shape
+    if nbytes.dtype != torch.int32 or nbytes.shape != (S,):
+        raise ValueError("nbytes must be an (S,) int32 tensor")
+    if NBP <= 0 or NBP % 8 or NBP > I32MAX:
+        raise ValueError(f"NBP {NBP} is not a positive multiple of 8 that "
+                         "int32 bit offsets hold")
+    if R < NBP // 8 + 8 or R % 16:
+        raise ValueError(f"pp rows of {R} bytes: the parse of {NBP} bits "
+                         "needs NBP / 8 + 8 or more, a multiple of 16")
+    if pp.device != nbytes.device:
+        raise ValueError("pp and nbytes must share one device")
+    if pp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {pp.device}")
+    trace.count("decode.parse_bits", S * NBP)
+    if pp.device.type == "cpu":
+        nxt, kind, cnt, idx = speculative_parse(
+            pp.to(torch.int64), nbytes * 8, NBP, window, literal, extended)
+        packed = kind | (cnt << 3) | (idx << 11)
+        return fuse_parse(nxt, packed) if fused else (nxt, packed)
+    dev = pp.device
+    pp = pp.contiguous()
+    if pp.data_ptr() % 16:  # the kernel stages rows in 16-byte loads
+        pp = pp.clone()
+    sym = _symbols_on.get(dev)
+    if sym is None:
+        sym = _symbols_on[dev] = torch.from_numpy(_SYMBOLS).to(dev)
+    out = [torch.empty((S, NBP), dtype=torch.int32, device=dev)
+           for _ in range(1 if fused else 2)]
+    _build.launch("decode_parse", "tpt_parse_words", dev,
+                  (pp, nbytes.contiguous(), sym, out[0],
+                   None if fused else out[1]),
+                  (S, NBP // 8, R, window, literal,
+                   compute_min_pattern_size(window, literal), int(extended),
+                   int(fused)))
+    parse_words.launches += 1
+    return out[0] if fused else tuple(out)
+
+
+parse_words.launches = 0
+
+
 def payload_parse(payloads, *, window: int, literal: int, extended: bool,
-                  device):
-    """Per-bit parse of a group of header-less payloads on ``device``:
-    (nxt, packed) (S, NBP) int32, ``packed = kind | cnt << 3 | idx << 11``,
-    the input of every decode mode.  NBP is 8x the power-of-two bucket of
-    the longest payload plus one byte: with that spare byte no complete
-    token ends at bit NBP, the value that marks an incomplete one (the JAX
-    package buckets the bare length, and there a last token that ends on
-    the bucket's last bit is dropped in its commit and chase modes)."""
+                  device, fused: bool = False):
+    """Per-bit parse of a group of header-less payloads on ``device`` by
+    :func:`parse_words`: B4's fused words (S, NBP) int32 when ``fused``
+    (mode ``commit``), else (nxt, packed) (S, NBP) int32, ``packed = kind
+    | cnt << 3 | idx << 11`` (modes ``chase`` and ``xla``).  NBP is 8x the
+    power-of-two bucket of the longest payload plus one byte: with that
+    spare byte no complete token ends at bit NBP, the value that marks an
+    incomplete one (the JAX package buckets the bare length, and there a
+    last token that ends on the bucket's last bit is dropped in its commit
+    and chase modes)."""
     S = len(payloads)
     L = _pow2_bucket(max(len(p) for p in payloads) + 1, 64)
     if 8 * L > I32MAX:
@@ -210,19 +281,19 @@ def payload_parse(payloads, *, window: int, literal: int, extended: bool,
             f"a payload of {max(len(p) for p in payloads)} bytes is past the "
             "wavefront decode's int32 bit offsets")
     with trace.span("tamp.decode.h2d"):
-        # the parse peeks up to ~22 bits past a start at bit 8L: pad 8 bytes
-        blobs = np.zeros((S, L + 8), np.uint8)
+        # the parse peeks up to ~22 bits past a start at bit 8L: pad 8
+        # bytes, and 8 more so that a row is a multiple of 16 bytes
+        blobs = np.zeros((S, L + 16), np.uint8)
         nbytes = np.zeros(S, np.int32)
         for i, p in enumerate(payloads):
             blobs[i, : len(p)] = np.frombuffer(p, np.uint8)
             nbytes[i] = len(p)
-        pp = torch.from_numpy(blobs).to(device).to(torch.int64)
+        pp = torch.from_numpy(blobs).to(device)
         nb = torch.from_numpy(nbytes).to(device)
         trace.count("decode.h2d_bytes", blobs.nbytes + nbytes.nbytes)
     with trace.span("tamp.decode.parse", device=device):
-        nxt, kind, cnt, idx = speculative_parse(pp, nb * 8, 8 * L, window,
-                                                literal, extended)
-        return nxt, kind | (cnt << 3) | (idx << 11)
+        return parse_words(pp, nb, 8 * L, window=window, literal=literal,
+                           extended=extended, fused=fused)
 
 
 def _token_table(nxt: torch.Tensor, NBP: int, literal: int, T_max: int):
@@ -519,15 +590,18 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
     ``mode``: (out (S, max_out') uint8, lens (S,), errs (S,)) tensors, with
     max_out' the power-of-two bucket of ``max_out``."""
     mode = resolve_mode(mode)
-    nxt, packed = payload_parse(payloads, window=window, literal=literal,
-                                extended=extended, device=device)
+    parse = payload_parse(payloads, window=window, literal=literal,
+                          extended=extended, device=device,
+                          fused=mode == "commit")
     with trace.span("tamp.decode.kernel", device=device):
         di = torch.from_numpy(np.array(dict_init, np.uint8)).to(device)
         dr = torch.from_numpy(np.array(dict_reset, np.uint8)).to(device)
         max_out = _pow2_bucket(max_out, 1024)
         if mode == "commit":
-            return commit_decode(nxt, packed, di, dr, W=1 << window,
-                                 more=more, max_out=max_out)
+            return commit_decode_words(parse, di, dr, W=1 << window,
+                                       more=more, max_out=max_out)
+        nxt, packed = parse
+        del parse
         NBP = nxt.shape[1]
         T_max = NBP // (1 + literal) + 2
         if mode == "chase":
@@ -596,8 +670,10 @@ def split_streams(shards, dictionary):
 def payload_groups(payloads) -> list[tuple[int, int]]:
     """Index ranges ``[i, j)`` of consecutive payloads, each group at most
     ``GROUP_PAYLOAD_BYTES`` payload bytes (a longer payload alone), which
-    caps the per-bit working set (~100 bytes of device memory per payload
-    bit)."""
+    caps the per-bit working set: on the card the payload blob and the
+    parse plane, 4 bytes a bucket bit in mode ``commit`` and 8 in the
+    others (the tensor-op parse that the CPU still runs took ~232, 15.57 GB
+    at 8 shards of 1 MiB on an H100)."""
     groups = []
     i = 0
     while i < len(payloads):

@@ -52,6 +52,7 @@ LAUNCHES = (
     ("ops.decode_commit", "commit_decode"),
     ("ops.token_chase", "token_table_chase"),
     ("ops.decode_wavefront", "trunc_deficits"),
+    ("ops.decode_wavefront", "parse_words"),
     ("ops.decode_serial", "serial_decode"),
     ("ops.opt_parse", "opt_v1_choice"),
     ("ops.opt_parse_ext", "opt_ext_choice"),

@@ -655,6 +655,142 @@ def test_b4_kernel_equals_plain(cuda, window, kind):
         assert got_lens.tolist() == list(lens)
 
 
+# Two inputs whose w10/l8 payload is exactly 64 bytes, a power-of-two
+# bucket, with the last token ending on the payload's last bit: parsed at
+# NBP = 8 x 64 that token's end would equal the incomplete-token mark NBP
+# (the parse's bucket holds a spare byte so that it does not).
+EXACT_BUCKET = [
+    b"koloekj oooihgodhhofknlhm knmifjnbbogcefhgmoepi hddl fgniboiemaa",
+    b"nho ofooefkplpialoebgddecidoijnldhdhhbbmjekfkpcoad aafjjndimnljbcp",
+]
+
+
+def _x5_pair(cuda, payloads, *, window, literal, extended):
+    """X5's two forms on the card against the plain version, over the
+    whole plane: the fused words against ``fuse_parse(speculative_parse)``
+    and ``(nxt, packed)`` against the pair; one launch each.  Returns the
+    plain (fused, nxt, packed) on the CPU."""
+    kw = dict(window=window, literal=literal, extended=extended)
+    L = dw._pow2_bucket(max(len(p) for p in payloads) + 1, 64)
+    pp = np.zeros((len(payloads), L + 8), np.uint8)
+    for i, p in enumerate(payloads):
+        pp[i, : len(p)] = np.frombuffer(p, np.uint8)
+    nb = torch.tensor([len(p) for p in payloads], dtype=torch.int32)
+    nxt, kind, cnt, idx = dw.speculative_parse(
+        torch.from_numpy(pp).to(torch.int64), nb * 8, 8 * L, window,
+        literal, extended)
+    packed = kind | (cnt << 3) | (idx << 11)
+    fused = dc.fuse_parse(nxt, packed)
+    before = dw.parse_words.launches
+    got = dw.payload_parse(payloads, device=cuda, fused=True, **kw)
+    assert dw.parse_words.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), fused)
+    g_nxt, g_packed = dw.payload_parse(payloads, device=cuda, **kw)
+    assert dw.parse_words.launches == before + 2
+    assert torch.equal(g_nxt.cpu(), nxt) and torch.equal(g_packed.cpu(),
+                                                         packed)
+    return fused, nxt, packed
+
+
+def _x5_data(literal: int, n: int, seed: int) -> bytes:
+    return bytes(b & ((1 << literal) - 1) for b in _text(n, seed))
+
+
+@pytest.mark.parametrize("window", range(8, 16))
+@pytest.mark.parametrize("extended", [True, False])
+def test_x5_kernel_equals_plain(cuda, extended, window):
+    """The parse kernel's planes equal the plain version's element for
+    element at literals 5-8: real streams of both formats, random bytes
+    (every bit offset a speculative token), payloads of 0, 1 and 7 bytes;
+    at window 15 the fused word's idx << 17 wraps into the sign bit."""
+    rng = np.random.default_rng(window * 2 + extended)
+    for literal in range(5, 9):
+        kw = dict(window=window, literal=literal, extended=extended)
+        blob = compress_sharded(_x5_data(literal, 3 * 4096 - 500, window),
+                                shard_size=4096, engine="device-commit",
+                                device=cuda, **kw)
+        streams = _parse_frame(blob)[2]
+        _x5_pair(cuda, [x[1:] for x in streams], **kw)
+        noise = [bytes(rng.integers(0, 256, n).astype(np.uint8))
+                 for n in (0, 1, 7, 300, 5000)]
+        fused, _n, _p = _x5_pair(cuda, noise, **kw)
+        if window == 15:
+            assert (fused < 0).any()
+        for p in noise[:3]:  # 0, 1 and 7 bytes alone
+            _x5_pair(cuda, [p], **kw)
+
+
+def test_x5_kernel_on_exact_bucket_and_trailing_flush_payloads(cuda):
+    """Payloads that fill their power-of-two bucket, and streams that end
+    in a FLUSH after 0-7 literals, so that the FLUSH's code and its
+    byte-aligned end land on every offset before and on ``nb_valid``:
+    equal planes, and every mode decodes them."""
+    import tamp_tpu_torch as tt
+
+    exact = [tt.compress(raw, window=10, literal=8) for raw in EXACT_BUCKET]
+    assert all(len(x) - 1 == 64 for x in exact)
+    _x5_pair(cuda, [x[1:] for x in exact], window=10, literal=8,
+             extended=True)
+    flushes = []
+    for k in range(8):
+        bw = _Bits()
+        for j in range(k):
+            bw.put(0x100 | (97 + j), 9)
+        bw.put(HUFFMAN_CODES[FLUSH_SYMBOL], HUFFMAN_LENGTHS[FLUSH_SYMBOL])
+        flushes.append(bw.bytes())
+    _fused, nxt, _p = _x5_pair(cuda, flushes, window=10, literal=8,
+                               extended=True)
+    NBP = nxt.shape[1]
+    for k, p in enumerate(flushes):
+        # the FLUSH starts at bit 9k and its code ends on or before the
+        # payload's end: a complete token, ending on the byte boundary
+        assert int(nxt[k, 9 * k]) == 8 * len(p) < NBP
+    for mode in dw.MODES:
+        got = dw.decode_shards_wavefront(
+            [exact[0][:1] + p for p in flushes] + exact, max_out=4096,
+            device=cuda, mode=mode)
+        want = [bytes(97 + j for j in range(k)) for k in range(8)]
+        assert got == want + EXACT_BUCKET, mode
+
+
+def test_x5_kernel_takes_a_blob_off_16_bytes(cuda):
+    """A contiguous blob that starts 3 bytes into its storage (the kernel
+    loads rows 16 bytes at a time) parses as an aligned one does."""
+    payloads = [bytes(np.random.default_rng(9).integers(0, 256, 700)
+                      .astype(np.uint8)), b"\x81\x42"]
+    L = dw._pow2_bucket(701, 64)
+    flat = torch.zeros(3 + 2 * (L + 16), dtype=torch.uint8)
+    pp = flat[3:].view(2, L + 16)
+    for i, p in enumerate(payloads):
+        pp[i, : len(p)] = torch.frombuffer(bytearray(p), dtype=torch.uint8)
+    nb = torch.tensor([700, 2], dtype=torch.int32)
+    kw = dict(window=10, literal=8, extended=True, fused=True)
+    want = dw.parse_words(pp, nb, 8 * L, **kw)
+    pp_d = flat.to(cuda)[3:].view(2, L + 16)
+    assert pp_d.data_ptr() % 16 == 3
+    got = dw.parse_words(pp_d, nb.to(cuda), 8 * L, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["commit", "chase", "xla"])
+def test_device_decode_launches_x5_a_payload_group(cuda, monkeypatch, mode):
+    """``decompress_sharded_device`` in every mode gives the input back,
+    with one parse launch a payload group (and B4 only in mode commit),
+    at the default budget and at one that splits the shards."""
+    data = _text(6 * 4096, 44)
+    blob = compress_sharded(data, shard_size=4096, engine="device-commit")
+    payloads = [x[1:] for x in _parse_frame(blob)[2]]
+    for budget in (dw.GROUP_PAYLOAD_BYTES, 3000):
+        monkeypatch.setattr(dw, "GROUP_PAYLOAD_BYTES", budget)
+        groups = len(dw.payload_groups(payloads))
+        before = (dw.parse_words.launches, dc.commit_decode.launches)
+        assert bytes(decompress_sharded_device(blob, mode=mode)) == data
+        assert dw.parse_words.launches == before[0] + groups
+        assert dc.commit_decode.launches == \
+            before[1] + (groups if mode == "commit" else 0)
+    assert groups > 1
+
+
 def test_entry_points_round_trip_and_match_plain(cuda):
     data = _text(40000, 2)
     blob = compress_sharded(data, shard_size=16384, engine="device-commit")
@@ -1573,8 +1709,8 @@ def test_stream_limit_one_shots(cuda, route):
 def test_spans_time_the_card_under_the_profiler(cuda):
     """Under ``torch.profiler`` the spans given the card carry their CUDA
     events' time, the outputs equal those of calls without it, the
-    committer's lookups are counted by outcome, and the snapshot's launch
-    counts are the wrappers' own."""
+    committer's lookups are counted by outcome, the snapshot's launch
+    counts are the wrappers' own, and the parse's bits are counted."""
     from torch import profiler as tp
 
     from tamp_tpu_torch import trace
@@ -1601,5 +1737,11 @@ def test_spans_time_the_card_under_the_profiler(cuda):
     assert c["commit.lookups"] == sum(c[n] for n in COMMIT_STATS[1:]) > 0
     assert snap.launches["decode_commit.commit_decode"] == \
         dc.commit_decode.launches
+    assert snap.launches["decode_wavefront.parse_words"] == \
+        dw.parse_words.launches > 0
+    # one parse of the four payloads (one group), a header byte each
+    pieces = _parse_frame(blob)[2]
+    L = dw._pow2_bucket(max(len(p) - 1 for p in pieces) + 1, 64)
+    assert c["decode.parse_bits"] == len(pieces) * 8 * L
     assert snap.launches["decode_serial.serial_decode"] == \
         dser.serial_decode.launches

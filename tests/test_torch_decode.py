@@ -7,6 +7,7 @@ import io
 import numpy as np
 import pytest
 import torch
+from torch import profiler as tp
 
 import jax.numpy as jnp
 
@@ -15,9 +16,14 @@ from tamp_tpu import _native
 from tamp_tpu._native.stream import NativeCompressor
 from tamp_tpu.ops import decode_wavefront as jwf
 from tamp_tpu.ops.decode_commit_pallas import commit_decode_batch
+from tamp_tpu_torch import trace
 from tamp_tpu_torch.dictionary import dictionary_array
+from tamp_tpu_torch.ops import _build
 from tamp_tpu_torch.ops import decode_wavefront as twf
-from tamp_tpu_torch.ops.decode_commit import ERR_OK, commit_decode
+from tamp_tpu_torch.ops.decode_commit import (
+    ERR_OK, commit_decode, commit_decode_words, fuse_parse,
+)
+from test_torch_cuda import EXACT_BUCKET
 
 pytestmark = pytest.mark.skipif(not _native.available(),
                                 reason="native engine unavailable")
@@ -157,16 +163,6 @@ def test_decode_shards_groups_by_payload_budget(monkeypatch):
         assert got == want
 
 
-# Two inputs whose w10/l8 payload is exactly 64 bytes, a power-of-two
-# bucket, with the last token ending on the payload's last bit: parsed at
-# NBP = 8 x 64 that token's end equals the incomplete-token mark NBP, and
-# the commit walk dropped it (62 and 65 bytes came back).
-EXACT_BUCKET = [
-    b"koloekj oooihgodhhofknlhm knmifjnbbogcefhgmoepi hddl fgniboiemaa",
-    b"nho ofooefkplpialoebgddecidoijnldhdhhbbmjekfkpcoad aafjjndimnljbcp",
-]
-
-
 @pytest.mark.parametrize("mode", ["commit", "chase", "xla", "serial"])
 @pytest.mark.parametrize("raw", EXACT_BUCKET)
 def test_exact_bucket_payload_keeps_its_final_token(raw, mode):
@@ -182,3 +178,139 @@ def test_exact_bucket_payload_keeps_its_final_token(raw, mode):
         got = twf.decode_shards_wavefront([stream], max_out=4096,
                                           device="cpu", **kw)
     assert got == [raw]
+
+
+def _group(case):
+    """(payloads, window, literal, extended, more) of a case's streams."""
+    streams = _cases()[case][0]
+    h, payloads = _payloads(streams)
+    return (payloads, (h >> 5) + 8, ((h >> 3) & 3) + 5, bool((h >> 1) & 1),
+            bool(h & 1))
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    """Fail the test if a kernel launch is attempted."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU tensor reached a kernel launch")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("case", range(6))
+def test_cpu_parse_words_is_the_plain_version(case, fused, no_launch):
+    # CPU tensors take the tensor ops, counted as no launch: the fused
+    # plane is fuse_parse of speculative_parse, the pair its packing
+    payloads, window, literal, extended, _more = _group(case)
+    before = twf.parse_words.launches
+    got = twf.payload_parse(payloads, window=window, literal=literal,
+                            extended=extended, device="cpu", fused=fused)
+    assert twf.parse_words.launches == before
+    L = twf._pow2_bucket(max(len(p) for p in payloads) + 1, 64)
+    pp = np.zeros((len(payloads), L + 8), np.int64)
+    for i, p in enumerate(payloads):
+        pp[i, : len(p)] = np.frombuffer(p, np.uint8)
+    nb = torch.tensor([8 * len(p) for p in payloads], dtype=torch.int32)
+    nxt, kind, cnt, idx = twf.speculative_parse(
+        torch.from_numpy(pp), nb, 8 * L, window, literal, extended)
+    packed = kind | (cnt << 3) | (idx << 11)
+    if fused:
+        assert torch.equal(got, fuse_parse(nxt, packed))
+    else:
+        assert torch.equal(got[0], nxt) and torch.equal(got[1], packed)
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_commit_decode_words_equals_commit_decode(case, no_launch):
+    # B4's entry on the fused plane gives commit_decode's result on the
+    # pair, errors included
+    payloads, window, literal, extended, more = _group(case)
+    _s, d_init, d_reset, max_out = _cases()[case]
+    kw = dict(window=window, literal=literal, extended=extended,
+              device="cpu")
+    nxt, packed = twf.payload_parse(payloads, **kw)
+    pk = twf.payload_parse(payloads, fused=True, **kw)
+    di, dr = torch.from_numpy(d_init.copy()), torch.from_numpy(d_reset.copy())
+    ck = dict(W=1 << window, more=more, max_out=max_out)
+    for got, want in zip(commit_decode_words(pk, di, dr, **ck),
+                         commit_decode(nxt, packed, di, dr, **ck)):
+        assert torch.equal(got, want)
+
+
+def _parse_args(L=64, S=2):
+    pp = torch.zeros((S, L + 16), dtype=torch.uint8)
+    pp[:, :5] = 0xA5
+    return dict(pp=pp, nbytes=torch.full((S,), 5, dtype=torch.int32),
+                NBP=8 * L)
+
+
+PARSE_REFUSALS = {
+    "pp not uint8": lambda a: a.update(pp=a["pp"].to(torch.int64)),
+    "pp one row": lambda a: a.update(pp=a["pp"][0]),
+    "nbytes not int32": lambda a: a.update(
+        nbytes=a["nbytes"].to(torch.int64)),
+    "nbytes of another S": lambda a: a.update(nbytes=a["nbytes"][:1]),
+    "NBP not a multiple of 8": lambda a: a.update(NBP=a["NBP"] - 4),
+    "NBP zero": lambda a: a.update(NBP=0),
+    "rows too short": lambda a: a.update(pp=a["pp"][:, :64].contiguous()),
+    "rows not a multiple of 16": lambda a: a.update(
+        pp=a["pp"][:, :76].contiguous()),
+    "devices differ": lambda a: a.update(
+        nbytes=torch.empty(2, dtype=torch.int32, device="meta")),
+    "unsupported device": lambda a: a.update(
+        pp=a["pp"].to("meta"), nbytes=a["nbytes"].to("meta")),
+}
+
+
+@pytest.mark.parametrize("case", list(PARSE_REFUSALS))
+def test_parse_words_refuses_before_any_launch(case, no_launch):
+    a = _parse_args()
+    ok = twf.parse_words(**a, window=10, literal=8, extended=True,
+                         fused=True)
+    assert ok.shape == (2, a["NBP"])
+    PARSE_REFUSALS[case](a)
+    before = twf.parse_words.launches
+    with pytest.raises(ValueError):
+        twf.parse_words(a.pop("pp"), a.pop("nbytes"), a.pop("NBP"),
+                        window=10, literal=8, extended=True, fused=True)
+    assert twf.parse_words.launches == before
+
+
+WORDS_REFUSALS = {
+    "pk not int32": lambda a: a.update(pk=a["pk"].to(torch.int64)),
+    "pk one row": lambda a: a.update(pk=a["pk"][0]),
+    "dictionary of another W": lambda a: a.update(di=a["di"][:512]),
+    "dictionary not uint8": lambda a: a.update(di=a["di"].to(torch.int32)),
+    "devices differ": lambda a: a.update(di=a["di"].to("meta")),
+    "unsupported device": lambda a: a.update(
+        pk=a["pk"].to("meta"), di=a["di"].to("meta"),
+        dr=a["dr"].to("meta")),
+}
+
+
+@pytest.mark.parametrize("case", list(WORDS_REFUSALS))
+def test_commit_decode_words_refuses_before_any_launch(case, no_launch):
+    d = torch.from_numpy(dictionary_array(1024, literal=8))
+    a = dict(pk=torch.zeros((2, 512), dtype=torch.int32), di=d, dr=d)
+    WORDS_REFUSALS[case](a)
+    with pytest.raises(ValueError):
+        commit_decode_words(a["pk"], a["di"], a["dr"], W=1024, more=False,
+                            max_out=1024)
+
+
+def test_parse_bits_counted_only_while_tracing():
+    payloads, window, literal, extended, _more = _group(0)
+    kw = dict(window=window, literal=literal, extended=extended,
+              device="cpu")
+    NBP = 8 * twf._pow2_bucket(max(len(p) for p in payloads) + 1, 64)
+    trace.reset()
+    twf.payload_parse(payloads, fused=True, **kw)
+    assert "decode.parse_bits" not in trace.snapshot().counters
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+        twf.payload_parse(payloads, fused=True, **kw)
+        twf.payload_parse(payloads, **kw)
+    counters = trace.snapshot().counters
+    trace.reset()
+    assert counters["decode.parse_bits"] == 2 * len(payloads) * NBP
+
