@@ -24,10 +24,16 @@ device-tables branch and the fused stage ``_ext_device_stage_impl``):
 engine/plan.py and engine/tail.py are the plain versions of steps 1 and 3
 that the tests hold the C++ to; the main path reaches neither.
 
-Output is byte-identical to the JAX package's device-commit encode and to
-the native planned committer (``force_planned=True,
-avoid_divergence=True``).  Only the dense (S, NP) uint8 chunk-count plane
-crosses to the device with the model bytes.
+Output is byte-identical to the native planned committer
+(``force_planned=True, avoid_divergence=True``) and to the JAX package's
+device-commit encode, but for a shard that opens with a planned run of the
+dictionary's last byte: there the JAX planner lets an RLE token cross the
+first forced chunk and writes a stream that does not decode, and this one
+stops the run at the chunk as the committer does (ops/plan_ext.py).  Only
+the dense (S, NP) uint8 chunk-count plane crosses to the device with the
+model bytes.  While tracing is on, the steps are the spans
+``tamp.encode.prep`` (``tamp.encode.prep.shard`` a shard), ``.h2d``,
+``.device`` (``.plan`` twice inside it), ``.pull`` and ``.tail``.
 
 :func:`encode_ext_device_greedy` is the counterpart of the JAX package's
 ``encode_ext_device_greedy`` (its device-tables branch): kernel B5's cap-16
@@ -96,11 +102,13 @@ def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
     commit's (S, NP) int32 field planes, ``tables`` the four tables."""
     NP = dh_u8.shape[1]
     maxpat = compute_min_pattern_size(window, literal) + 131
-    rc = rc_u8.to(torch.int32)
-    bound, rk = derive_region_arrays(rc, window=window)
-    col = torch.arange(NP, dtype=torch.int32, device=dh_u8.device)
-    dh_sent = torch.where(col[None, :] < npos[:, None],
-                          dh_u8.to(torch.int32), 0x1FF)
+    dev = dh_u8.device
+    with trace.span("tamp.encode.plan", device=dev):
+        rc = rc_u8.to(torch.int32)
+        bound, rk = derive_region_arrays(rc, window=window)
+        col = torch.arange(NP, dtype=torch.int32, device=dev)
+        dh_sent = torch.where(col[None, :] < npos[:, None],
+                              dh_u8.to(torch.int32), 0x1FF)
     plen = pidx = None
     if lazy:
         *tabs, plen, pidx = ext_tables_probe(dh_u8, npos, dict_u8,
@@ -108,9 +116,10 @@ def ext_fields(dh_u8: torch.Tensor, rc_u8: torch.Tensor, npos: torch.Tensor,
     else:
         tabs = ext_tables(dh_u8, npos, dict_u8, window_bits=window,
                           LEXT=maxpat)
-    A, B = plan_fields_ext(dh_sent, *tabs, bound, rc, rk, window=window,
-                           literal=literal, dlast=int(dict_u8[-1]),
-                           plen=plen, pidx=pidx)
+    with trace.span("tamp.encode.plan", device=dev):
+        A, B = plan_fields_ext(dh_sent, *tabs, bound, rc, rk, window=window,
+                               literal=literal, dlast=int(dict_u8[-1]),
+                               plen=plen, pidx=pidx)
     return tuple(tabs), A, B
 
 
@@ -131,8 +140,19 @@ def ext_device_stage(dh_u8: torch.Tensor, rc_u8: torch.Tensor,
 def prepare_batch(datas, *, window: int):
     """Host prep of a batch: per-shard (plans, khat, dh, rc) from
     engine/greedy.host_ext_prep, one thread a shard, and the padded (S, NP)
-    uint8 model-byte and chunk-count planes plus (S,) npos."""
-    prep = per_shard(lambda i: host_ext_prep(datas[i], window), len(datas))
+    uint8 model-byte and chunk-count planes plus (S,) npos.  While tracing
+    is on, each shard is a span of its own and the bytes of its forced RLE
+    regions are counted."""
+    def shard(i: int):
+        with trace.span("tamp.encode.prep.shard", bytes=datas[i].nbytes):
+            out = host_ext_prep(datas[i], window)
+            if trace.enabled():
+                plans = out[0]
+                trace.count("encode.planned_bytes",
+                            int((plans[:, 1] - plans[:, 0]).sum()))
+            return out
+
+    prep = per_shard(shard, len(datas))
     S = len(prep)
     maxM = max(p[2].shape[0] for p in prep)
     NP = 1 << (max(maxM, TILE, 1) - 1).bit_length()
@@ -163,29 +183,46 @@ def encode_ext_device_commit(shards, *, window: int = 10, literal: int = 8,
     compute_min_pattern_size(window, literal)  # validates the config
     dev = resolve_device(device)
     dict_arr = window_array(window, literal, dictionary)
-    datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
-    S = len(datas)
-    if S == 0:
-        return []
-    prep, dh, rc, npos = prepare_batch(datas, window=window)
+    with trace.span("tamp.encode.prep"):
+        datas = [np.frombuffer(bytes(b), dtype=np.uint8) for b in shards]
+        S = len(datas)
+        if S == 0:
+            return []
+        prep, dh, rc, npos = prepare_batch(datas, window=window)
+        trace.count("encode.model_bytes", int(npos.sum()))
 
-    out, state = ext_device_stage(
-        torch.from_numpy(dh).to(dev), torch.from_numpy(rc).to(dev),
-        torch.from_numpy(npos).to(dev),
-        torch.from_numpy(dict_arr.copy()).to(dev), window=window,
-        literal=literal, lazy=lazy_matching)
-    state = state.cpu().numpy()
-    if (state[:, S_ERR] == ERR_EXCESS).any():
-        raise ExcessBitsError
-    if (state[:, S_ERR] != 0).any():
-        raise RuntimeError("commit walk stalled on malformed fields")
-    bodies = pull_body_bytes(out, state)
-    tails = ext_tails(datas, prep, state, window=window, literal=literal,
-                      lazy=lazy_matching, dict_arr=dict_arr)
-    (hv, _hn), = build_header(window, literal, dictionary is not None, True,
-                              False)
-    return [bytes([hv]) + body.tobytes() + tail
-            for body, tail in zip(bodies, tails)]
+    with trace.span("tamp.encode.h2d"):
+        dh_d = torch.from_numpy(dh).to(dev)
+        rc_d = torch.from_numpy(rc).to(dev)
+        npos_d = torch.from_numpy(npos).to(dev)
+        dict_d = torch.from_numpy(dict_arr.copy()).to(dev)
+        trace.count("encode.h2d_bytes", dh.nbytes + rc.nbytes + npos.nbytes
+                    + dict_arr.nbytes)
+    with trace.span("tamp.encode.device", device=dev):
+        out, state = ext_device_stage(dh_d, rc_d, npos_d, dict_d,
+                                      window=window, literal=literal,
+                                      lazy=lazy_matching)
+        # the inputs' device memory goes back before the pull
+        del dh_d, rc_d, npos_d, dict_d
+    with trace.span("tamp.encode.pull"):
+        state = state.cpu().numpy()
+        trace.count("encode.pull_bytes", state.nbytes)
+        if (state[:, S_ERR] == ERR_EXCESS).any():
+            raise ExcessBitsError
+        if (state[:, S_ERR] != 0).any():
+            raise RuntimeError("commit walk stalled on malformed fields")
+        bodies = pull_body_bytes(out, state)
+    with trace.span("tamp.encode.tail"):
+        tails = ext_tails(datas, prep, state, window=window, literal=literal,
+                          lazy=lazy_matching, dict_arr=dict_arr)
+        (hv, _hn), = build_header(window, literal, dictionary is not None,
+                                  True, False)
+        blobs = [bytes([hv]) + body.tobytes() + tail
+                 for body, tail in zip(bodies, tails)]
+        # the prep's host arrays (~6 bytes a byte of input) go back inside
+        # the span, not in the return's release of the locals
+        del prep
+        return blobs
 
 
 def ext_tails(datas, prep, state: np.ndarray, *, window: int, literal: int,

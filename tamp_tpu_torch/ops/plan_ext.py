@@ -141,7 +141,14 @@ def _plan_stage2(dh, last, avail, len16, idx16, lenx, idxx, bound, rle_c,
 
     # first-search result (boundary-capped, table idx kept)
     size1 = torch.clamp_max(torch.minimum(len16, bound), 16)
+    # A run stops at the next chunk start, as the committer's does.  The
+    # walk meets a run that reaches one only at position 0, in a shard that
+    # opens with a planned run of the dictionary's last byte (inside a
+    # region it visits chunk starts alone); the JAX package's planner lets
+    # the RLE token cross the chunk there and writes a stream that does not
+    # decode.
     total = avail
+    total[:, 0] = torch.minimum(total[:, 0], bound[:, 0])
     use_pattern = (total >= 2) & (total <= 6) & (size1 > total)
     do_rle = (total >= 2) & ~use_pattern
 

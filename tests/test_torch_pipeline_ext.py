@@ -68,6 +68,24 @@ def test_streams_match_jax_and_native(window, literal):
         assert bytes(_native.native_decompress(b)) == s
 
 
+@pytest.mark.parametrize("window,literal,run", [
+    (8, 8, 9), (8, 6, 40), (10, 8, 40), (10, 8, 300), (15, 8, 12)])
+def test_a_shard_opening_with_a_run_of_the_dictionary_byte(window, literal,
+                                                           run):
+    # the run stops at its first forced chunk, as the native committer's
+    # does; the JAX package's planner lets the RLE token cross the chunk
+    # here, and its stream does not decode
+    lmask = (1 << literal) - 1
+    dlast = int(dictionary_array(1 << window, literal=literal)[-1])
+    text = _shards(window + run, lmask)[0][:300]
+    shards = [bytes([dlast]) * run + text, bytes([dlast]) * run]
+    got = encode_ext_device_commit(shards, window=window, literal=literal,
+                                   device="cpu")
+    for s, b in zip(shards, got):
+        assert b == native_planned(s, window, literal)
+        assert bytes(_native.native_decompress(b)) == s
+
+
 def test_custom_dictionary_matches_jax():
     rng = np.random.default_rng(7)
     dictionary = bytes(rng.integers(97, 110, 1024).astype(np.uint8))

@@ -43,6 +43,8 @@ CASES = {
                                             device="cpu"),
     "v1": lambda d: shard.compress_sharded(d, shard_size=SHARD,
                                            extended=False, device="cpu"),
+    "planned": lambda d: shard.compress_sharded(
+        d, shard_size=SHARD, engine="device-commit", device="cpu"),
     "x2": lambda b: shard.decompress_sharded(b, workers=2, device="cpu"),
     "device": lambda b: shard.decompress_sharded_device(b, device="cpu"),
 }
@@ -58,20 +60,27 @@ ONCE = {
     "v1": ["tamp.compress_sharded", "tamp.encode.split", "tamp.encode.prep",
            "tamp.encode.history", "tamp.encode.h2d", "tamp.encode.device",
            "tamp.encode.pull", "tamp.encode.tail", "tamp.frame.pack"],
+    # the planner's two spans: the region planes and sentinel fill before
+    # B1, plan_fields_ext after it
+    "planned": ["tamp.compress_sharded", "tamp.encode.split",
+                "tamp.encode.prep", "tamp.encode.h2d", "tamp.encode.device",
+                "tamp.encode.plan", "tamp.encode.plan", "tamp.encode.pull",
+                "tamp.encode.tail", "tamp.frame.pack"],
     "x2": ["tamp.decompress_sharded", "tamp.frame.parse", "tamp.decode.h2d",
            "tamp.decode.kernel", "tamp.decode.d2h"],
     "device": ["tamp.decompress_sharded_device", "tamp.frame.parse",
                "tamp.decode.h2d", "tamp.decode.parse", "tamp.decode.kernel",
                "tamp.decode.d2h"],
 }
-PER_SHARD = {"ext": ["tamp.encode.commit.shard", "tamp.encode.tables"]}
+PER_SHARD = {"ext": ["tamp.encode.commit.shard", "tamp.encode.tables"],
+             "planned": ["tamp.encode.prep.shard"]}
 # the zeroed output, each group's bytes, each batch's slice copies
 COPIES = {"x2": 3, "device": 2}
 
 
 def _input(case: str):
     global CONTAINER
-    if case in ("ext", "v1"):
+    if case in ("ext", "v1", "planned"):
         return DATA
     if CONTAINER is None:
         CONTAINER = CASES["ext"](DATA)
@@ -141,10 +150,13 @@ def test_spans_carry_their_parent_and_their_call(traced):
         assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
         want = {"tamp.encode.tables": "tamp.encode.commit.shard",
                 "tamp.encode.commit.shard": "tamp.encode.commit",
-                "tamp.encode.history": "tamp.encode.prep"}
+                "tamp.encode.history": "tamp.encode.prep",
+                "tamp.encode.prep.shard": "tamp.encode.prep",
+                "tamp.encode.plan": "tamp.encode.device"}
         assert parent.name == want.get(s.name, ONCE[case][0]), s
     assert all(s.device_ms is None for s in snap.spans)  # no CUDA events
-    shards = [s for s in snap.spans if s.name == "tamp.encode.commit.shard"]
+    shards = [s for s in snap.spans if s.name in ("tamp.encode.commit.shard",
+                                                  "tamp.encode.prep.shard")]
     assert sorted(s.attrs["bytes"] for s in shards) == [SHARD] * len(shards)
 
 
@@ -159,16 +171,18 @@ def test_caller_thread_spans_are_profiler_annotations(traced):
                        and e["name"].startswith("tamp."))
     assert in_trace == on_caller
     # the committer's workers: kept by the module, not by the profiler
-    if case == "ext":
-        assert "tamp.encode.commit.shard" not in in_trace
+    worker = {"ext": "tamp.encode.commit.shard",
+              "planned": "tamp.encode.prep.shard"}.get(case)
+    if worker:
+        assert worker not in in_trace
         assert all(s.thread != roots[s.call] for s in snap.spans
-                   if s.name == "tamp.encode.commit.shard")
+                   if s.name == worker)
 
 
 def test_counters_of_a_call(traced):
     case, _, _, _, snap, _ = traced
     c = snap.counters
-    if case in ("ext", "v1"):
+    if case in ("ext", "v1", "planned"):
         assert c["encode.raw_bytes"] == 2 * len(DATA)
         assert c["encode.h2d_bytes"] > c["encode.raw_bytes"]
         assert 0 < c["encode.pull_bytes"]
@@ -177,6 +191,13 @@ def test_counters_of_a_call(traced):
         assert c["decode.copy_bytes"] == 2 * 2 * len(DATA)
         assert c["decode.d2h_bytes"] >= 2 * len(DATA)
         assert c["decode.h2d_bytes"] > 0
+    if case == "planned":
+        # the 300-byte run of "=": a forced region of 299 input bytes, of
+        # which the model keeps 8 + 8 (two chunks)
+        assert c["encode.planned_bytes"] == 2 * 299
+        assert c["encode.model_bytes"] == 2 * (len(DATA) - 299 + 16)
+    else:
+        assert "encode.planned_bytes" not in c
     if case == "ext":
         parts = [c[name] for name in COMMIT_STATS[1:]]
         assert c["commit.lookups"] == sum(parts) > 0
