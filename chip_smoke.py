@@ -101,7 +101,11 @@ Phases (any failure raises, and the script exits non-zero):
    ``TAMP_TPU_DECODE`` set to commit, chase and xla, and with
    ``algorithm="serial"``: the output equal to the input, the launch
    counts of that one decode (B8 and X1 on chase, X1 on xla, X2 on serial,
-   B4 on none of the three), and the rate; then the mesh layer: in a
+   B4 on none of the three), and the rate; then mode commit at the shapes
+   far from the cell's (COMMIT_SHAPES: one 4 KiB shard, window 15 on 64
+   shards): the output equal to the input, the call's ms and MB/s and
+   B4's device ms (its four launches, each once a wrapper call, counted
+   and timed in a child process, ``--b4-child``); then the mesh layer: in a
    world of one process (this one) ``make_mesh``, the search step on the
    corpus as (8, 1 MiB) at w10 l8 (B5 once, its tables equal to B5's plain
    version, the estimate to the plain tables'; its ms and a stage split)
@@ -167,9 +171,12 @@ Phases (any failure raises, and the script exits non-zero):
    walk steps (``steps``: planned-field steps, tokens, lazy-walk tokens,
    replay steps); X3 and X4 carry the edges their serial DP relaxes on
    the path's inputs (``edges``; their operation bound counts an add and
-   a min an edge); X4's three launches and X3's five are timed apart
-   (profiler; X4_LAUNCHES, X3_LAUNCHES; each row carries the profiler
-   traces its split took, ``launch_traces``, and the lag from the first
+   a min an edge); B4's four launches, X4's three and X3's five are timed
+   apart (profiler; B4_LAUNCHES, X4_LAUNCHES, X3_LAUNCHES; B4's in a child
+   process, ``--b4-child``, where each of its four kernels must run once a
+   wrapper call, its row carrying their sum, and its front's token count
+   must equal the walk's; X3's and X4's rows carry the profiler
+   traces their split took, ``launch_traces``, and the lag from the first
    launch call to the first kernel on the profiler's clocks,
    ``launch_lag_us``), X1 is timed alone beside its
    call (the call zero-fills the (S, T_max) output) and in ns a truncating
@@ -238,6 +245,17 @@ X4_LAUNCHES = {"pass 1": "pass1_ext", "combine": "combine_ext",
                "pass 2": "pass2_ext"}
 X3_LAUNCHES = {"pass 1": "v1_pass1", "groups": "v1_group", "scan": "v1_scan",
                "bounds": "v1_bounds", "pass 2": "v1_pass2"}
+# B4's four launches (every name holds "commit_decode_kernel", the
+# profiler's key for B4; the commit's alone is followed by its arguments)
+B4_LAUNCHES = {"maps": "commit_decode_kernel_maps",
+               "entries": "commit_decode_kernel_entries",
+               "pack": "commit_decode_kernel_pack",
+               "commit": "commit_decode_kernel("}
+B4_REPS = 5  # calls the B4 child times under the profiler a job
+B4_TIMEOUT_S = 300
+# phase 3's commit decodes at the shapes far from the cell's: (name,
+# shards, window); the corpus's first shards x 4 KiB, or the whole corpus
+COMMIT_SHAPES = (("1 x 4 KiB", 1, 10), ("w15, 64 shards", 64, 15))
 # X3's blocks and groups in phase 2: (shards, blocks a shard)
 X3_GROUP_CASES = ((1, 1), (1, 33), (203, 5), (13, 40))
 X1_HAZARD_S = (1, 7, 203)  # shards of X1's hazard rows in phase 2
@@ -2018,6 +2036,130 @@ def phase_decode_modes(dev, report, data, blobs, shard_size: int,
     return launches, rates
 
 
+def phase_commit_shapes(dev, report, data, card: str):
+    """Phase 3, mode commit at the shapes far from the cell's
+    (COMMIT_SHAPES): one 4 KiB shard, where B4's fixed launch costs weigh
+    most, and window 15 on 64 shards, where its ring is largest and its
+    front has the most shards.  Each container (``device-commit``, cut from
+    ``data``) decoded by ``decompress_sharded_device`` must give its input
+    back; reports the call's median ms and MB/s, B4's device ms a call
+    (every kernel whose name holds ``commit_decode_kernel``) and its
+    wrapper launches a call; B4's launches are counted and timed in a
+    short child process (:func:`b4_launches`).  Returns {name: (call ms,
+    B4 ms)}."""
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.parallel.shard import (
+        compress_sharded, decompress_sharded_device,
+    )
+
+    calls, jobs = {}, {}
+    for name, shards, window in COMMIT_SHAPES:
+        raw = data[: 4096 * shards] if shards == 1 else data
+        blob = compress_sharded(raw, window=window, device=dev,
+                                shard_size=-(-len(raw) // shards),
+                                engine="device-commit")
+        fn = lambda: decompress_sharded_device(blob, mode="commit",  # noqa
+                                               device=dev)
+        before = dc.commit_decode.launches
+        if bytes(fn()) != raw:
+            fail(f"commit decode {name}: the output differs from the input")
+        n = dc.commit_decode.launches - before
+        ms, _peak, _o = median_ms(dev, fn, reps=21 if shards == 1 else 7)
+        calls[name] = (len(raw), ms, n)
+        jobs[name] = dict(blob=blob)
+    out = {}
+    for name, split in b4_launches(jobs).items():
+        nbytes, ms, n = calls[name]
+        out[name] = (ms, sum(split.values()))
+        report(f"  commit decode {name}: {nbytes} bytes, {ms:.3f} ms a "
+               f"call ({nbytes / ms / 1e3:.2f} MB/s), B4 {out[name][1]:.4f}"
+               f" ms on the card, {n} B4 call(s) [{card}]")
+    return out
+
+
+def b4_launches(jobs: dict) -> dict:
+    """B4's four launches (B4_LAUNCHES) counted and timed by the profiler
+    in a short child process (``--b4-child``), where the trace holds every
+    kernel: in the smoke's own long process it misses most of them.  Each
+    job is dict(blob=container), decoded by ``decompress_sharded_device``
+    in mode commit, or dict(pk=words, d=dictionary, W=..., max_out=...,
+    min_bits=...), B4's wrapper on those words.  Fails unless each
+    of the four kernels runs once a wrapper call.  Returns {job: {launch:
+    device ms a job's call}}."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({k: {n: v.cpu() if torch.is_tensor(v) else v
+                        for n, v in job.items()} for k, job in jobs.items()},
+                   Path(tmp, "jobs.pt"))
+        try:
+            r = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--b4-child",
+                 tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, timeout=B4_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"the B4 child ran past {B4_TIMEOUT_S} s")
+        if r.returncode != 0:
+            fail(f"the B4 child exited {r.returncode}:\n{r.stdout[-4000:]}")
+        got = json.loads(Path(tmp, "b4.json").read_text())
+    out = {}
+    for name, res in got.items():
+        n = res["calls"]  # wrapper calls: one or more a job's call
+        if n < B4_REPS or n % B4_REPS or any(
+                c != n for c in res["counts"].values()):
+            fail(f"B4 ({name}): {n} wrapper calls and kernels "
+                 f"{res['counts']} in {B4_REPS} calls")
+        out[name] = {k: ms / B4_REPS for k, ms in res["ms"].items()}
+    return out
+
+
+def b4_child(tmp: str) -> int:
+    """``--b4-child DIR``: each job of DIR/jobs.pt (:func:`b4_launches`)
+    once to warm up, then B4_REPS times under the profiler; writes
+    DIR/b4.json: {job: {calls: wrapper calls, counts: {launch: kernels},
+    ms: {launch: device ms}}}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.parallel.shard import decompress_sharded_device
+
+    dev = torch.device("cuda")
+    res = {}
+    for name, job in torch.load(Path(tmp, "jobs.pt")).items():
+        if "blob" in job:
+            fn = lambda: decompress_sharded_device(  # noqa: E731
+                job["blob"], mode="commit", device=dev)
+        else:
+            pk, d = job["pk"].to(dev), job["d"].to(dev)
+            fn = lambda: dc._launch(  # noqa: E731
+                pk, d, d, W=job["W"], more=False, max_out=job["max_out"],
+                min_bits=job["min_bits"])
+        fn()
+        torch.cuda.synchronize()
+        before = dc.commit_decode.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(B4_REPS):
+                fn()
+            torch.cuda.synchronize()
+        counts = {k: 0 for k in B4_LAUNCHES}
+        ms = {k: 0.0 for k in B4_LAUNCHES}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for k, key in B4_LAUNCHES.items():
+                if key in e.name:
+                    counts[k] += 1
+                    ms[k] += (e.time_range.end - e.time_range.start) / 1e3
+        res[name] = dict(calls=dc.commit_decode.launches - before,
+                         counts=counts, ms=ms)
+    Path(tmp, "b4.json").write_text(json.dumps(res))
+    return 0
+
+
 def timed_stages(dev, stages: dict):
     """``timed(stage, fn)``: ``fn()`` between two synchronizes, its host
     ms appended to ``stages[stage]``."""
@@ -3061,7 +3203,7 @@ def phase_breakdown(dev, report, data, blob, shard_size: int, card: str,
         di = torch.from_numpy(dictionary_array(W, literal)).to(dev)
         out, lens, _e = timed("dec B4 commit_decode", lambda: dc._launch(
             pk, di, di, W=W, more=False,
-            max_out=dw._pow2_bucket(shard_size, 1024)))
+            max_out=dw._pow2_bucket(shard_size, 1024))[:3])
         timed("dec device->host", lambda: out[:, : int(lens.max())].cpu())
         del pk, out
     if framed != blob:
@@ -3569,7 +3711,19 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
     pk, tokens = stream_tokens(dev, blobs["extended"], window, literal, True)
     max_out = dw._pow2_bucket(shard_size, 1024)
     ms, got = cuda_ms(lambda: dc._launch(pk, dict_d, dict_d, W=W, more=False,
-                                         max_out=max_out))
+                                         max_out=max_out,
+                                         min_bits=1 + literal))
+    # the four launches counted (each once a wrapper call) and timed in a
+    # short child process, whose trace holds every kernel
+    split = b4_launches({"B4": dict(pk=pk, d=dict_d, W=W, max_out=max_out,
+                                    min_bits=1 + literal)})["B4"]
+    report("  B4 launches: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f", sum {sum(split.values()):.4f} ms; each once a call, "
+        f"{B4_REPS} calls in a child process [{card}]")
+    if int(got[3].sum()) != tokens:
+        fail(f"B4's front counted {int(got[3].sum())} tokens, the walk "
+             f"{tokens}")
     h0 = time.perf_counter()
     plain = dc.commit_decode_plain(pk, dict_d, dict_d, W=W, more=False,
                                    max_out=max_out)
@@ -3584,7 +3738,8 @@ def phase_kernel_times(dev, report, data, blobs, launches, dec_launches,
         mesh_launches=mesh_launches["decode commit"]["commit_decode"],
         max_abs_err=max_abs_err(zip(got, plain)), ms=ms, plain_ms=pms,
         steps=tokens,
-        bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes))
+        bytes=4 * tokens + 2 * W + out_bytes + 8 * S, ops=out_bytes,
+        launch_ms=split, launch_sum_ms=sum(split.values())))
     del pk, got, plain
 
     # B5: the v1 tables of the raw shards (the v1 path: cap 15, no probe)
@@ -4014,6 +4169,7 @@ def main() -> int:
            f"{len(modes_in['extended w15']) / len(data):.6f}")
     dec_launches, _rates = phase_decode_modes(
         dev, report, data, modes_in, DEFAULT_SHARD_SIZE, card)
+    phase_commit_shapes(dev, report, data, card)
     t1 = time.perf_counter()
     mesh_launches = phase_mesh(dev, report, data, blobs, card)
     phase_distributed(dev, report, data, blobs, card)
@@ -4067,4 +4223,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
         sys.exit(dist_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--b4-child"]:
+        sys.exit(b4_child(sys.argv[2]))
     sys.exit(main())

@@ -19,64 +19,236 @@
 // token from the first error on writes anything.  The output past out_len
 // stays zero (the wrapper zero-fills it).
 //
-// What bounds it on this card: the token chain (each token's start is the
-// previous start plus its bit length, one dependent shared-memory load a
-// token), not bytes and not operations: a shard is one chain, so the kernel
-// uses one SM a shard.  The first port also did every token's ring and
-// output bytes on that chain, one byte at a time.
+// What bounds it on this card.  Two serial chains a shard: the token chain
+// (each token's start is the previous start plus its bit length, one
+// dependent load a token) and the ring (each batch of tokens reads bytes
+// the batches before it wrote).  The first is only ordering: the next start
+// depends on the word at the current one alone, so c -> c + delta is a
+// function on bit positions and resolves tile-parallel, as B8 resolves its
+// chase.  The second is a warp's, paced by the latency of its dependent
+// instructions (~100 a batch of up to 32 tokens) and by the shared-memory
+// pipe, not by bytes.
 //
-// Design: one block of two warps per shard, and nothing on the chain but
-// the chain.
-//   - Warp 0, lane 0 (the chain): hops c += delta over parse words that the
-//     Tensor Memory Accelerator stages in shared memory, 4 tiles of 16 KiB in
-//     flight, issued by the same lane with one mbarrier a tile, so no block
-//     barrier falls in the walk.  It loads the next token's word before it
-//     books the current token, so the load's latency overlaps the
-//     bookkeeping.  Per token it keeps only what the chain needs (the output
-//     offset, the ring head, the errors, the FLUSH state) and pushes an
-//     8-byte record (kind, cnt, idx, ring head, ring bytes written) into a
-//     shared-memory queue; a double FLUSH pushes a reset record.
-//   - Warp 1 (the commit): drains the queue in batches of up to 32 records,
-//     one record a lane.  Prefix sums give each token's output offset and
-//     ring offset.  A batch ends before the first token whose source may
-//     hold a byte written earlier in the batch (a match range that meets the
-//     batch's ring writes so far, an RLE after any ring write), before a
-//     reset, before its ring writes would pass W bytes (no ring byte is
-//     written twice in a batch), and after a token that writes fewer ring
-//     bytes than output bytes (an RLE of more than 8, a token that reaches
-//     the ring end), so the batch's ring bytes are a prefix of its output.
-//     Phase 1: the batch's output bytes (literal, ring source, byte behind
-//     the head) from the ring as it was before the batch into an output
-//     stage, lane j the first 8 bytes of token j, the whole warp the rest of
-//     each longer token; that is the snapshot of every token at once.
-//     Phase 2: that prefix of the stage to the ring at the batch's head, a
-//     byte a lane.  A batch thus costs a few shared-memory latencies, not a
-//     few a byte.
-//   - The output stage (16 KiB, circular) goes to device memory in aligned
-//     16-byte stores once 4 KiB are pending, and at the end up to the next
-//     16-byte boundary with zeros past out_len.
-// Shared memory: the tiles (64 KiB), the queue (32 KiB), the stage
-// (16 KiB) and the ring (up to 32 KiB at window 15), so every window uses
-// this kernel.  NBP must be a multiple of 4 (the bulk copies move 16-byte
-// units; the parse's NBP is a multiple of 512) and the parse words 16-byte
-// aligned.  The TPU kernel's unified output-as-ring mode and SMEM output
-// chunks answer the TPU's SMEM size and DMA rules and are not carried over.
+// Design: four launches on the caller's stream.
+//   1. commit_decode_kernel_maps: per tile of ct parse words of each shard
+//      (NBP / 64, a power of two in [CT_MIN, CT]: a lane's walk is a tile
+//      long, so a small plane takes small tiles and its walks stay short),
+//      staged in shared memory, one lane for each of the tile's first SPAN
+//      bits walks the chain from there to its exit, the first position at
+//      or past the tile's end, counting the tokens and summing their steps
+//      (output bytes + ring bytes << 16) on the way.  A chain enters a tile
+//      at one of its first SPAN bits (delta <= 63), so only those maps are
+//      kept.  A map is (the exit's offset past the tile end | count << 8,
+//      or X_STOP where the chain met a word with delta 0, the walk's end
+//      mark, or NBP; the sum).
+//   2. commit_decode_kernel_entries: per shard, one lookup a tile over maps
+//      staged ENT_CHUNK tiles at a time gives each visited tile its entry
+//      bit, token offset and running sum (the prefixes), and the shard its
+//      token count T and visited tiles (a prefix of the row).
+//   3. commit_decode_kernel_pack: every visited tile walks its chain from
+//      its entry and writes each token's record, its word verbatim and the
+//      running sum before it, in order, into the shard's row of the compact
+//      plane recs (S, cap), then the stop word (delta 0) where the chain
+//      ends on one; the entries launch puts a zero at T for a chain that
+//      runs to NBP.
+//   4. commit_decode_kernel (the commit): a cluster of two CTAs a shard, a
+//      warp each, on two SMs, so that neither takes the other's
+//      shared-memory pipe.  Each stages the records with the Tensor Memory
+//      Accelerator, NST tiles of TW in flight, one mbarrier a tile.
+//      - The booking CTA cuts the records into batches of up to 32, one a
+//        lane, T known from the start.  A record's sum less the batch's
+//        first gives its output and ring offsets in the batch (each < 2^16,
+//        so the packed difference holds both): no prefix scan.  A batch
+//        ends before the first token whose source may hold a byte written
+//        earlier in the batch (a match range that meets the batch's ring
+//        writes so far, an RLE after any ring write), before a reset,
+//        before its ring writes would pass W bytes (no ring byte is written
+//        twice in a batch), and after a token that writes fewer ring bytes
+//        than output bytes (an RLE of more than 8, a token that reaches the
+//        ring end), so the batch's ring bytes are a prefix of its output;
+//        errors end the walk.  It hands each batch (its size or a reset or
+//        the end, its ring bytes, its head) to the copy CTA in groups of GS,
+//        a descriptor a lane in one st.async into the copy CTA's slots,
+//        which completes that group's mbarrier there; the copy CTA arrives
+//        on the booking CTA's mbarrier of a group once it has taken it.
+//      - The copy CTA, for each batch: phase 1, the batch's output bytes
+//        (literal, ring source, byte behind the head) from the ring as it
+//        was before the batch into an output stage, lane j the first
+//        LANE_BYTES bytes of token j, the warp the rest of each longer
+//        token, every lane's loads before a barrier and its stores after
+//        it (the snapshot of every token at once); phase 2, that prefix of
+//        the stage to the ring at the batch's head.  The output stage (16
+//        KiB, circular) goes to device memory in aligned 16-byte stores
+//        once 4 KiB are pending, and at the end up to the next 16-byte
+//        boundary with zeros past out_len.
+// Every launch's name holds "commit_decode_kernel", the profiler's key for
+// B4.  The commit's shared memory: the tiles (64 KiB), the stage (16 KiB)
+// and the ring (up to 32 KiB at window 15, and a pad the lanes' loads may
+// reach), so every window uses this kernel.  NBP must be a multiple of 4
+// (16-byte staging; the parse's NBP is a multiple of 512) and the parse
+// words 16-byte aligned.  The compact plane has cap slots a shard, an even
+// number: the caller's floor on a token's bits (1 + literal for a parse:
+// a literal; a match takes 2 + window bits, a FLUSH 9) bounds the chain to
+// NBP / floor + 1 tokens and its stop word.  A shard whose chain holds cap
+// tokens or more (a plane below its floor) is refused with ERR_INVALID and
+// decodes nothing; the pack writes no slot past cap.  The maps and the pack
+// take a block a (shard, tile), in one grid row (CUDA caps the others at
+// 65535 blocks).  The wrapper allocates the workspace (the records, the
+// maps, the entries, the counts).
+// The TPU kernel's unified output-as-ring mode and SMEM output chunks
+// answer the TPU's SMEM size and DMA rules and are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;        // warp 0: the chain; warp 1: the commit
-constexpr int TW = 4096;           // parse words per staged tile
+constexpr int CT = 4096;           // parse words a front tile, at most
+constexpr int CT_MIN = 512;        // and at least (a power of two between)
+constexpr int SPAN = 64;           // entry bits of a tile that keep a map
+constexpr int X_STOP = SPAN;       // map exit code past the offsets
+constexpr int MAP_THREADS = 128;
+constexpr int ENT_THREADS = 256;
+constexpr int ENT_CHUNK = 64;      // tiles whose maps are staged at once
+constexpr int PACK_THREADS = 128;
+constexpr int THREADS = 32;        // the commit: a warp a CTA, two a shard
+constexpr int GS = 32;             // batch descriptors a group
+constexpr int NG = 4;              // groups in flight
+constexpr int QK = NG * GS;        // batch descriptor slots
+constexpr int Q_RESET = 63, Q_END = 62;  // descriptor codes past a batch
+constexpr int TW = 2048;           // records (word, sum) a staged tile
 constexpr int NST = 4;             // tiles in flight
-constexpr int Q = 8192;            // queue words (a power of two)
 constexpr int OS = 16384;          // output stage bytes (a power of two)
 constexpr int FLUSH_AT = 4096;     // pending stage bytes that trigger a flush
-constexpr int CTRL = 128;          // mbarriers and queue counters
-constexpr int ERR_OOB = 2, ERR_OVERFLOW = 3;
+constexpr int CTRL = 384 + QK * 8;  // mbarriers, descriptor slots
+static_assert((NST + 2 * NG) * 8 <= 384, "the mbarriers pass their room");
+constexpr int LANE_BYTES = 12;     // bytes of its token a lane copies
+constexpr int RING_PAD = 16;       // ring bytes past W that lanes may read
+constexpr int ERR_INVALID = 1, ERR_OOB = 2, ERR_OVERFLOW = 3;
 constexpr int K_LIT = 0, K_MATCH = 1, K_RLE = 2, K_EXT = 3, K_FLUSH = 4;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int delta_of(int32_t p) { return (p >> 11) & 63; }
+
+// a token's output bytes + its ring bytes (before the ring end clamps them)
+// << 16: the step of the running sum that the front keeps beside each word
+__device__ __forceinline__ uint32_t sum_step(int32_t p) {
+  const int kind = p & 7, cnt = (p >> 3) & 0xFF;
+  if (kind == K_FLUSH) return 0;
+  const int a = kind == K_LIT ? 1 : kind == K_RLE ? min(cnt, 8) : cnt;
+  return (uint32_t)cnt + ((uint32_t)a << 16);
+}
+
+// tile[0 .. n) = src[0 .. n), n a multiple of 4, both 16-byte aligned
+__device__ __forceinline__ void stage_words(int32_t* tile,
+                                            const int32_t* __restrict__ src,
+                                            int n, int nthr) {
+  for (int i = threadIdx.x; i < n / 4; i += nthr)
+    reinterpret_cast<int4*>(tile)[i] = reinterpret_cast<const int4*>(src)[i];
+}
+
+__global__ void __launch_bounds__(MAP_THREADS)
+commit_decode_kernel_maps(const int32_t* __restrict__ pk,
+                          int2* __restrict__ maps, int NBP, int n_tiles,
+                          int ct) {
+  __shared__ __align__(16) int32_t tile[CT];
+  const int s = blockIdx.x / n_tiles, k = blockIdx.x % n_tiles;
+  const int base = k * ct;
+  const int end = min(base + ct, NBP);
+  stage_words(tile, pk + (size_t)s * NBP + base, end - base, MAP_THREADS);
+  __syncthreads();
+  if (threadIdx.x >= SPAN) return;
+  int c = base + threadIdx.x, cnt = 0;
+  uint32_t sum = 0;
+  while (c < end) {
+    const int32_t p = tile[c - base];
+    const int delta = delta_of(p);
+    if (delta == 0) break;  // the walk's end mark
+    ++cnt;
+    sum += sum_step(p);
+    c += delta;
+  }
+  // a chain leaves the tile < SPAN bits past its end (delta <= 63); the
+  // last tile's end is NBP, where the walk stops
+  const int x = c >= end && end < NBP ? c - end : X_STOP;
+  maps[((size_t)s * n_tiles + k) * SPAN + threadIdx.x] =
+      make_int2(x | cnt << 8, (int)sum);
+}
+
+__global__ void __launch_bounds__(ENT_THREADS)
+commit_decode_kernel_entries(const int2* __restrict__ maps,
+                             int32_t* __restrict__ ent,
+                             int32_t* __restrict__ tok,
+                             int2* __restrict__ recs, int cap,
+                             int n_tiles) {
+  __shared__ int2 m[ENT_CHUNK * SPAN];
+  __shared__ int stopped;
+  const int s = blockIdx.x;
+  const int2* m_row = maps + (size_t)s * n_tiles * SPAN;
+  // each visited tile's entry bit, token offset and running sum there
+  int32_t* e_row = ent + (size_t)s * 3 * n_tiles;
+  int k = 0, e = 0, total = 0;  // meaningful in thread 0
+  uint32_t sum = 0;
+  if (threadIdx.x == 0) stopped = 0;
+  for (int k0 = 0; k0 < n_tiles; k0 += ENT_CHUNK) {
+    const int nk = min(ENT_CHUNK, n_tiles - k0);
+    for (int i = threadIdx.x; i < nk * SPAN; i += ENT_THREADS)
+      m[i] = m_row[(size_t)k0 * SPAN + i];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (; k < k0 + nk && !stopped; ++k) {
+        e_row[k] = e;
+        e_row[n_tiles + k] = total;
+        e_row[2 * n_tiles + k] = (int)sum;
+        const int2 v = m[(k - k0) * SPAN + e];
+        total += v.x >> 8;
+        sum += (uint32_t)v.y;
+        e = v.x & 255;
+        stopped = e == X_STOP;
+      }
+    }
+    __syncthreads();  // the verdict, and m is free to be overwritten
+    if (stopped) break;
+  }
+  if (threadIdx.x == 0) {
+    tok[2 * s] = total;
+    tok[2 * s + 1] = k;  // tiles visited
+    // the end of a chain that runs to NBP; the pack overwrites it with the
+    // stop word where the chain ends on one
+    if (total < cap) recs[(size_t)s * cap + total] = make_int2(0, (int)sum);
+  }
+}
+
+__global__ void __launch_bounds__(PACK_THREADS)
+commit_decode_kernel_pack(const int32_t* __restrict__ pk,
+                          const int32_t* __restrict__ ent,
+                          const int32_t* __restrict__ tok,
+                          int2* __restrict__ recs, int NBP, int cap,
+                          int n_tiles, int ct) {
+  __shared__ __align__(16) int32_t tile[CT];
+  const int s = blockIdx.x / n_tiles, k = blockIdx.x % n_tiles;
+  const int base = k * ct;
+  if (k >= tok[2 * s + 1]) return;  // not visited
+  const int32_t* e_row = ent + (size_t)s * 3 * n_tiles;
+  const int e = e_row[k], from = e & ~3;
+  const int end = min(base + ct, NBP);
+  if (base + from < end)
+    stage_words(tile + from, pk + (size_t)s * NBP + base + from,
+                end - base - from, PACK_THREADS);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int2* r_row = recs + (size_t)s * cap;
+  int o = e_row[n_tiles + k];
+  uint32_t sum = (uint32_t)e_row[2 * n_tiles + k];
+  for (int c = base + e; c < end && o < cap;) {
+    const int32_t p = tile[c - base];
+    r_row[o++] = make_int2(p, (int)sum);
+    const int delta = delta_of(p);
+    if (delta == 0) break;
+    sum += sum_step(p);
+    c += delta;
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -118,287 +290,401 @@ __device__ __forceinline__ void tile_load(void* dst, const void* src,
       : "memory");
 }
 
-// ring[0 .. W) = src[0 .. W), by `nthr` threads from thread `tid`
+// ring[0 .. W) = src[0 .. W), by the warp
 __device__ __forceinline__ void ring_fill(uint8_t* ring,
                                           const uint8_t* __restrict__ src,
-                                          int W, int tid, int nthr) {
+                                          int W, int lane) {
   if (((uintptr_t)src & 15) == 0) {  // W >= 256, a multiple of 16
-    for (int i = tid * 16; i < W; i += nthr * 16)
+    for (int i = lane * 16; i < W; i += 32 * 16)
       *reinterpret_cast<uint4*>(ring + i) =
           *reinterpret_cast<const uint4*>(src + i);
   } else {
-    for (int i = tid; i < W; i += nthr) ring[i] = src[i];
+    for (int i = lane; i < W; i += 32) ring[i] = src[i];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-commit_decode_kernel(const int32_t* __restrict__ pk,
+// wait for phase `parity` of an mbarrier that the other CTA of the cluster
+// completes (its bytes or its arrivals); trap (a launch error, not a hang)
+// if it has not in ~2^31 cycles
+__device__ __forceinline__ void peer_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok = 0;
+  const long long t0 = clock64();
+  while (!ok) {
+    if (clock64() - t0 > (1ll << 31)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// the address of `p` (in this CTA's shared memory) in the CTA `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a = smem_addr(p);
+  asm volatile("mapa.shared::cluster.u32 %0, %0, %1;\n" : "+r"(a) : "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS)
+commit_decode_kernel(const int2* __restrict__ recs,
+                     const int32_t* __restrict__ tok,
                      const uint8_t* __restrict__ dict_init,
                      const uint8_t* __restrict__ dict_reset,
                      uint8_t* __restrict__ out, int32_t* __restrict__ lens,
-                     int32_t* __restrict__ errs, int NBP, int wbits,
+                     int32_t* __restrict__ errs, int cap, int wbits,
                      int more, int max_out) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);              // [NST]
-  volatile int* head_v = reinterpret_cast<volatile int*>(smem + 64);
-  volatile int* tail_v = head_v + 1;  // records the commit has taken
-  volatile int* fin_v = head_v + 2;   // the chain has published its last
-  volatile int* stop_v = head_v + 3;  // the commit has met the walk's end
-  int32_t* tiles = reinterpret_cast<int32_t*>(smem + CTRL);        // [NST][TW]
-  int32_t* queue = tiles + NST * TW;                               // [Q]
-  uint8_t* stage = reinterpret_cast<uint8_t*>(queue + Q);          // [OS]
-  uint8_t* ring = stage + OS;                                      // [W]
+  // the copy CTA's: each group of 32 batch descriptors arrives there by
+  // st.async and completes its mbarrier; the booking CTA's: the copy CTA
+  // arrives on one when it has taken a group, so its slots are free
+  uint64_t* full = bars + NST;                                     // [NG]
+  uint64_t* empty = full + NG;                                     // [NG]
+  int2* kq = reinterpret_cast<int2*>(smem + 384);                  // [QK]
+  int2* tiles = reinterpret_cast<int2*>(smem + CTRL);              // [NST][TW]
+  uint8_t* stage = reinterpret_cast<uint8_t*>(tiles + NST * TW);   // [OS]
+  uint8_t* ring = stage + OS;                            // [W + RING_PAD]
   const int W = 1 << wbits;
   const int M = W - 1;
-  const int s = blockIdx.x;
-  const int32_t* row = pk + (size_t)s * NBP;
-  uint8_t* o_row = out + (size_t)s * max_out;
-
-  ring_fill(ring, dict_init, W, threadIdx.x, THREADS);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NST; ++i) mbar_init(&bars[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    *head_v = 0;
-    *tail_v = 0;
-    *fin_v = 0;
-    *stop_v = 0;
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    // ---- the chain: push the word of every token start, nothing else ----
-    const int n_tiles = (NBP + TW - 1) / TW;
-    int issued = 0;
-    for (; issued < n_tiles && issued < NST; ++issued)
-      tile_load(tiles + issued * TW, row + (size_t)issued * TW,
-                (uint32_t)min(TW, NBP - issued * TW) * 4, &bars[issued]);
-    int k = 0, tend = 0, toff = 0, n = 0, pub = 0, c = 0;
-    int32_t p = 0;  // the word at c
-    if (n_tiles > 0) {
-      mbar_wait(&bars[0], 0);
-      tend = min(TW, NBP);
-      p = tiles[0];
-    }
-    while (n_tiles > 0) {
-      if (n - pub >= 32) {  // publish; wait for room for the next 40
-        __threadfence_block();
-        *head_v = pub = n;
-        while (n + 40 - *tail_v > Q && !*stop_v) {
-        }
-        if (*stop_v) break;
-      }
-      if (c + 4 * 63 < tend) {
-        // four hops inside the tile: no tile check, one end check; a word
-        // with delta 0 repeats and the commit stops at its first copy
-        int low = 63;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          queue[(n + u) & (Q - 1)] = p;
-          const int delta = (p >> 11) & 63;
-          low = min(low, delta);
-          c += delta;
-          p = tiles[c + toff];
-        }
-        n += 4;
-        if (low == 0) break;
-        continue;
-      }
-      queue[n++ & (Q - 1)] = p;  // one hop, across a tile edge or the end
-      const int delta = (p >> 11) & 63;
-      c += delta;
-      if (delta == 0 || c >= NBP) break;
-      if (c >= tend) {
-        // tile k is read: its stage takes tile k + NST; go on in tile k + 1
-        if (issued < n_tiles) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          const int st = issued % NST;
-          tile_load(tiles + st * TW, row + (size_t)issued * TW,
-                    (uint32_t)min(TW, NBP - issued * TW) * 4, &bars[st]);
-          ++issued;
-        }
-        ++k;
-        mbar_wait(&bars[k % NST], (uint32_t)(k / NST) & 1);
-        tend = min(k * TW + TW, NBP);
-        toff = (k % NST) * TW - k * TW;
-      }
-      p = tiles[c + toff];
-    }
-    for (int j = k + 1; j < issued; ++j)  // no copy may land after exit
-      mbar_wait(&bars[j % NST], (uint32_t)(j / NST) & 1);
-    __threadfence_block();
-    *head_v = n;
-    __threadfence_block();
-    *fin_v = 1;
-    return;
-  }
-  if (threadIdx.x < 32) return;
-
-  // ---- the commit: book and copy the tokens, 32 records a batch ----
-  const int lane = threadIdx.x & 31;
-  const bool vec = (max_out & 15) == 0 && ((uintptr_t)o_row & 15) == 0;
-  int done = 0, out_pos = 0, flushed = 0, head_pos = 0, lwf = 0, err = 0;
-
-  auto flush = [&](int end) {  // stage bytes [flushed, end) to the row
-    if (vec) {
-      for (int o = flushed + 16 * lane; o < end; o += 512)
-        *reinterpret_cast<uint4*>(o_row + o) =
-            *reinterpret_cast<const uint4*>(stage + (o & (OS - 1)));
-    } else {
-      for (int o = flushed + lane; o < end; o += 32)
-        o_row[o] = stage[o & (OS - 1)];
-    }
-    flushed = end;
-    __syncwarp();
+  const int s = blockIdx.x >> 1;
+  const int booking = (blockIdx.x & 1) == 0;  // the cluster's rank 0
+  const int lane = threadIdx.x;
+  // the shard's tokens, all complete; a chain past its slots is refused
+  const bool refused = tok[2 * s] >= cap;
+  const int n = refused ? 0 : tok[2 * s];
+  const int2* r_row = recs + (size_t)s * cap;
+  const int n_tw = (n + TW - 1) / TW;
+  const int n2 = (n + 1) & ~1;  // <= cap: whole 16-byte units
+  auto issue = [&](int j) {     // lane 0: stage tile j of the records
+    tile_load(tiles + (j % NST) * TW, r_row + (size_t)j * TW,
+              (uint32_t)min(TW, n2 - j * TW) * 8, &bars[j % NST]);
   };
 
-  for (;;) {
-    int head = __shfl_sync(FULL, lane == 0 ? *head_v : 0, 0);
-    if (head == done) {
-      if (!__shfl_sync(FULL, lane == 0 ? *fin_v : 0, 0)) continue;
-      head = __shfl_sync(FULL, lane == 0 ? *head_v : 0, 0);
-      if (head == done) break;  // the chain ran to NBP
-    }
-    __threadfence_block();
-    const int nrec = min(32, head - done);
-    const bool real = lane < nrec;
-    const int32_t w = real ? queue[(done + lane) & (Q - 1)] : 0;
-    const bool end = real && ((w >> 11) & 63) == 0;  // incomplete: stop
-    const bool live = real && !end;
-    const int kind = w & 7;
-    const bool fl = live && kind == K_FLUSH;
-    const int cnt = live && !fl ? (w >> 3) & 0xFF : 0;
-    const int idx = (w >> 17) & M;
-    const int prev_fl = __shfl_up_sync(FULL, (int)fl, 1);
-    const bool reset = fl && more && (lane == 0 ? lwf : prev_fl);
-    if (__shfl_sync(FULL, (int)reset, 0)) {
-      ring_fill(ring, dict_reset, W, lane, 32);  // double FLUSH
-      __syncwarp();
-      head_pos = 0;
-      lwf = 1;
-      done += 1;
-      if (lane == 0) *tail_v = done;
-      continue;
-    }
-    // ring bytes a token writes if it does not reach the ring end
-    const bool clamp = kind == K_EXT || kind == K_RLE;
-    const int a = !live || fl ? 0
-                  : kind == K_LIT ? 1
-                  : kind == K_RLE ? min(cnt, 8)
-                                  : cnt;
-    int oin = cnt, ain = a;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int x = __shfl_up_sync(FULL, oin, d);
-      const int y = __shfl_up_sync(FULL, ain, d);
-      if (lane >= d) {
-        oin += x;
-        ain += y;
-      }
-    }
-    const int oex = oin - cnt, rex = ain - a;
-    // exact up to the batch's first token that reaches the ring end
-    const int pos = (head_pos + rex) & M;
-    const int wr = live && clamp && pos + a >= W ? W - pos : a;
-    // a token that writes fewer ring bytes than output bytes (one that
-    // reaches the ring end, an RLE of more than 8) ends the batch, so the
-    // batch's ring bytes are a prefix of its output
-    const unsigned pmask = __ballot_sync(FULL, wr < cnt);
-    // the walk stops at a trailing incomplete token or an error
-    const bool is_m = kind == K_MATCH || kind == K_EXT;
-    int e = live && !fl && is_m && idx + cnt > W ? ERR_OOB : 0;
-    if (live && !fl && out_pos + oin > max_out) e = ERR_OVERFLOW;
-    const unsigned smask = __ballot_sync(FULL, end || e != 0);
-    // the batch ends before a token whose source may hold a byte written
-    // earlier in the batch, [head_pos, head_pos + rex) mod W
-    bool cut = !real || reset || rex + wr > W ||
-               (pmask & ((1u << lane) - 1)) != 0;
-    if (is_m)
-      cut |= rex > 0 && (((idx - head_pos) & M) < rex ||
-                         ((head_pos - idx) & M) < cnt);
-    else if (kind == K_RLE)
-      cut |= rex > 0;
-    const unsigned cmask = __ballot_sync(FULL, cut) & ~1u;
-    const int kc = cmask ? __ffs(cmask) - 1 : 32;
-    const int ks = smask ? __ffs(smask) - 1 : 32;
-    const int kk = min(kc, ks);
-    if (kk > 0) {
-      const int rb = ring[(pos - 1) & M];  // an RLE token's byte
-      // phase 1: the batch's output bytes from the ring as it was before
-      // the batch (loads first: the stage never aliases the ring); lane j
-      // copies the first 8 bytes of token j, the warp the rest of each
-      // longer token
-      if (lane < kk) {
-        uint8_t v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          v[u] = kind == K_LIT   ? (uint8_t)idx
-                 : kind == K_RLE ? (uint8_t)rb
-                 : u < cnt       ? ring[idx + u]
-                                 : 0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (u < cnt) stage[(out_pos + oex + u) & (OS - 1)] = v[u];
-      }
-      for (unsigned lm = __ballot_sync(FULL, lane < kk && cnt > 8); lm;
-           lm &= lm - 1) {
-        const int j = __ffs(lm) - 1;
-        const int kj = __shfl_sync(FULL, kind, j);
-        const int ij = __shfl_sync(FULL, idx, j);
-        const int cj = __shfl_sync(FULL, cnt, j);
-        const int oj = __shfl_sync(FULL, out_pos + oex, j);
-        const int bj = __shfl_sync(FULL, rb, j);
-        for (int m = 8 + lane; m < cj; m += 32)
-          stage[(oj + m) & (OS - 1)] =
-              kj == K_RLE ? (uint8_t)bj : ring[ij + m];
-      }
-      __syncwarp();
-      // phase 2: the batch's first nr output bytes to the ring at its head
-      const int nr = __shfl_sync(FULL, rex + wr, kk - 1);
-      for (int r = lane; r < nr; r += 32)
-        ring[(head_pos + r) & M] = stage[(out_pos + r) & (OS - 1)];
-      __syncwarp();
-      out_pos += __shfl_sync(FULL, oin, kk - 1);
-      head_pos = (__shfl_sync(FULL, pos + wr, kk - 1)) & M;
-      lwf = __shfl_sync(FULL, (int)fl, kk - 1);
-      done += kk;
-      if (lane == 0) *tail_v = done;
-      if (out_pos - flushed >= FLUSH_AT) flush(out_pos & ~15);
-    }
-    if (ks < 32 && kk == ks) {  // the walk ends here
-      err = __shfl_sync(FULL, e, ks);
-      if (lane == 0) *stop_v = 1;
-      break;
-    }
-  }
-  // the last bytes, zero-padded to a 16-byte boundary
-  const int last = vec ? (out_pos + 15) & ~15 : out_pos;
-  for (int o = out_pos + lane; o < last; o += 32) stage[o & (OS - 1)] = 0;
-  __syncwarp();
-  flush(last);
+  if (!booking) ring_fill(ring, dict_init, W, lane);
+  int issued = min(n_tw, NST);
   if (lane == 0) {
-    lens[s] = out_pos;
-    errs[s] = err;
+    for (int i = 0; i < NST; ++i) mbar_init(&bars[i]);
+    for (int i = 0; i < NG; ++i) {
+      mbar_init(&full[i]);
+      mbar_init(&empty[i]);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (!booking)
+      for (int i = 0; i < NG; ++i) expect_bytes(&full[i], GS * 8);
+    for (int j = 0; j < issued; ++j) issue(j);
   }
+  __syncwarp();
+  // every barrier of both CTAs is set up before either touches the other
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+
+  int done = 0, ready = 0, out_pos = 0;
+  // tiles wholly behind `done` are read: their stages take the next ones
+  auto stage_ahead = [&]() {
+    for (; issued < n_tw && issued - NST < done / TW; ++issued) {
+      if (lane == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(issued);
+      }
+      __syncwarp();
+    }
+  };
+  auto wait_tiles = [&](int last) {  // tiles up to `last` have landed
+    for (; ready <= last; ++ready)
+      mbar_wait(&bars[ready % NST], (uint32_t)(ready / NST) & 1);
+  };
+
+  if (booking) {
+    // ---- the booking CTA: cut the records into batches, in order ----
+    int head_pos = 0, lwf = 0, err = 0, q = 0;
+    int2 mine = make_int2(0, 0);  // lane j < GS: the open group's j-th
+    int2 rec = make_int2(0, 0);   // the batch's records, one a lane
+    uint32_t base = 0;            // the running sum at the batch's first
+    bool have = false;  // rec and base hold them (read during the last one)
+    // group g's GS descriptors, one a lane, into the copy CTA's slots of
+    // group g % NG once it has taken group g - NG from them
+    auto send = [&](int g) {
+      if (g >= NG) peer_wait(&empty[g % NG], (uint32_t)(g / NG - 1) & 1);
+      const uint32_t dst = peer_addr(&kq[(g % NG) * GS + lane % GS], 1);
+      const uint32_t bar = peer_addr(&full[g % NG], 1);
+      asm volatile(
+          "{\n .reg .pred p;\n setp.lt.s32 p, %4, %5;\n"
+          " @p st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 "
+          "[%0], {%1, %2}, [%3];\n}\n" ::"r"(dst),
+          "r"(mine.x), "r"(mine.y), "r"(bar), "r"(lane), "n"(GS)
+          : "memory");
+    };
+    auto publish = [&](int kk, int nr) {  // batch q: kk (or a code), nr
+      if (lane == q % GS) mine = make_int2(kk | nr << 6, head_pos);
+      if (++q % GS == 0) send(q / GS - 1);
+    };
+    while (done < n) {
+      stage_ahead();
+      const int nrec = min(32, n - done);
+      const bool live = lane < nrec;
+      if (!have) {
+        wait_tiles((done + nrec - 1) / TW);
+        if (live) rec = tiles[(done + lane) & (NST * TW - 1)];
+        base = (uint32_t)tiles[done & (NST * TW - 1)].y;
+      }
+      have = false;
+      const int32_t w = live ? rec.x : 0;
+      const int kind = w & 7;
+      const bool fl = live && kind == K_FLUSH;
+      const int cnt = live && !fl ? (w >> 3) & 0xFF : 0;
+      const int idx = (w >> 17) & M;
+      const unsigned flm = __ballot_sync(FULL, fl);
+      const bool reset =
+          fl && more && (lane == 0 ? lwf : (flm >> (lane - 1)) & 1);
+      if (__ballot_sync(FULL, reset) & 1) {  // double FLUSH
+        publish(Q_RESET, 0);
+        head_pos = 0;
+        lwf = 1;
+        done += 1;
+        continue;
+      }
+      // ring bytes a token writes if it does not reach the ring end
+      const bool clamp = kind == K_EXT || kind == K_RLE;
+      const int a0 = kind == K_LIT ? 1 : kind == K_RLE ? min(cnt, 8) : cnt;
+      const int a = live && !fl ? a0 : 0;
+      // each token's output and ring offsets in the batch, from the running
+      // sum of (output bytes + ring bytes << 16) that the front keeps
+      // beside its word: a batch's differences are < 2^16 each
+      const uint32_t d = (uint32_t)rec.y - base;
+      const int oex = live ? (int)(d & 0xFFFF) : 0;
+      const int rex = live ? (int)(d >> 16) : 0;
+      const int oin = oex + cnt;
+      // exact up to the batch's first token that reaches the ring end
+      const int pos = (head_pos + rex) & M;
+      const int wr = live && clamp && pos + a >= W ? W - pos : a;
+      // a token that writes fewer ring bytes than output bytes (one that
+      // reaches the ring end, an RLE of more than 8) ends the batch, so the
+      // batch's ring bytes are a prefix of its output
+      const unsigned pmask = __ballot_sync(FULL, wr < cnt);
+      // the walk stops at an error
+      const bool is_m = kind == K_MATCH || kind == K_EXT;
+      int e = live && !fl && is_m && idx + cnt > W ? ERR_OOB : 0;
+      if (live && !fl && out_pos + oin > max_out) e = ERR_OVERFLOW;
+      const unsigned smask = __ballot_sync(FULL, e != 0);
+      // the batch ends before a token whose source may hold a byte written
+      // earlier in the batch, [head_pos, head_pos + rex) mod W
+      bool cut = !live || reset || rex + wr > W ||
+                 (pmask & ((1u << lane) - 1)) != 0;
+      if (is_m)
+        cut |= rex > 0 && (((idx - head_pos) & M) < rex ||
+                           ((head_pos - idx) & M) < cnt);
+      else if (kind == K_RLE)
+        cut |= rex > 0;
+      const unsigned cmask = __ballot_sync(FULL, cut) & ~1u;
+      const int kc = cmask ? __ffs(cmask) - 1 : 32;
+      const int ks = smask ? __ffs(smask) - 1 : 32;
+      const int kk = min(kc, ks);
+      if (kk > 0) {
+        // the next batch's records, read while this one is handed over,
+        // where their tiles have landed
+        const int nd = done + kk, nn = min(32, n - nd);
+        have = nd < n && (nd + nn - 1) / TW < ready;
+        int2 rn = make_int2(0, 0);
+        uint32_t bn = 0;
+        if (have) {
+          if (lane < nn) rn = tiles[(nd + lane) & (NST * TW - 1)];
+          bn = (uint32_t)tiles[nd & (NST * TW - 1)].y;
+        }
+        const int nr = __shfl_sync(FULL, rex + wr, kk - 1);
+        const int ob = __shfl_sync(FULL, oin, kk - 1);
+        const int hp = __shfl_sync(FULL, pos + wr, kk - 1) & M;
+        publish(kk, nr);
+        out_pos += ob;
+        head_pos = hp;
+        lwf = (flm >> (kk - 1)) & 1;
+        done += kk;
+        rec = rn;
+        base = bn;
+      }
+      if (ks < 32 && kk == ks) {  // the walk ends here
+        err = __shfl_sync(FULL, e, ks);
+        break;
+      }
+    }
+    publish(Q_END, 0);
+    if (q % GS) send(q / GS);  // the last, open group
+    wait_tiles(issued - 1);    // no copy may land after exit
+    if (lane == 0) errs[s] = refused ? ERR_INVALID : err;
+  } else {
+    // ---- the copy CTA: each batch's bytes to the stage and the ring ----
+    uint8_t* o_row = out + (size_t)s * max_out;
+    const bool vec = (max_out & 15) == 0 && ((uintptr_t)o_row & 15) == 0;
+    int flushed = 0;
+    auto flush = [&](int end) {  // stage bytes [flushed, end) to the row
+      if (vec) {
+        for (int o = flushed + 16 * lane; o < end; o += 512)
+          *reinterpret_cast<uint4*>(o_row + o) =
+              *reinterpret_cast<const uint4*>(stage + (o & (OS - 1)));
+      } else {
+        for (int o = flushed + lane; o < end; o += 32)
+          o_row[o] = stage[o & (OS - 1)];
+      }
+      flushed = end;
+      __syncwarp();
+    };
+    for (int q = 0;; ++q) {
+      const int g = q / GS;
+      if (q % GS == 0) peer_wait(&full[g % NG], (uint32_t)(g / NG) & 1);
+      const int2 dq = kq[q & (QK - 1)];
+      const int kk = dq.x & 63, nr = dq.x >> 6, head = dq.y;
+      if (out_pos - flushed >= FLUSH_AT) flush(out_pos & ~15);
+      if (kk == Q_END) break;
+      if (kk == Q_RESET) {
+        ring_fill(ring, dict_reset, W, lane);
+        __syncwarp();
+        done += 1;
+      } else {
+        stage_ahead();
+        wait_tiles((done + kk - 1) / TW);
+        const bool live = lane < kk;
+        const int2 rec = tiles[(done + lane) & (NST * TW - 1)];
+        const uint32_t base = (uint32_t)tiles[done & (NST * TW - 1)].y;
+        const int32_t w = rec.x;
+        const int kind = w & 7;
+        const int cnt = live && kind != K_FLUSH ? (w >> 3) & 0xFF : 0;
+        const int idx = (w >> 17) & M;
+        const uint32_t d = (uint32_t)rec.y - base;
+        const int oex = (int)(d & 0xFFFF), rex = (int)(d >> 16);
+        const int pos = (head + rex) & M;
+        const int rb = ring[(pos - 1) & M];  // an RLE token's byte
+        // phase 1: the batch's output bytes from the ring as it was before
+        // the batch into the stage; lane j the first LANE_BYTES bytes of
+        // token j, the warp the rest of each longer token.  The loads are
+        // unconditional (the ring's pad holds the reads past its end) and
+        // all come before the barrier, the stores after it: a load under a
+        // branch, or after a store the compiler cannot tell from the ring,
+        // waits out the latency of the one before
+        const int cl = min(cnt, LANE_BYTES);
+        const bool is_src = kind == K_MATCH || kind == K_EXT;
+        const uint8_t fill = kind == K_LIT ? (uint8_t)idx : (uint8_t)rb;
+        uint8_t v[LANE_BYTES];
+#pragma unroll
+        for (int u = 0; u < LANE_BYTES; ++u) {
+          const uint8_t x = ring[idx + u];
+          v[u] = is_src ? x : fill;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < LANE_BYTES; ++u)
+          if (u < cl) stage[(out_pos + oex + u) & (OS - 1)] = v[u];
+        for (unsigned lm = __ballot_sync(FULL, cnt > LANE_BYTES); lm;
+             lm &= lm - 1) {
+          const int j = __ffs(lm) - 1;
+          const int kj = __shfl_sync(FULL, kind, j);
+          const int ij = __shfl_sync(FULL, idx, j);
+          const int cj = __shfl_sync(FULL, cnt, j);
+          const int oj = __shfl_sync(FULL, out_pos + oex, j);
+          const int bj = __shfl_sync(FULL, rb, j);
+          for (int m = LANE_BYTES + lane; m < cj; m += 32)
+            stage[(oj + m) & (OS - 1)] =
+                kj == K_RLE ? (uint8_t)bj : ring[ij + m];
+        }
+        __syncwarp();
+        // phase 2: the batch's first nr output bytes to the ring at its
+        // head, 96 a round, loads before stores
+        for (int r0 = 0; r0 < nr; r0 += 96) {
+          uint8_t b[3];
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            const int r = r0 + lane + 32 * u;
+            b[u] = r < nr ? stage[(out_pos + r) & (OS - 1)] : 0;
+          }
+          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            const int r = r0 + lane + 32 * u;
+            if (r < nr) ring[(head + r) & M] = b[u];
+          }
+        }
+        __syncwarp();
+        out_pos += __shfl_sync(FULL, oex + cnt, kk - 1);
+        done += kk;
+      }
+      if (q % GS == GS - 1 && lane == 0) {
+        // group g is taken: its slots wait for group g + NG
+        expect_bytes(&full[g % NG], GS * 8);
+        asm volatile(
+            "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+            ::"r"(peer_addr(&empty[g % NG], 0))
+            : "memory");
+      }
+    }
+    wait_tiles(issued - 1);  // no copy may land after exit
+    // the last bytes, zero-padded to a 16-byte boundary
+    const int last = vec ? (out_pos + 15) & ~15 : out_pos;
+    for (int o = out_pos + lane; o < last; o += 32) stage[o & (OS - 1)] = 0;
+    __syncwarp();
+    flush(last);
+    if (lane == 0) lens[s] = out_pos;
+  }
+  // neither CTA leaves while the other may still reach its memory
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 }  // namespace
 
+// ct: parse words a front tile, a power of two in [CT_MIN, CT]; cap: the
+// records' slots a shard, even; recs (S, cap) int2, maps (S, n_tiles, SPAN)
+// int2, ent (S, 3, n_tiles) and
+// tok (S, 2) int32 are the wrapper's workspace: the compact token records
+// (word, running sum), each tile's exit maps, each visited tile's entry
+// bit, token offset and running sum, and per shard (tokens, tiles visited)
 extern "C" int tpt_commit_decode(const void* pk, const void* dict_init,
                                  const void* dict_reset, void* out,
-                                 void* lens, void* errs, int S, int NBP,
-                                 int wbits, int more, int max_out,
-                                 void* stream) {
-  if (NBP % 4 != 0 || ((uintptr_t)pk & 15) != 0)
+                                 void* lens, void* errs, void* recs,
+                                 void* maps, void* ent, void* tok, int S,
+                                 int NBP, int cap, int ct, int wbits,
+                                 int more, int max_out, void* stream) {
+  if (NBP % 4 != 0 || ((uintptr_t)pk & 15) != 0 ||
+      ((uintptr_t)recs & 15) != 0 || ct < CT_MIN || ct > CT ||
+      (ct & (ct - 1)) != 0 || cap < 2 || cap % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = CTRL + (size_t)NST * TW * 4 + (size_t)Q * 4 + OS +
-                      ((size_t)1 << wbits);
-  cudaError_t e = cudaFuncSetAttribute(
-      commit_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (S == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (NBP + ct - 1) / ct;
+  // a block a (shard, tile) in grid row x, which holds 2^31 - 1 blocks
+  if ((long long)S * n_tiles > 0x7FFFFFFF || S > 0x3FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0)
+    commit_decode_kernel_maps<<<S * n_tiles, MAP_THREADS, 0, st>>>(
+        (const int32_t*)pk, (int2*)maps, NBP, n_tiles, ct);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  commit_decode_kernel<<<S, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)pk, (const uint8_t*)dict_init,
+  commit_decode_kernel_entries<<<S, ENT_THREADS, 0, st>>>(
+      (const int2*)maps, (int32_t*)ent, (int32_t*)tok, (int2*)recs, cap,
+      n_tiles);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (n_tiles > 0)
+    commit_decode_kernel_pack<<<S * n_tiles, PACK_THREADS, 0, st>>>(
+        (const int32_t*)pk, (const int32_t*)ent, (const int32_t*)tok,
+        (int2*)recs, NBP, cap, n_tiles, ct);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const size_t smem =
+      CTRL + (size_t)NST * TW * 8 + OS + ((size_t)1 << wbits) + RING_PAD;
+  e = cudaFuncSetAttribute(commit_decode_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  commit_decode_kernel<<<2 * S, THREADS, smem, st>>>(
+      (const int2*)recs, (const int32_t*)tok, (const uint8_t*)dict_init,
       (const uint8_t*)dict_reset, (uint8_t*)out, (int32_t*)lens,
-      (int32_t*)errs, NBP, wbits, more, max_out);
+      (int32_t*)errs, cap, wbits, more, max_out);
   return (int)cudaGetLastError();
 }

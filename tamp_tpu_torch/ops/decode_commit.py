@@ -13,7 +13,14 @@ uint8 (zero past each length), lengths (S,) and error codes (S,) int32.
 Window-write rules (reference decompressor): basic matches write fully
 with wrap; RLE writes at most 8 bytes and never wraps; extended matches
 never wrap; a double FLUSH on a ``more`` stream resets the ring to
-``dict_reset``.  The CUDA kernel is ``csrc/decode_commit.cu``.
+``dict_reset``.  The CUDA kernel is ``csrc/decode_commit.cu``: a
+tile-parallel front finds each shard's token words (exit maps over tiles of
+:func:`front_tile` bits, one lookup a tile, every visited tile packing its
+own words beside their running sums: :func:`commit_token_words_plain` and
+:func:`front_sums_plain` are its plain version), then a cluster of two CTAs
+a shard commits them in order, one cutting batches, one copying bytes.
+The front's records take :func:`front_slots` slots a shard, from the
+caller's floor on a token's bits (``min_bits``: 1 + literal for a parse).
 """
 
 from __future__ import annotations
@@ -24,10 +31,33 @@ import torch
 from . import _build
 
 __all__ = ["commit_decode", "commit_decode_words", "commit_decode_plain",
-           "fuse_parse", "ERR_OK", "ERR_INVALID", "ERR_OOB", "ERR_OVERFLOW"]
+           "commit_token_words_plain", "front_sums_plain", "front_slots",
+           "front_tile", "fuse_parse", "ERR_OK", "ERR_INVALID", "ERR_OOB",
+           "ERR_OVERFLOW"]
 
 ERR_OK, ERR_INVALID, ERR_OOB, ERR_OVERFLOW = 0, 1, 2, 3
 K_LIT, K_MATCH, K_RLE, K_EXT, K_FLUSH = 0, 1, 2, 3, 4  # parse token kinds
+TILE = 4096     # parse words of the kernel's largest front tile (csrc CT)
+MIN_TILE = 512  # and of its smallest (csrc CT_MIN)
+SPAN = 64       # entry bits of a front tile that keep an exit map
+
+
+def front_tile(NBP: int) -> int:
+    """Parse words a tile of the kernel's front: NBP / 64 rounded down to a
+    power of two, within [MIN_TILE, TILE].  A lane of the front walks a
+    whole tile, so a small plane takes small tiles and its walks stay
+    short, while a plane of 64 * TILE bits or more keeps TILE."""
+    return min(TILE, max(MIN_TILE, 1 << max(NBP // 64, 1).bit_length() - 1))
+
+
+def front_slots(NBP: int, min_bits: int = 1) -> int:
+    """Records a shard of the kernel's front: NBP // min_bits + 2 (the
+    complete tokens of a chain whose tokens take ``min_bits`` bits or more,
+    and its stop word), rounded up to even.  A shard whose chain holds that
+    many complete tokens or more is refused with ERR_INVALID.  A parse's
+    tokens take 1 + literal bits or more: a literal; a match takes 2 +
+    window, a FLUSH 9."""
+    return (NBP // min_bits + 3) & ~1
 
 
 def fuse_parse(nxt: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
@@ -44,15 +74,31 @@ def fuse_parse(nxt: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def _walk(pk, W: int, more: bool, max_out: int, dict_init: bytes,
-          dict_reset: bytes, out: np.ndarray):
-    """One shard's walk on Python ints; returns (out_len, err)."""
-    ring = bytearray(dict_init)
-    NBP = len(pk)
-    c = out_pos = pos = lwf = 0
-    err = ERR_OK
+def _front(row) -> list:
+    """One shard's chain over its parse words ``row`` (Python ints): the
+    word of every token from bit 0 on, in order, up to and including the
+    first word with delta 0 (an incomplete trailing token) or up to NBP."""
+    NBP = len(row)
+    words = []
+    c = 0
     while c < NBP:
-        p = pk[c]
+        p = row[c]
+        words.append(p)
+        delta = (p >> 11) & 63
+        if delta == 0:
+            break
+        c += delta
+    return words
+
+
+def _walk(words, W: int, more: bool, max_out: int, dict_init: bytes,
+          dict_reset: bytes, out: np.ndarray):
+    """One shard's commit of its token words in order (:func:`_front`'s),
+    on Python ints; returns (out_len, err)."""
+    ring = bytearray(dict_init)
+    out_pos = pos = lwf = 0
+    err = ERR_OK
+    for p in words:
         kind = p & 7
         cnt = (p >> 3) & 0xFF
         delta = (p >> 11) & 63
@@ -65,7 +111,6 @@ def _walk(pk, W: int, more: bool, max_out: int, dict_init: bytes,
             err = ERR_OVERFLOW
         if err:
             break
-        c += delta
         if kind == K_FLUSH:
             if more and lwf:
                 ring[:] = dict_reset
@@ -94,24 +139,73 @@ def _walk(pk, W: int, more: bool, max_out: int, dict_init: bytes,
     return out_pos, err
 
 
+def commit_token_words_plain(pk: torch.Tensor):
+    """B4's front as a Python chain per shard (on a host copy of ``pk``
+    (S, NBP) int32): (words (S, NBP) int32, T (S,) int32) on ``pk``'s
+    device.  Row s holds the word of each of its T complete tokens (delta
+    > 0) in order, copied verbatim, then the first word with delta 0 where
+    the chain meets one before NBP, and zeros past.  The chain ignores the
+    commit's errors: it runs to its end."""
+    S, NBP = pk.shape
+    rows = pk.cpu().numpy()
+    words = np.zeros((S, NBP), np.int32)
+    T = np.zeros(S, np.int32)
+    for s in range(S):
+        w = _front(rows[s].tolist())
+        words[s, : len(w)] = w
+        T[s] = len(w) - int(bool(w) and (w[-1] >> 11) & 63 == 0)
+    dev = pk.device
+    return torch.from_numpy(words).to(dev), torch.from_numpy(T).to(dev)
+
+
+def front_sums_plain(words: torch.Tensor) -> torch.Tensor:
+    """The running sum that the kernel's front keeps beside each compact
+    word (:func:`commit_token_words_plain`'s ``words``): over the tokens
+    before it, output bytes + ring bytes (before the ring end clamps them)
+    << 16, mod 2^32, as int32; a FLUSH adds nothing.  The commit takes a
+    batch's output and ring offsets from its differences."""
+    w = words.to(torch.int64)
+    kind, cnt = w & 7, (w >> 3) & 0xFF
+    a = torch.where(kind == K_LIT, 1,
+                    torch.where(kind == K_RLE, cnt.clamp_max(8), cnt))
+    step = torch.where(kind == K_FLUSH, 0, cnt + (a << 16))
+    sums = (torch.cumsum(step, 1) - step) & 0xFFFFFFFF
+    return torch.where(sums >= 1 << 31, sums - (1 << 32), sums).to(
+        torch.int32)
+
+
 def commit_decode_plain(pk: torch.Tensor, dict_init: torch.Tensor,
                         dict_reset: torch.Tensor, *, W: int, more: bool,
-                        max_out: int):
+                        max_out: int, min_bits: int = 1):
     """B4 as a Python loop per shard (on host copies of the inputs); results
-    are returned on the inputs' device."""
-    S = pk.shape[0]
+    are returned on the inputs' device.  A shard whose chain holds
+    :func:`front_slots` complete tokens or more gets ERR_INVALID and no
+    bytes, as in the kernel."""
+    return _plain(pk, dict_init, dict_reset, W, more, max_out, min_bits)[:3]
+
+
+def _plain(pk, dict_init, dict_reset, W: int, more: bool, max_out: int,
+           min_bits: int):
+    """:func:`commit_decode_plain`'s (out, lens, errs) and the front's
+    token counts T (S,)."""
+    S, NBP = pk.shape
+    cap = front_slots(NBP, min_bits)
     pk_h = pk.cpu().numpy()
     di = bytes(dict_init.cpu().numpy().tobytes())
     dr = bytes(dict_reset.cpu().numpy().tobytes())
     out = np.zeros((S, max_out), np.uint8)
     lens = np.zeros(S, np.int32)
     errs = np.zeros(S, np.int32)
+    T = np.zeros(S, np.int32)
     for s in range(S):
-        lens[s], errs[s] = _walk(pk_h[s].tolist(), W, more, max_out, di, dr,
-                                 out[s])
+        words = _front(pk_h[s].tolist())
+        T[s] = len(words) - int(bool(words) and (words[-1] >> 11) & 63 == 0)
+        if T[s] >= cap:
+            errs[s] = ERR_INVALID
+            continue
+        lens[s], errs[s] = _walk(words, W, more, max_out, di, dr, out[s])
     dev = pk.device
-    return (torch.from_numpy(out).to(dev), torch.from_numpy(lens).to(dev),
-            torch.from_numpy(errs).to(dev))
+    return tuple(torch.from_numpy(x).to(dev) for x in (out, lens, errs, T))
 
 
 def _check_dicts(dict_init, dict_reset, W: int, device) -> None:
@@ -140,35 +234,64 @@ def commit_decode(nxt: torch.Tensor, packed: torch.Tensor,
 
 def commit_decode_words(pk: torch.Tensor, dict_init: torch.Tensor,
                         dict_reset: torch.Tensor, *, W: int, more: bool,
-                        max_out: int):
+                        max_out: int, min_bits: int = 1):
     """:func:`commit_decode` on the fused parse words ``pk`` (S, NBP) int32
-    (:func:`fuse_parse`'s, or the fused form of the parse kernel)."""
+    (:func:`fuse_parse`'s, or the fused form of the parse kernel).
+    ``min_bits``: the fewest bits a token of ``pk`` takes (1 + literal for
+    a parse), which sizes the front's records (:func:`front_slots`)."""
+    return _commit_words(pk, dict_init, dict_reset, W=W, more=more,
+                         max_out=max_out, min_bits=min_bits)[:3]
+
+
+def _commit_words(pk, dict_init, dict_reset, *, W: int, more: bool,
+                  max_out: int, min_bits: int):
+    """:func:`commit_decode_words`'s (out, lens, errs) and the front's token
+    counts T (S,) int32: the complete tokens of each shard's chain, read by
+    the decode's counter ``decode.commit_tokens``."""
     if pk.dtype != torch.int32 or pk.dim() != 2:
         raise ValueError("pk must be an (S, NBP) int32 tensor")
+    if min_bits < 1:
+        raise ValueError("min_bits must be at least 1")
     _check_dicts(dict_init, dict_reset, W, pk.device)
     if pk.device.type == "cpu":
-        return commit_decode_plain(pk, dict_init, dict_reset, W=W, more=more,
-                                   max_out=max_out)
-    if pk.device.type != "cuda":
-        raise ValueError(f"unsupported device {pk.device}")
-    return _launch(pk, dict_init.contiguous(), dict_reset.contiguous(), W=W,
-                   more=more, max_out=max_out)
+        return _plain(pk, dict_init, dict_reset, W, more, max_out, min_bits)
+    if pk.device.type == "cuda":
+        return _launch(pk, dict_init.contiguous(), dict_reset.contiguous(),
+                       W=W, more=more, max_out=max_out,
+                       min_bits=min_bits)[:4]
+    raise ValueError(f"unsupported device {pk.device}")
 
 
-def _launch(pk, dict_init, dict_reset, *, W: int, more: bool, max_out: int):
+def _launch(pk, dict_init, dict_reset, *, W: int, more: bool, max_out: int,
+            min_bits: int = 1):
+    """B4's four launches: (out, lens, errs, T, the front's records
+    (S, front_slots(NBP, min_bits), 2) int32: each token's word and the
+    running sum before it)."""
     S, NBP = pk.shape
     if NBP % 4 or not pk.is_contiguous():
         raise ValueError("the kernel stages parse words in 16-byte units: "
                          "pk must be contiguous with NBP a multiple of 4")
     dev = pk.device
+    ct = front_tile(NBP)
+    n_tiles = -(-NBP // ct)
     out = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
     lens = torch.empty(S, dtype=torch.int32, device=dev)
     errs = torch.empty(S, dtype=torch.int32, device=dev)
+    # the workspace: the front's compact records, each tile's exit maps,
+    # each visited tile's entry bit, token offset and running sum, per
+    # shard (tokens, tiles visited)
+    cap = front_slots(NBP, min_bits)
+    recs = torch.empty((S, cap, 2), dtype=torch.int32, device=dev)
+    maps = torch.empty((S, n_tiles, SPAN, 2), dtype=torch.int32, device=dev)
+    ent = torch.empty((S, 3, n_tiles), dtype=torch.int32, device=dev)
+    tok = torch.empty((S, 2), dtype=torch.int32, device=dev)
     _build.launch("decode_commit", "tpt_commit_decode", dev,
-                  (pk, dict_init, dict_reset, out, lens, errs),
-                  (S, NBP, W.bit_length() - 1, int(more), max_out))
+                  (pk, dict_init, dict_reset, out, lens, errs, recs, maps,
+                   ent, tok),
+                  (S, NBP, cap, ct, W.bit_length() - 1, int(more),
+                   max_out))
     commit_decode.launches += 1
-    return out, lens, errs
+    return out, lens, errs, tok[:, 0], recs
 
 
 commit_decode.launches = 0

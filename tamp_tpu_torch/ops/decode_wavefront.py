@@ -19,8 +19,9 @@ Counterpart of ``tamp_tpu/ops/decode_wavefront.py``
 2. One of three modes (``mode``, or ``TAMP_TPU_DECODE``; ``"commit"`` by
    default at every window):
 
-   - ``commit``: kernel B4 (ops/decode_commit.py), one serial walk per
-     shard along the parse chain against a window ring;
+   - ``commit``: kernel B4 (ops/decode_commit.py): the token words found
+     tile-parallel along the parse chain, then one serial commit per shard
+     against a window ring;
    - ``chase``: the token table by kernel B8 (ops/token_chase.py), then
      :func:`wavefront_finish`;
    - ``xla``: the token table by :func:`_token_table` (tensor ops), then
@@ -60,7 +61,7 @@ from ..exceptions import OutOfBoundsError
 from . import _build
 from .decode_commit import (
     ERR_OK, ERR_OOB, ERR_OVERFLOW, K_EXT, K_FLUSH, K_LIT, K_MATCH, K_RLE,
-    commit_decode_words, fuse_parse,
+    _commit_words, fuse_parse,
 )
 from .token_chase import token_table_chase
 
@@ -589,6 +590,17 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
     """Parse + decode of one group of header-less payloads on ``device`` in
     ``mode``: (out (S, max_out') uint8, lens (S,), errs (S,)) tensors, with
     max_out' the power-of-two bucket of ``max_out``."""
+    return _group_decode(payloads, window=window, literal=literal,
+                         extended=extended, more=more, dict_init=dict_init,
+                         dict_reset=dict_reset, max_out=max_out,
+                         device=device, mode=mode)[:3]
+
+
+def _group_decode(payloads, *, window: int, literal: int, extended: bool,
+                  more: bool, dict_init, dict_reset, max_out: int, device,
+                  mode: str):
+    """:func:`decode_group`'s tensors and B4's token counts T (S,) in mode
+    ``commit``, else None."""
     mode = resolve_mode(mode)
     parse = payload_parse(payloads, window=window, literal=literal,
                           extended=extended, device=device,
@@ -598,8 +610,8 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
         dr = torch.from_numpy(np.array(dict_reset, np.uint8)).to(device)
         max_out = _pow2_bucket(max_out, 1024)
         if mode == "commit":
-            return commit_decode_words(parse, di, dr, W=1 << window,
-                                       more=more, max_out=max_out)
+            return _commit_words(parse, di, dr, W=1 << window, more=more,
+                                 max_out=max_out, min_bits=1 + literal)
         nxt, packed = parse
         del parse
         NBP = nxt.shape[1]
@@ -609,8 +621,8 @@ def decode_group(payloads, *, window: int, literal: int, extended: bool,
         else:
             starts, T = _token_table(nxt, NBP, literal, T_max)
         del nxt
-        return wavefront_finish(starts, T, packed, di, dr, window=window,
-                                more=more, max_out=max_out)
+        return (*wavefront_finish(starts, T, packed, di, dr, window=window,
+                                  more=more, max_out=max_out), None)
 
 
 def wavefront_decode_payload(payload: bytes, *, window: int, literal: int,
@@ -671,9 +683,10 @@ def payload_groups(payloads) -> list[tuple[int, int]]:
     """Index ranges ``[i, j)`` of consecutive payloads, each group at most
     ``GROUP_PAYLOAD_BYTES`` payload bytes (a longer payload alone), which
     caps the per-bit working set: on the card the payload blob and the
-    parse plane, 4 bytes a bucket bit in mode ``commit`` and 8 in the
-    others (the tensor-op parse that the CPU still runs took ~232, 15.57 GB
-    at 8 shards of 1 MiB on an H100)."""
+    parse plane, 4 bytes a bucket bit in mode ``commit`` (with B4's
+    workspace, 8 bytes a token slot at 1 + literal bits a slot, and its
+    exit maps, ~5 in all) and 8 in the others (the tensor-op parse that the
+    CPU still runs took ~232, 15.57 GB at 8 shards of 1 MiB on an H100)."""
     groups = []
     i = 0
     while i < len(payloads):
@@ -711,13 +724,15 @@ def decode_shards_wavefront(shards, *, dictionary=None, max_out: int,
         if all(len(p) == 0 for p in group):
             out.extend(b"" for _ in group)
             continue
-        outs, lens, errs = decode_group(
+        outs, lens, errs, T = _group_decode(
             group, window=window, literal=literal, extended=extended,
             more=more, dict_init=dict_init, dict_reset=default_dict,
             max_out=max_out, device=dev, mode=mode)
         with trace.span("tamp.decode.d2h"):
             errs = errs.cpu().numpy()
             lens = lens.cpu().numpy()
+            if T is not None and trace.enabled():  # mode commit
+                trace.count("decode.commit_tokens", int(T.cpu().sum()))
             for k in range(len(group)):
                 _raise_err(int(errs[k]))
             blk = outs[:, : max(1, int(lens.max()))].cpu().numpy()

@@ -3,7 +3,11 @@ package's decode commit, planned-fields commit, lazy stream commit and
 greedy predictor kernels (interpret mode), on the seeded hazard streams,
 fields, lazy tables and walker planes that the card tests hold the Hopper
 kernels to (tests/test_torch_cuda.py makes them all).  This pins the plain
-versions on exactly the cases the kernels risk.  Exact equality."""
+versions on exactly the cases the kernels risk.  Exact equality.  B4's
+front (``commit_token_words_plain``, the token words its tile-parallel
+launches find) is held to an independent walk, to B8's plain chase and to
+the plain commit on the seeded seam planes ``hazard_words`` and on parses
+of the hazard streams."""
 
 import numpy as np
 import pytest
@@ -24,8 +28,10 @@ from tamp_tpu_torch.ops.encode_commit import (
     commit_v1_lazy,
 )
 from tamp_tpu_torch.ops.greedy_predict import greedy_predict_batch
+from tamp_tpu_torch.ops.token_chase import token_table_chase_plain
 from test_torch_cuda import (
-    hazard_fields, hazard_lazy_tables, hazard_predict_planes, hazard_stream,
+    WORD_ROWS, hazard_fields, hazard_lazy_tables, hazard_predict_planes,
+    hazard_stream, hazard_words,
 )
 
 N_TOKENS = 160  # interpret mode walks a token at a time
@@ -148,3 +154,146 @@ def test_b7_plain_matches_pallas_on_hazard_planes(window, literal, lazy):
         np.testing.assert_array_equal(ent[s, :n].numpy(), jent[s, :n])
     assert ne[1] == 0 and ne[4] == 0 and int(st[4, 1]) == 0
     assert min(ne[0], ne[2], ne[3]) > 0
+
+
+def _chain(row):
+    """An independent walk of one plane row: (the visited words, stop word
+    included, their bit positions, the complete tokens)."""
+    words, at, c = [], [], 0
+    while c < len(row):
+        words.append(row[c])
+        at.append(c)
+        d = (row[c] >> 11) & 63
+        if d == 0:
+            return words, at, len(words) - 1
+        c += d
+    return words, at, len(words)
+
+
+def _front_checks(pk, *, W, more, max_out, min_bits=1):
+    """B4's plain front on ``pk`` against the independent walk, B8's plain
+    chase on the pair form and the plain commit on the plane, also with
+    the front's records sized by ``min_bits`` (which ``pk``'s hops meet);
+    returns the front's T."""
+    S, NBP = pk.shape
+    words, T = dc.commit_token_words_plain(pk)
+    # the pair form (fuse_parse's inverse): delta 0 marks nxt = NBP
+    delta = (pk.to(torch.int64) >> 11) & 63
+    b = torch.arange(NBP)[None, :]
+    nxt = torch.where(delta == 0, NBP, b + delta).to(torch.int32)
+    starts, T8 = token_table_chase_plain(nxt, NBP, NBP)
+    for r in range(S):
+        want, at, t = _chain(pk[r].tolist())
+        assert int(T[r]) == t
+        assert words[r, : len(want)].tolist() == want
+        assert not words[r, len(want):].any()
+        # a last token that crosses NBP is complete in the walk, while the
+        # chase drops it as incomplete (no parse makes one: its delta is 0)
+        crosses = t > 0 and t == len(want) and \
+            at[-1] + ((want[-1] >> 11) & 63) >= NBP
+        assert int(T8[r]) == t - crosses
+        assert starts[r, : t - crosses].tolist() == at[: t - crosses]
+    d = torch.from_numpy(dictionary_array(W, literal=8))
+    kw = dict(W=W, more=more, max_out=max_out)
+    out, lens, errs = dc.commit_decode_plain(pk, d, d, **kw)
+    di = bytes(d.numpy().tobytes())
+    for r in range(S):  # the commit reads the compact words in order
+        o = np.zeros(max_out, np.uint8)
+        n = int(T[r]) + 1
+        assert dc._walk(words[r, :n].tolist(), W, more, max_out, di, di,
+                        o) == (int(lens[r]), int(errs[r]))
+        assert np.array_equal(o, out[r].numpy())
+    assert (T < dc.front_slots(NBP, min_bits)).all()
+    got = dc._commit_words(pk, d, d, min_bits=min_bits, **kw)
+    for a, b in zip(got, (out, lens, errs, T)):
+        assert torch.equal(a, b)
+    return T
+
+
+@pytest.mark.parametrize("window,NBP,S,more,overflow", [
+    (8, 512, 8, False, False),              # NBP of one tile
+    (10, 3 * 4096 + 512, 16, True, False),  # not a multiple of the tile
+    (10, 3 * 4096 + 512, 8, False, True),   # overflow in a late tile
+    (15, 2 * 4096 + 1024, 8, True, False),
+    (10, 2 * 4096 + 1024, 203, False, False),  # S = 203, mixed lengths
+    (10, 4096, 8, False, False)])           # 8 tiles of 512
+def test_b4_front_plain_on_seam_planes(window, NBP, S, more, overflow):
+    # seams where the kernel's front cuts its tiles
+    pk = torch.from_numpy(hazard_words(window * 1000 + S, S, NBP, window,
+                                       more=more, tile=dc.front_tile(NBP)))
+    W = 1 << window
+    d = torch.from_numpy(dictionary_array(W, literal=8))
+    _o, lens, errs = dc.commit_decode_plain(pk, d, d, W=W, more=more,
+                                            max_out=1 << 20)
+    max_out = 1 << 20
+    if overflow:  # past 90 % of the shortest decode of a chain to NBP
+        max_out = int(lens[0]) * 9 // 10
+    T = _front_checks(pk, W=W, more=more, max_out=max_out)
+    rows = {WORD_ROWS[r % 8]: r for r in range(min(S, 8))}
+    assert int(T[rows["no token"]]) == 0
+    assert int(errs[rows["out of bounds in the last tile"]]) == dc.ERR_OOB
+    assert int(T[rows["hops of 1-3 bits"]]) > NBP // 3
+    # the first tile's stop ends the chain there
+    assert int(T[rows["stop in the first tile"]]) <= dc.front_tile(NBP)
+    if overflow:
+        _o, _l, errs = dc.commit_decode_plain(pk, d, d, W=W, more=more,
+                                              max_out=max_out)
+        assert int(errs[0]) == dc.ERR_OVERFLOW
+
+
+@pytest.mark.parametrize("window,NBP,S,more,min_hop", [
+    (8, 512, 8, False, 9),                  # NBP of one tile
+    (10, 3 * 4096 + 512, 16, True, 6),      # not a multiple of the tile
+    (15, 2 * 4096 + 1024, 8, True, 9),
+    (10, 2 * 4096 + 1024, 203, False, 7),   # S = 203, mixed lengths
+    (10, 64 * 4096 + 512, 4, False, 9)])    # tiles of 4096
+def test_b4_front_plain_on_seam_planes_with_a_floor(window, NBP, S, more,
+                                                    min_hop):
+    # hops of min_hop bits or more (a parse's 1 + literal), the front's
+    # records sized by that floor
+    pk = torch.from_numpy(hazard_words(window * 100 + S, S, NBP, window,
+                                       more=more, tile=dc.front_tile(NBP),
+                                       min_hop=min_hop))
+    T = _front_checks(pk, W=1 << window, more=more, max_out=1 << 20,
+                      min_bits=min_hop)
+    if S > 7:  # the densest row
+        assert int(T[7]) > NBP // (min_hop + 3)
+
+
+@pytest.mark.parametrize("min_bits", [3, 9, 64])
+def test_b4_plain_refuses_a_chain_past_its_slots(min_bits):
+    # a plane whose hops fall below the floor: a shard whose chain holds
+    # front_slots(NBP, min_bits) complete tokens or more gets ERR_INVALID
+    # and no bytes; the others decode as with room for every bit
+    NBP, S, W = 3 * 4096 + 512, 16, 1024
+    pk = torch.from_numpy(hazard_words(17, S, NBP, 10, tile=512))
+    d = torch.from_numpy(dictionary_array(W, literal=8))
+    kw = dict(W=W, more=False, max_out=1 << 20)
+    out, lens, errs, T = dc._commit_words(pk, d, d, min_bits=min_bits, **kw)
+    full = dc.commit_decode_plain(pk, d, d, **kw)
+    refused = T >= dc.front_slots(NBP, min_bits)
+    assert refused.any() and not refused.all()
+    assert (errs[refused] == dc.ERR_INVALID).all()
+    assert (lens[refused] == 0).all() and not out[refused].any()
+    for a, b in zip((out, lens, errs), full):
+        assert torch.equal(a[~refused], b[~refused])
+    assert torch.equal(T, dc.commit_token_words_plain(pk)[1])
+
+
+@pytest.mark.parametrize("window,kind", [
+    (8, "hazards"), (10, "more, double FLUSH"), (10, "out of bounds"),
+    (15, "hazards"), (15, "trailing incomplete token")])
+def test_b4_front_plain_on_hazard_stream_parses(window, kind):
+    more = kind.startswith("more")
+    streams = [hazard_stream(window * 10 + i, window, more=more,
+                             n_tokens=300 + 100 * i,
+                             oob_at=200 if kind == "out of bounds" else -1)[0]
+               for i in range(3)]
+    if kind.startswith("trailing"):
+        streams = [x[:-2] for x in streams]
+    skip = 2 if more else 1
+    pk = dw.payload_parse([x[skip:] for x in streams], window=window,
+                          literal=8, extended=True, device="cpu", fused=True)
+    T = _front_checks(pk, W=1 << window, more=more, max_out=1 << 16,
+                      min_bits=9)  # 1 + literal
+    assert (T > 0).all()

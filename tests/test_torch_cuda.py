@@ -327,6 +327,95 @@ def hazard_nxt(seed: int, S: int, NBP: int, *, min_hop: int = 1,
     return nxt.astype(np.int32)
 
 
+def _words(kind, cnt, delta, idx):
+    """Fused parse words, ``kind | cnt << 3 | delta << 11 | idx << 17``,
+    wrapped to int32 as ``fuse_parse`` wraps them (window 15's sign)."""
+    w = np.asarray(kind | cnt << 3 | delta << 11 | idx << 17, np.int64)
+    return np.where(w >= 1 << 31, w - (1 << 32), w).astype(np.int32)
+
+
+# hazard_words rows, by row % 8
+WORD_ROWS = ("to NBP", "stop in the first tile", "stop mid-row",
+             "stop in the last tile", "no token", "double FLUSH at a seam",
+             "out of bounds in the last tile", "hops of 1-3 bits")
+
+
+def hazard_words(seed: int, S: int, NBP: int, window: int, *,
+                 more: bool = False, tile: int = 4096, min_hop: int = 1):
+    """Seeded fused parse planes (S, NBP) int32 aimed at B4's front, exit
+    maps over tiles of ``tile`` bits, and its commit.  Off the chain every
+    bit holds a random token hopping 1-63 bits, one in 64 with delta 0
+    (the walk's end mark).  On the chain, wherever a seam is in reach, the
+    hop crosses it by 0-62 bits (0, a token on the tile's first bit, at
+    every seam of rows 0, 8, ...); elsewhere it hops 1-63 bits.  Row r ends as WORD_ROWS[r % 8] says: its
+    chain runs to NBP (its last token crossing NBP), or stops (delta 0) in
+    the first tile, at NBP / 2 or in the last tile, or holds no token; a
+    double FLUSH at the first seam (a reset on a ``more`` stream); a match
+    past the window in the last tile (ERR_OOB); hops of 1-3 bits but at
+    seams (the densest chain).  Tokens: literals (cnt 1), matches of 2-20
+    bytes, RLE of 2-241, extended matches of 14-140 bytes up to the ring
+    end, FLUSH on ``more`` streams.  With ``min_hop`` no hop is shorter
+    (a parse's tokens take 1 + literal bits or more): the densest rows hop
+    ``min_hop`` to ``min_hop + 2`` bits, a seam too close to cross at that
+    hop is crossed further."""
+    rng = np.random.default_rng(seed)
+    W = 1 << window
+    n = S * NBP
+    kind = rng.integers(0, 5 if more else 4, n)
+    cnt = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                    [1, rng.integers(2, 21, n), rng.integers(2, 242, n),
+                     rng.integers(14, 141, n)], 0)
+    idx = np.where(kind == 0, rng.integers(0, 256, n),
+                   rng.integers(0, W - 140, n))
+    delta = np.where(rng.random(n) < 1 / 64, 0,
+                     rng.integers(min_hop, 64, n))
+    plane = _words(kind, cnt, delta, idx).reshape(S, NBP)
+
+    def put(r, c, k, d):
+        cn = {0: 1, 1: int(rng.integers(2, 21)), 2: int(rng.integers(2, 242)),
+              3: int(rng.integers(14, 141)), 4: 0}[k]
+        ix = int(rng.integers(0, 256)) if k == 0 else \
+            int(rng.integers(0, W - cn + 1))
+        plane[r, c] = _words(k, cn, d, ix)
+
+    for r in range(S):
+        case = r % 8
+        stop = {1: int(rng.integers(0, min(tile, NBP))), 2: NBP // 2,
+                3: NBP - int(rng.integers(1, min(tile, NBP)))}.get(case)
+        flushed = oob = False
+        c = 0
+        while True:
+            if case == 4 or (stop is not None and c >= stop):
+                put(r, c, int(rng.integers(0, 4)), 0)
+                break
+            seam = (c // tile + 1) * tile
+            if seam - c <= 63 and seam < NBP:
+                lo = max(0, min_hop - (seam - c))
+                nx = seam + lo if case == 0 else \
+                    seam + int(rng.integers(lo, 64 - (seam - c)))
+            else:
+                nx = c + int(rng.integers(min_hop, min_hop + 3 if case == 7
+                                          else 64))
+            k = int(rng.integers(0, 5 if more else 4))
+            if case == 5 and not flushed and seam - c <= 40 \
+                    and seam + 40 < NBP:
+                # FLUSH on the seam's last bits, FLUSH past it
+                flushed = True
+                put(r, c, 4, max(min_hop, seam - c + int(rng.integers(0, 3))))
+                c += (int(plane[r, c]) >> 11) & 63
+                nx = c + int(rng.integers(min_hop, 64))
+                k = 4
+            if case == 6 and not oob and c >= NBP - tile // 2:
+                oob = True
+                plane[r, c] = _words(1, 10, nx - c, W - 5)
+            else:
+                put(r, c, k, nx - c)
+            if nx >= NBP:
+                break
+            c = nx
+    return plane
+
+
 def _de_bruijn_pairs(k: int) -> np.ndarray:
     """A sequence over 0..k-1 of length k * k + 1 holding every ordered
     pair once (an Euler path through the pairs)."""
@@ -621,19 +710,79 @@ def _b4_pair(cuda, streams, window, more, max_out):
     before = dc.commit_decode.launches
     got = dc.commit_decode(nxt, packed, d, d, **kw)
     assert dc.commit_decode.launches == before + 1
-    want = dc.commit_decode_plain(dc.fuse_parse(nxt, packed).cpu(), d.cpu(),
-                                  d.cpu(), **kw)
+    pk = dc.fuse_parse(nxt, packed)
+    want = dc.commit_decode_plain(pk.cpu(), d.cpu(), d.cpu(), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # the main path's records, sized by the parse's floor (1 + literal)
+    for g, w in zip(dc.commit_decode_words(pk, d, d, min_bits=9, **kw),
+                    want):
+        assert torch.equal(g.cpu(), w)
+    return want
+
+
+def _b4_words_pair(cuda, pk, window, more, max_out, min_bits=1):
+    """B4 on the card and its plain version on the parse words ``pk``."""
+    d = torch.from_numpy(dictionary_array(1 << window)).to(cuda)
+    kw = dict(W=1 << window, more=more, max_out=max_out, min_bits=min_bits)
+    before = dc.commit_decode.launches
+    got = dc.commit_decode_words(pk.to(cuda), d, d, **kw)
+    assert dc.commit_decode.launches == before + 1
+    want = dc.commit_decode_plain(pk, d.cpu(), d.cpu(), **kw)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     return want
 
 
+# seam and stop planes of B4's front (hazard_words, seams at the front's
+# tiles, dc.front_tile(NBP)): (NBP, S, more, overflow, the planes' shortest
+# hop, the floor min_bits that sizes the front's records); the last plane
+# holds rows below its floor, which both versions refuse (ERR_INVALID)
+B4_SEAM_PLANES = {
+    "seam planes, one tile": (512, 8, False, False, 1, 1),
+    "seam planes, more": (3 * 4096 + 512, 16, True, False, 1, 1),
+    "seam planes, overflow": (3 * 4096 + 512, 8, False, True, 1, 1),
+    "seam planes, 203 shards": (2 * 4096 + 1024, 203, False, False, 1, 1),
+    "seam planes, 4096-bit tiles": (64 * 4096 + 512, 4, False, False, 1, 1),
+    "seam planes, hops of 6+, more": (3 * 4096 + 512, 16, True, False, 6, 6),
+    "seam planes, hops of 9+, overflow": (3 * 4096 + 512, 8, False, True, 9,
+                                          9),
+    "seam planes, hops of 9+, 4096-bit tiles": (64 * 4096 + 512, 4, False,
+                                                False, 9, 9),
+    "seam planes, refused past their slots": (3 * 4096 + 512, 16, False,
+                                              False, 1, 9),
+}
+
+
 @pytest.mark.parametrize("kind", [
     "hazards", "more, double FLUSH", "out of bounds mid-stream",
     "overflow mid-stream", "overflow, not a multiple of 16",
-    "trailing incomplete token"])
+    "trailing incomplete token", *B4_SEAM_PLANES])
 @pytest.mark.parametrize("window", [8, 10, 15])
 def test_b4_kernel_equals_plain(cuda, window, kind):
+    if kind in B4_SEAM_PLANES:
+        NBP, S, more, overflow, min_hop, min_bits = B4_SEAM_PLANES[kind]
+        pk = torch.from_numpy(hazard_words(window * 1000 + S, S, NBP, window,
+                                           more=more,
+                                           tile=dc.front_tile(NBP),
+                                           min_hop=min_hop))
+        max_out = 1 << 20
+        if overflow:  # the plane's row 0 runs to NBP: cut past 90 % of it
+            d = torch.from_numpy(dictionary_array(1 << window))
+            lens = dc.commit_decode_plain(pk[:1], d, d, W=1 << window,
+                                          more=more, max_out=max_out)[1]
+            max_out = int(lens[0]) * 9 // 10
+        _o, _l, errs = _b4_words_pair(cuda, pk, window, more, max_out,
+                                      min_bits)
+        if min_bits > min_hop:  # the densest row passes its slots
+            assert int(errs[7]) == dc.ERR_INVALID
+        # row 6's match past the window, unless the output passes max_out
+        # before it
+        assert S < 7 or int(errs[6]) in (
+            (dc.ERR_OOB, dc.ERR_OVERFLOW) if overflow else (dc.ERR_OOB,))
+        if overflow:
+            assert int(errs[0]) == dc.ERR_OVERFLOW
+        return
     more = kind.startswith("more")
     streams, lens = zip(*(hazard_stream(
         window * 10 + i, window, more=more, n_tokens=1500 + 500 * i,
@@ -653,6 +802,119 @@ def test_b4_kernel_equals_plain(cuda, window, kind):
     assert errs.tolist() == [want_err.get(kind, dc.ERR_OK)] * 3
     if kind in ("hazards", "more, double FLUSH"):
         assert got_lens.tolist() == list(lens)
+
+
+@pytest.mark.parametrize("case", ["text", *B4_SEAM_PLANES])
+def test_b4_front_equals_plain(cuda, case):
+    """B4's front (maps, entries, pack) writes the plain front's compact
+    words: every token's word in order, then the stop word or a zero, each
+    beside the running sum of the tokens before it."""
+    if case == "text":
+        blob = compress_sharded(_text(40000, 7), shard_size=16384,
+                                engine="device-commit")
+        pk = dw.payload_parse([b[1:] for b in _parse_frame(blob)[2]],
+                              window=10, literal=8, extended=True,
+                              device=cuda, fused=True).cpu()
+        window, more, min_bits = 10, False, 9
+    else:
+        NBP, S, more, _ov, min_hop, min_bits = B4_SEAM_PLANES[case]
+        window = 15 if "203" in case else 10
+        pk = torch.from_numpy(hazard_words(S + 7, S, NBP, window, more=more,
+                                           tile=dc.front_tile(NBP),
+                                           min_hop=min_hop))
+    d = torch.from_numpy(dictionary_array(1 << window)).to(cuda)
+    got = dc._launch(pk.to(cuda), d, d, W=1 << window, more=more,
+                     max_out=1 << 20, min_bits=min_bits)
+    words, T = dc.commit_token_words_plain(pk)
+    assert torch.equal(got[3].cpu(), T)
+    recs = got[4].cpu()
+    # beside each word the running sum of (output bytes + ring bytes << 16)
+    # of the tokens before it, mod 2^32
+    w = words.to(torch.int64)
+    kind, cnt = w & 7, (w >> 3) & 0xFF
+    a = torch.where(kind == 0, 1, torch.where(kind == 2, cnt.clamp_max(8),
+                                              cnt))
+    step = torch.where(kind == 4, 0, cnt + (a << 16))
+    sums = (torch.cumsum(step, 1) - step) & 0xFFFFFFFF
+    sums = torch.where(sums >= 1 << 31, sums - (1 << 32), sums)
+    assert recs.shape[1] == dc.front_slots(pk.shape[1], min_bits)
+    for s in range(pk.shape[0]):
+        n = min(int(T[s]) + 1, recs.shape[1])
+        assert torch.equal(recs[s, :n, 0], words[s, :n]), s
+        assert torch.equal(recs[s, :n, 1], sums[s, :n].to(torch.int32)), s
+
+
+def test_b4_launches_are_named_and_counted(cuda):
+    """Every kernel B4 launches holds ``commit_decode_kernel`` in its name
+    (the benchmark's key for B4): four a call, one wrapper launch a call."""
+    from torch import profiler as tp
+    from torch.autograd import DeviceType
+
+    pk = torch.from_numpy(hazard_words(3, 8, 3 * 4096 + 512, 10,
+                                       tile=512)).to(cuda)
+    d = torch.from_numpy(dictionary_array(1024)).to(cuda)
+    kw = dict(W=1024, more=False, max_out=1 << 20)
+    dc.commit_decode_words(pk, d, d, **kw)
+    torch.cuda.synchronize()
+    before = dc.commit_decode.launches
+    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            dc.commit_decode_words(pk, d, d, **kw)
+        torch.cuda.synchronize()
+    assert dc.commit_decode.launches == before + 3
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "memset" not in
+             e.name.lower() and "fill" not in e.name.lower()]
+    b4 = [n for n in names if "commit_decode_kernel" in n]
+    assert len(b4) == 12, names
+    for part in ("_maps", "_entries", "_pack"):
+        assert sum(f"commit_decode_kernel{part}" in n for n in b4) == 3
+    assert sum("commit_decode_kernel(" in n for n in b4) == 3
+
+
+def test_b4_kernel_on_more_shards_than_a_grid_column(cuda):
+    """One commit group of more shards than CUDA's 65535 blocks a grid
+    column (tiny shards of a container cut small): every shard decodes as
+    the plain version decodes it."""
+    streams = [hazard_stream(90 + i, 10, n_tokens=12 + 5 * i)
+               for i in range(8)]
+    shards = [streams[i % 8][0] for i in range(65536 + 77)]
+    max_out = 2048
+    groups = list(dw.payload_groups([x[1:] for x in shards]))
+    assert len(groups) == 1
+    before = dc.commit_decode.launches
+    got = dw.decode_shards_wavefront(shards, max_out=max_out, device=cuda,
+                                     mode="commit")
+    assert dc.commit_decode.launches == before + 1
+    want = dw.decode_shards_wavefront([x for x, _n in streams],
+                                      max_out=max_out, device="cpu",
+                                      mode="commit")
+    assert [len(w) for w in want] == [n for _x, n in streams]
+    for i, g in enumerate(got):
+        assert g == want[i % 8], i
+
+
+def test_commit_tokens_counted_on_the_card_only_while_tracing(cuda):
+    from torch import profiler as tp
+
+    from tamp_tpu_torch import trace
+
+    raw = _text(3 * 8192, 44)
+    blob = compress_sharded(raw, shard_size=8192)
+    pieces = _parse_frame(blob)[2]
+    pk = dw.payload_parse([p[1:] for p in pieces], window=10, literal=8,
+                          extended=True, device="cpu", fused=True)
+    tokens = int(dc.commit_token_words_plain(pk)[1].sum())
+    trace.reset()
+    assert bytes(decompress_sharded_device(blob, mode="commit")) == raw
+    assert "decode.commit_tokens" not in trace.snapshot().counters
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]):
+        back = decompress_sharded_device(blob, mode="commit")
+    counters = trace.snapshot().counters
+    trace.reset()
+    assert bytes(back) == raw
+    assert counters["decode.commit_tokens"] == tokens > 0
 
 
 # Two inputs whose w10/l8 payload is exactly 64 bytes, a power-of-two

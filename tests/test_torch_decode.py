@@ -21,7 +21,8 @@ from tamp_tpu_torch.dictionary import dictionary_array
 from tamp_tpu_torch.ops import _build
 from tamp_tpu_torch.ops import decode_wavefront as twf
 from tamp_tpu_torch.ops.decode_commit import (
-    ERR_OK, commit_decode, commit_decode_words, fuse_parse,
+    ERR_OK, commit_decode, commit_decode_words, commit_token_words_plain,
+    fuse_parse,
 )
 from test_torch_cuda import EXACT_BUCKET
 
@@ -286,6 +287,7 @@ WORDS_REFUSALS = {
     "unsupported device": lambda a: a.update(
         pk=a["pk"].to("meta"), di=a["di"].to("meta"),
         dr=a["dr"].to("meta")),
+    "min_bits below 1": lambda a: a.update(min_bits=0),
 }
 
 
@@ -296,7 +298,7 @@ def test_commit_decode_words_refuses_before_any_launch(case, no_launch):
     WORDS_REFUSALS[case](a)
     with pytest.raises(ValueError):
         commit_decode_words(a["pk"], a["di"], a["dr"], W=1024, more=False,
-                            max_out=1024)
+                            max_out=1024, min_bits=a.get("min_bits", 1))
 
 
 def test_parse_bits_counted_only_while_tracing():
@@ -314,3 +316,28 @@ def test_parse_bits_counted_only_while_tracing():
     trace.reset()
     assert counters["decode.parse_bits"] == 2 * len(payloads) * NBP
 
+
+
+@pytest.mark.parametrize("mode", ["commit", "chase"])
+def test_commit_tokens_counted_only_while_tracing(mode, no_launch):
+    # B4's front counts its complete tokens in the decode's d2h span, from
+    # its T: only while tracing and only in mode commit
+    streams = _cases()[0][0]
+    tokens = sum(int(commit_token_words_plain(twf.payload_parse(
+        [s[1:]], window=10, literal=8, extended=True, device="cpu",
+        fused=True))[1].sum()) for s in streams)
+    assert tokens > 0
+    trace.reset()
+    twf.decode_shards_wavefront(streams, max_out=4096, device="cpu",
+                                mode=mode)
+    assert "decode.commit_tokens" not in trace.snapshot().counters
+    with tp.profile(activities=[tp.ProfilerActivity.CPU]):
+        back = twf.decode_shards_wavefront(streams, max_out=4096,
+                                           device="cpu", mode=mode)
+    snap = trace.snapshot()
+    trace.reset()
+    assert back == [tamp_tpu.decompress(s) for s in streams]
+    want = tokens if mode == "commit" else None
+    assert snap.counters.get("decode.commit_tokens") == want
+    d2h = [s for s in snap.spans if s.name == "tamp.decode.d2h"]
+    assert d2h

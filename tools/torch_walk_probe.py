@@ -3,7 +3,7 @@
 the chain floors of their walks and the parts of their work, and X1, X2,
 X3 and X4 beside variants with parts cut out, on one NVIDIA card.
 
-    python3 tools/torch_walk_probe.py [--no-variants] [--tables]
+    python3 tools/torch_walk_probe.py [--no-variants] [--tables] [--b4]
                                       [--x [--only x1,x2,x3,x4]]
 
 ``--x`` times X2 alone, the serial decode of the main path's payloads
@@ -46,12 +46,15 @@ at min(npos - t, LEXT, W - x) (``b1_share_1``, ``b1_share_2``,
 ``b1_share_16``), and the mean length past 16 of those reaching 16
 (``b1_mean_past_16``); ``--tables`` runs these B1, B2 and B5 parts alone.
 B4 is also
-timed in variants built from ``csrc/decode_commit.cu`` with parts of its
-commit warp cut out (VARIANTS), to split its time between the chain and the
-commit; a variant's output is not checked (``--no-variants`` skips them,
-for a tree whose kernel source lacks their anchors).  Times are CUDA events, median
-of 5 after a warm-up.  Prints one JSON line last, with the card's name and
-power limit.
+timed by launch (its front's maps, entries and pack, then the commit:
+B4_LAUNCHES, profiler), its commit alone on the plain front's words
+(``b4_commit_alone_ms``: :func:`COMMIT_ALONE` builds the C entry without
+the front launches; its output must equal B4's), and that commit with
+parts cut out (VARIANTS: its batch count ``b4_batches``, giving
+``b4_commit_us_per_batch``, and ``b4_commit_no_copies_ms``; their outputs
+are not checked; ``--no-variants`` skips them); ``--b4`` times these B4
+parts alone.  Times are CUDA events, median of 5 after a warm-up.  Prints
+one JSON line last, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -64,31 +67,39 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-_COMMIT = "    __threadfence_block();\n    const int nrec = min(32, head - done);\n"
-_PHASES = ("      const int rb = ring", "      out_pos += __shfl_sync")
-_PHASE2 = ("      // phase 2:", "      out_pos += __shfl_sync")
-# B4 variants: name -> edit of the kernel source
+_FRONT = ("  const int n_tiles = (NBP + ct - 1) / ct;\n",
+          "  const size_t smem =")
+_PHASES = ("        const int rb = ring",
+           "        out_pos += __shfl_sync(FULL, oex + cnt, kk - 1);\n")
+
+
+def COMMIT_ALONE(src: str) -> str:
+    """B4's C entry without its front: the commit launch alone, on the
+    words and counts the caller gives (the plain front's)."""
+    return src[: src.index(_FRONT[0])] + "  cudaError_t e;\n" \
+        + src[src.index(_FRONT[1]) :]
+
+
+# B4's commit alone, with parts cut out: name -> edit of the kernel source
+# (their outputs are not checked)
 VARIANTS = {
-    # the commit warp drains the queue and commits nothing: the chain alone
-    "b4_chain_only_ms": lambda src: src.replace(
-        _COMMIT, "    done = head;\n    if (lane == 0) *tail_v = done;\n"
-        "    continue;\n" + _COMMIT),
-    # the chain alone, storing no word in the queue
-    "b4_chain_no_queue_ms": lambda src: VARIANTS["b4_chain_only_ms"](
-        src).replace("          queue[(n + u) & (Q - 1)] = p;\n", "").replace(
-        "      queue[n++ & (Q - 1)] = p;", "      ++n;"),
-    # the commit warp copies no byte to the ring (phase 2 cut out)
-    "b4_no_ring_writes_ms": lambda src: src[: src.index(_PHASE2[0])]
-        + src[src.index(_PHASE2[1]) :],
-    # errs counts the commit's batches instead of the error code
-    "b4_batches": lambda src: src.replace(
-        "    done += kk;\n", "    done += kk;\n      ++nbatch;\n").replace(
-        "lwf = 0, err = 0;", "lwf = 0, err = 0, nbatch = 0;").replace(
-        "    errs[s] = err;", "    errs[s] = nbatch;"),
-    # the commit warp books and cuts batches but copies no byte
-    "b4_no_copies_ms": lambda src: src[: src.index(_PHASES[0])]
-        + src[src.index(_PHASES[1]) :],
+    # errs counts the booking CTA's batches instead of the error code
+    "b4_batches": lambda src: COMMIT_ALONE(src).replace(
+        "        publish(kk, nr);\n",
+        "        publish(kk, nr);\n        ++nbatch;\n").replace(
+        "    int head_pos = 0, lwf = 0, err = 0, q = 0;",
+        "    int head_pos = 0, lwf = 0, err = 0, q = 0, nbatch = 0;"
+    ).replace("    if (lane == 0) errs[s] = refused ? ERR_INVALID : err;",
+              "    if (lane == 0) errs[s] = nbatch;"),
+    # the copy CTA takes each batch but copies no byte: the booking alone
+    "b4_commit_no_copies_ms": lambda src: (lambda t: t[: t.index(
+        _PHASES[0])] + t[t.index(_PHASES[1]) :])(COMMIT_ALONE(src)),
 }
+# B4's launches, by a substring of their kernels' names
+B4_LAUNCHES = {"b4_maps_ms": "commit_decode_kernel_maps",
+               "b4_entries_ms": "commit_decode_kernel_entries",
+               "b4_pack_ms": "commit_decode_kernel_pack",
+               "b4_commit_ms": "commit_decode_kernel("}
 
 
 def _parse_alone(src: str) -> str:
@@ -243,9 +254,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-variants", action="store_true",
-                    help="time B4 and B3 and the chain floors only")
+                    help="time B4 without its commit's variants")
     ap.add_argument("--tables", action="store_true",
                     help="time the match tables B1, B2 and B5 only")
+    ap.add_argument("--b4", action="store_true",
+                    help="time B4, its commit alone and its variants only")
     ap.add_argument("--x", action="store_true",
                     help="time X1, X2, X3 and X4 and their variants only")
     ap.add_argument("--only", default="x1,x2,x3,x4",
@@ -290,8 +303,9 @@ def main() -> int:
         if "x4" in only:
             x4_parts(res, dev, shards, window, literal)
         return finish(res)
-    _p, dh, rc, npos = prepare_batch(shards, window=window)
-    ext_table_parts(res, dev, dh, npos, d, window, literal)
+    if not args.b4:
+        _p, dh, rc, npos = prepare_batch(shards, window=window)
+        ext_table_parts(res, dev, dh, npos, d, window, literal)
     if args.tables:
         v1_table_parts(res, dev, *raw_rows(shards, dev), d, window, literal)
         return finish(res)
@@ -299,26 +313,16 @@ def main() -> int:
 
     pk, tokens = cs.stream_tokens(dev, blob, window, literal, True)
     S, NBP = pk.shape
-    max_out = dw._pow2_bucket(DEFAULT_SHARD_SIZE, 1024)
     out = torch.empty((S, 2), dtype=torch.int32, device=dev)
-    res["b4_ms"], _ = ms_of(lambda: dc._launch(pk, d, d, W=W, more=False,
-                                               max_out=max_out))
+    b4_parts(res, dev, pk, d, window, 1 + literal,
+             variants=not args.no_variants)
     res["b4_chain_ms"], _ = ms_of(lambda: _build.launch(
         "walk_probe", "tpt_probe_decode_chain", dev, (pk, out), (S, NBP)))
     if int(out[:, 0].sum()) != tokens:
         raise RuntimeError("the decode chain probe counted other tokens")
-    for name, edit in ({} if args.no_variants else VARIANTS).items():
-        fn = variant_lib(name, edit)
-        o = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
-        ln = torch.empty(S, dtype=torch.int32, device=dev)
-        er = torch.empty(S, dtype=torch.int32, device=dev)
-        args = [t.data_ptr() for t in (pk, d, d, o, ln, er)] + [
-            S, NBP, window, 0, max_out,
-            torch.cuda.current_stream().cuda_stream]
-        res[name], _ = ms_of(lambda: _build.check(fn(*args), name))
-        if name == "b4_batches":  # a count, not a time
-            res[name] = int(er.sum())
     res["tokens"] = tokens
+    if args.b4:
+        return finish(res)
     del pk
 
     # B8 on the main path's per-bit parse, as phase 4 makes it
@@ -416,6 +420,57 @@ def main() -> int:
         res[f"{k}_ns_per_step"] = res[f"{k}_ms"] * 1e6 * S / n
         res[f"{k}_chain_ns_per_step"] = res[f"{k}_chain_ms"] * 1e6 * S / n
     return finish(res)
+
+
+def b4_parts(res, dev, pk, d, window, min_bits, *, variants=True):
+    """B4 on the main path's parse words (``b4_ms``), by launch (B4_LAUNCHES,
+    profiler), beside its commit alone on the plain front's words
+    (``b4_commit_alone_ms``, :func:`COMMIT_ALONE`; its output must equal
+    B4's) and the commit's variants (VARIANTS)."""
+    import torch
+
+    import chip_smoke as cs
+    from tamp_tpu_torch.ops import _build
+    from tamp_tpu_torch.ops import decode_commit as dc
+    from tamp_tpu_torch.ops import decode_wavefront as dw
+    from tamp_tpu_torch.parallel.shard import DEFAULT_SHARD_SIZE
+
+    S, NBP = pk.shape
+    W = 1 << window
+    max_out = dw._pow2_bucket(DEFAULT_SHARD_SIZE, 1024)
+    call = lambda: dc._launch(pk, d, d, W=W, more=False,  # noqa: E731
+                              max_out=max_out, min_bits=min_bits)
+    res["b4_ms"], want = cs.cuda_ms(call, reps=5)
+    split, _tr, _lag = cs.launch_split(call, B4_LAUNCHES)
+    res.update(split)
+    words, T = dc.commit_token_words_plain(pk)
+    res["b4_front_tokens"] = int(T.sum())
+    if not torch.equal(want[3], T):
+        raise RuntimeError("B4's front counted other tokens than the plain")
+    recs = torch.stack([words, dc.front_sums_plain(words)], -1).contiguous()
+    tok = torch.stack([T, torch.zeros_like(T)], 1).contiguous()
+    edits = {"b4_commit_alone_ms": COMMIT_ALONE}
+    if variants:
+        edits.update(VARIANTS)
+    for name, edit in edits.items():
+        fn = variant_lib(name, edit, n_ptr=10, n_int=7)
+        o = torch.zeros((S, max_out), dtype=torch.uint8, device=dev)
+        ln = torch.empty(S, dtype=torch.int32, device=dev)
+        er = torch.empty(S, dtype=torch.int32, device=dev)
+        args = [t.data_ptr() for t in (pk, d, d, o, ln, er, recs)] + [
+            0, 0, tok.data_ptr(), S, NBP, NBP, dc.front_tile(NBP), window,
+            0, max_out,
+            torch.cuda.current_stream().cuda_stream]
+        res[name], _ = cs.cuda_ms(lambda: _build.check(fn(*args), name),
+                                  reps=5)
+        if name == "b4_batches":  # a count, not a time
+            res[name] = int(er.sum())
+        if name == "b4_commit_alone_ms" and not all(
+                torch.equal(a, b) for a, b in zip((o, ln, er), want)):
+            raise RuntimeError("the commit alone decoded otherwise than B4")
+    if variants:
+        res["b4_commit_us_per_batch"] = (
+            res["b4_commit_alone_ms"] * 1e3 * S / res["b4_batches"])
 
 
 def finish(res) -> int:
