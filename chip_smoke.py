@@ -208,6 +208,15 @@ from pathlib import Path
 from bench_torch import build_corpus as corpus
 from bench_torch import counters, idle_share, smi
 
+# the hazard generators are the card tests' (one copy)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from test_torch_cuda import (  # noqa: E402
+    X2_HAZARD_KINDS, ext_opt_inputs, hazard_fields, hazard_lazy_tables,
+    hazard_nxt, hazard_opt_shards, hazard_predict_planes, hazard_rows,
+    hazard_rows_ext, hazard_stream, v1_opt_inputs, x1_hazard_rows,
+    x2_hazard_streams,
+)
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM: 64 INT32 lanes (H100 whitepaper)
 SMALL = 1 << 16            # shard size of phase 2
@@ -498,410 +507,6 @@ def oob_stream():
     return bw.bytes()
 
 
-def hazard_stream(seed: int, window: int, *, more: bool = False,
-                  n_tokens: int = 1500, literal: int = 8, oob_at: int = -1,
-                  spans: list | None = None):
-    """A seeded random valid extended Tamp stream aimed at B4's hazards:
-    literal runs; basic matches into the last 1-64 ring bytes written (so
-    many read bytes of the previous few tokens, and many hold the write
-    head); RLE up to its longest (241); extended matches that pass the ring
-    end when they can; on a ``more`` stream FLUSH and double FLUSH tokens.
-    ``oob_at``: token index of a match that reads past the window (ERR_OOB),
-    which ends the stream.  Returns (stream, decoded length up to the OOB
-    token).  ``spans``, if given, gets (kind, output offset, size) of every
-    match, RLE and extended match token.  tests/test_torch_cuda.py holds a
-    copy."""
-    import numpy as np
-
-    from tamp_tpu_torch.constants import (
-        EXTENDED_MATCH_SYMBOL, EXTENDED_MATCH_TRAILING_BITS, FLUSH_SYMBOL,
-        HUFFMAN_CODES, HUFFMAN_LENGTHS, RLE_SYMBOL, RLE_TRAILING_BITS,
-        compute_min_pattern_size,
-    )
-
-    HC, HL = HUFFMAN_CODES, HUFFMAN_LENGTHS
-    ET, RT = EXTENDED_MATCH_TRAILING_BITS, RLE_TRAILING_BITS
-    rng = np.random.default_rng(seed)
-    W = 1 << window
-    minp = compute_min_pattern_size(window, literal)
-    bw = BitWriter()
-    bw.put(((window - 8) << 5) | ((literal - 5) << 3) | 2 | int(more), 8)
-    if more:
-        bw.put(0, 8)  # reserved header byte
-    pos = out = 0  # the ring head and the output length
-    lwf = False
-    for k in range(n_tokens):
-        r = rng.random()
-        if k == oob_at:
-            bw.put(HC[11], HL[11])
-            bw.put(W - 2, window)
-            break
-        if more and r < 0.05:  # FLUSH, often twice: the ring resets
-            for _ in range(1 + int(rng.random() < 0.6)):
-                bw.put(HC[FLUSH_SYMBOL], HL[FLUSH_SYMBOL])
-                bw.align()
-                pos = 0 if lwf else pos
-                lwf = True
-            continue
-        lwf = False
-        if r < 0.35:  # literal
-            bw.put((1 << literal) | int(rng.integers(0, 1 << literal)),
-                   literal + 1)
-            cnt = wr = 1
-        elif r < 0.7:  # basic match, mostly into the last 64 ring bytes
-            sym = int(rng.integers(0, 12))
-            cnt = wr = sym + minp
-            kind = "match"
-            d = int(rng.integers(1, 65 if r < 0.62 else W))
-            bw.put(HC[sym], HL[sym])
-            bw.put(min((pos - d) % W, W - cnt), window)
-        elif r < 0.84:  # RLE of 2..241 bytes
-            s2, trail = int(rng.integers(0, 15)), int(rng.integers(0, 16))
-            cnt = (s2 << RT) + trail + 2
-            wr = min(cnt, 8, W - pos)
-            kind = "rle"
-            bw.put(HC[RLE_SYMBOL], HL[RLE_SYMBOL])
-            bw.put(HC[s2], HL[s2] - 1)
-            bw.put(trail, RT)
-        else:  # extended match, past the ring end when it can
-            lo, hi = minp + 12, minp + 12 + (14 << ET) + 7
-            cnt = int(rng.integers(lo, hi + 1))
-            if W - pos <= hi and rng.random() < 0.7:
-                cnt = int(rng.integers(max(lo, W - pos), hi + 1))
-            wr = min(cnt, W - pos)
-            kind = "ext"
-            v = cnt - lo
-            d = int(rng.integers(1, 65))
-            bw.put(HC[EXTENDED_MATCH_SYMBOL], HL[EXTENDED_MATCH_SYMBOL])
-            bw.put(HC[v >> ET], HL[v >> ET] - 1)
-            bw.put(v & ((1 << ET) - 1), ET)
-            bw.put(min((pos - d) % W, W - cnt), window)
-        if spans is not None and cnt > 1:
-            spans.append((kind, out, cnt))
-        pos = (pos + wr) % W
-        out += cnt
-    return bw.bytes(), out
-
-
-X2_HAZARD_KINDS = (
-    "hazards", "more, double FLUSH", "out of bounds mid-stream",
-    "trailing incomplete token", "max_out inside a match",
-    "max_out inside an RLE of more than 8",
-    "max_out at a multiple of 16 inside a match",
-    "max_out at a multiple of 16 inside an RLE of more than 8")
-
-
-def x2_hazard_streams(window: int, kind: str, n: int = 3):
-    """Seeded hazard streams for kernel X2, the token-serial decoder, and
-    the max_out to decode them to: (streams, decoded lengths, more,
-    max_out).  The "max_out" kinds cut the output inside a match or an
-    extended match of 3+ bytes, or inside an RLE of more than 8 bytes, of
-    the first stream's second half, some at a multiple of 16 (the kernel's
-    16-byte stores).  tests/test_torch_cuda.py holds a copy."""
-    more = kind.startswith("more")
-    spans = []
-    streams, lens = zip(*(hazard_stream(
-        window * 10 + i, window, more=more, n_tokens=1500 + 500 * i,
-        oob_at=900 + 50 * i if kind.startswith("out of") else -1,
-        spans=spans if i == 0 else None) for i in range(n)))
-    max_out = 1 << max(max(lens), 1024).bit_length()
-    if kind.startswith("max_out"):
-        rle = "RLE" in kind
-        at16 = "multiple of 16" in kind
-
-        def cut(o, cnt):  # an output length inside the token
-            return (o // 16 + 1) * 16 if at16 else o + cnt // 2
-
-        _k, o, cnt = next(
-            x for x in spans if x[1] >= min(lens) // 2 and (
-                x[0] == "rle" and x[2] > 8 if rle
-                else x[0] != "rle" and x[2] >= 3)
-            and cut(x[1], x[2]) < x[1] + x[2])
-        max_out = cut(o, cnt)
-    if kind == "trailing incomplete token":
-        streams = [x[:-2] for x in streams]
-    return list(streams), list(lens), more, max_out
-
-
-def hazard_fields(seed: int, S: int, NP: int, idx_bits: int):
-    """Seeded random planned fields (A, B) as int32 arrays, in the ranges
-    ops/plan_ext.py produces (fields of 1-24 bits, advances mostly 1-3 and
-    up to 255, at windows 14 and 15 a split index on 30 % of them), with
-    B3's hazards: an error field in the middle of a tile (row 1), a zero
-    advance in the middle of a tile (row 2), values wider than their fields
-    (row 3).  tests/test_torch_cuda.py holds a copy."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    nb = rng.integers(1, 25, (S, NP))
-    adv = np.where(rng.random((S, NP)) < 0.8, rng.integers(1, 4, (S, NP)),
-                   rng.integers(1, 256, (S, NP)))
-    A = rng.integers(0, 1 << 24, (S, NP)) & ((1 << nb) - 1)
-    B = nb | (adv << 6)
-    if idx_bits:
-        B |= ((rng.random((S, NP)) < 0.3) << 15) \
-            | (rng.integers(0, 1 << idx_bits, (S, NP)) << 16)
-    if S > 1:
-        B[1, NP // 2 + 37 :] |= 1 << 14
-    if S > 2:
-        B[2, NP // 3 + 11 :] &= ~(255 << 6)
-    if S > 3:
-        A[3] = rng.integers(0, 1 << 24, NP)
-    return A.astype(np.int32), B.astype(np.int32)
-
-
-def _probe_off_head(t, W):
-    """A probe source index whose 16-byte span does not hold t & (W - 1)."""
-    return ((t & (W - 1)) + 16) & (W - 1)
-
-
-def hazard_lazy_tables(seed: int, S: int, NP: int, window: int, literal: int,
-                       tile: int = 4096):
-    """Seeded random lazy v1 tables (P = len << 23 | idx << 8 | byte, Q =
-    plen << 15 | pidx, int32 arrays) and lengths npos, with B6's hazards:
-    deferral chains across every ``tile`` seam; in row 1 a deferral whose
-    literal is an excess byte and in row 2 an excess literal, both mid-tile
-    (when ``literal`` < 8); in row 3 deferred probe sizes of 300, 4000 and
-    65535; in row 4 a deferral at npos - 16 (the walk stops with its cache
-    set); row 5 has npos < 16.  tests/test_torch_cuda.py holds a copy."""
-    import numpy as np
-
-    from tamp_tpu_torch.constants import compute_min_pattern_size
-
-    rng = np.random.default_rng(seed)
-    W = 1 << window
-    minp = compute_min_pattern_size(window, literal)
-    lit = 256 if literal == 8 else 1 << literal
-    size = np.where(rng.random((S, NP)) < 0.5, 0,
-                    rng.integers(minp, 17, (S, NP)))
-    idx = rng.integers(0, W, (S, NP))
-    byte = rng.integers(0, lit, (S, NP))
-    psz = rng.integers(0, 16, (S, NP))
-    pix = rng.integers(0, W, (S, NP))
-    t_all = np.arange(NP)
-    chain = minp + 1 + t_all % (10 - minp)  # minp + 1 .. 9, then again
-    for seam in range(tile, NP, tile):
-        sl = slice(seam - 40, seam + 40)
-        size[:, sl] = minp
-        psz[:, sl] = chain[sl]
-        pix[:, sl] = _probe_off_head(t_all[sl], W)
-
-    def lead_in(s, t):  # literals up to t, so the walk lands on t
-        size[s, t - 24 : t + 1] = 0
-        psz[s, t - 24 : t + 1] = 0
-
-    def defer_at(s, t, n):  # a deferral at t to a probe of n bytes
-        lead_in(s, t)
-        size[s, t] = minp
-        psz[s, t] = n
-        pix[s, t] = _probe_off_head(t, W)
-
-    mid = tile // 2 + 37
-    if literal < 8:
-        defer_at(1, mid, minp + 1)
-        byte[1, mid] = 0xC3 | lit
-        lead_in(2, tile + mid)
-        byte[2, tile + mid] = 0xF1 | lit
-    for t, n in ((mid, 300), (tile + mid, 4000), (2 * tile + mid, 65535)):
-        defer_at(3, t, n)
-    npos = np.full(S, NP)
-    npos[4] = NP - 1000
-    defer_at(4, npos[4] - 16, minp + 1)
-    npos[5] = 15
-    P = (size << 23) | (idx << 8) | byte
-    Q = (psz << 15) | pix
-    return P.astype(np.int32), Q.astype(np.int32), npos.astype(np.int32)
-
-
-def hazard_predict_planes(seed: int, S: int, NP: int, window: int,
-                          literal: int, tile: int = 4096):
-    """Seeded random greedy walker planes (pk = idx16 | ln << 15 | run << 20,
-    pp = pidx | plen << 15, int32 arrays) and lengths npos, with B7's
-    hazards: runs of 255 (RLE advances of 241) across every ``tile`` seam;
-    no entry in row 1; lazy deferrals in row 2; row 3 stops mid-tile; row 4
-    has npos < 16.  tests/test_torch_cuda.py holds a copy."""
-    import numpy as np
-
-    from tamp_tpu_torch.constants import compute_min_pattern_size
-
-    rng = np.random.default_rng(seed)
-    W = 1 << window
-    minp = compute_min_pattern_size(window, literal)
-    ln = np.where(rng.random((S, NP)) < 0.5, rng.integers(0, minp, (S, NP)),
-                  rng.integers(minp, 17, (S, NP)))
-    run = np.where(rng.random((S, NP)) < 0.8, 0, rng.integers(0, 256, (S, NP)))
-    idx = rng.integers(0, 1 << 15, (S, NP))
-    plen = rng.integers(0, 16, (S, NP))
-    pidx = rng.integers(0, W, (S, NP))
-    for seam in range(tile, NP, tile):
-        run[:, seam - 300 : seam + 20] = 255
-    ln[1] = rng.integers(0, minp, NP)
-    t_all = np.arange(NP)
-    short = rng.random(NP) < 0.5
-    ln[2, short] = rng.integers(minp, 9, int(short.sum()))
-    run[2, short] = 0
-    plen[2, short] = 15
-    pidx[2, short] = _probe_off_head(t_all[short], W)
-    npos = np.full(S, NP)
-    npos[3] = NP - tile // 2 - 123
-    npos[4] = 12
-    pk = idx | (ln << 15) | (run << 20)
-    pp = pidx | (plen << 15)
-    return pk.astype(np.int32), pp.astype(np.int32), npos.astype(np.int32)
-
-
-def hazard_nxt(seed: int, S: int, NBP: int, *, min_hop: int = 1,
-               tile: int = 4096, long_hop: bool = False):
-    """Seeded random per-bit jump planes (S, NBP) int32 with the hazards of
-    the tile-parallel chase: off the orbit every bit hops ``min_hop``..34
-    bits; on the orbit, wherever a 512-bit seam is in reach, the hop
-    crosses it by 0..33 bits, and in row 0 it lands exactly on the first
-    bit of every ``tile``.  The orbit ends with an incomplete token (nxt ==
-    NBP) in the last tile (rows 0, 5 and on), in the first tile (row 1) and
-    mid-row (row 2); row 3 has a hop that does not advance mid-row and row
-    4 no token at all.  With ``long_hop`` the orbit of row 5 hops 100 bits
-    past the end of its first tile, which no parse makes (the kernel's maps
-    keep 64 entry bits).  S >= 6.  tests/test_torch_cuda.py holds a
-    copy."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    b = np.arange(NBP)
-    nxt = np.minimum(b + rng.integers(min_hop, 35, (S, NBP)), NBP)
-    for r in range(S):
-        c, far = 0, long_hop and r == 5
-        while True:
-            seam = (c // 512 + 1) * 512
-            if far and seam % tile == 0 and seam - c <= 34:
-                n, far = seam + 100, False
-            elif min_hop <= seam - c <= 34:
-                n = seam if r == 0 and seam % tile == 0 else \
-                    seam + int(rng.integers(0, 35 - (seam - c)))
-            else:
-                n = c + int(rng.integers(min_hop, 35))
-            if n >= NBP:
-                nxt[r, c] = NBP
-                break
-            nxt[r, c] = n
-            c = n
-    for r, at in ((1, tile // 2), (2, NBP // 2), (3, NBP // 3)):
-        c = 0
-        while c < at and nxt[r, c] < NBP:
-            c = int(nxt[r, c])
-        nxt[r, c] = NBP if r < 3 else c - int(rng.integers(0, 6))
-    nxt[4, 0] = NBP
-    return nxt.astype(np.int32)
-
-
-def _de_bruijn_pairs(k: int) -> np.ndarray:
-    """A sequence over 0..k-1 of length k * k + 1 holding every ordered
-    pair once (an Euler path through the pairs)."""
-    import numpy as np
-
-    seq, used = [0], set()
-    while len(seq) < k * k + 1:
-        a = seq[-1]
-        nb = next((x for x in range(k - 1, -1, -1) if (a, x) not in used),
-                  None)
-        if nb is None:
-            break
-        used.add((a, nb))
-        seq.append(nb)
-    return np.asarray(seq)
-
-
-def hazard_rows(seed: int, S: int, NP: int, window: int):
-    """Seeded random raw rows (S, NP) uint8 and lengths npos with the
-    hazards of the filtered match tables: row 0 all-equal bytes (runs to
-    the cap, the glue at the head); rows 1-3 periods W - 1, W and W + 1
-    (the glue diagonals); row 4 a 15- and a 16-byte match to one target
-    (tied at cap 15, not at 16); row 5 bytes whose every pair occurs once,
-    so most positions match one byte and no more; row 6 text with a
-    probe match planted at tau = W - 1 and npos not a multiple of the
-    256-position block; row 7 npos < 17.  S >= 8.  tests/test_torch_cuda.py
-    holds a copy."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    W = 1 << window
-    words = [rng.integers(97, 104, rng.integers(2, 7)).astype(np.uint8)
-             for _ in range(40)]
-    text = np.concatenate([np.append(words[int(i)], 32)
-                           for i in rng.integers(0, 40, NP)])[:NP]
-    data = np.tile(text, (S, 1))
-    data[0] = 0x20
-    for r, period in ((1, W - 1), (2, W), (3, W + 1)):
-        data[r] = np.resize(rng.integers(97, 101, period), NP)
-    x = rng.integers(128, 256, 16)
-    filler = rng.integers(32, 64, 200)
-    tie = np.concatenate([x[:15], [1], filler[:24], x, filler[24:84], x,
-                          filler[84:]])[:NP]
-    data[4, : tie.shape[0]] = tie
-    data[5] = np.resize(128 + _de_bruijn_pairs(64), NP)
-    if NP > W + 16:
-        data[6, W : W + 12] = data[6, W - 200 : W - 188]
-    npos = np.full(S, NP)
-    npos[6] = NP - 37
-    npos[7] = 12
-    return data.astype(np.uint8), npos.astype(np.int32)
-
-
-def _plant(row, dst, src, n):
-    """Copy row[src : src + n] to row[dst : dst + n] byte by byte (an
-    overlapping copy repeats the period dst - src) and break the run after
-    it."""
-    for k in range(n):
-        row[dst + k] = row[src + k]
-    row[dst + n] = row[src + n] ^ 0x40
-
-
-def hazard_rows_ext(seed: int, S: int, NP: int, window: int,
-                    lext: int = 133):
-    """Seeded random model-history rows (S, NP) uint8 and lengths npos with
-    the hazards of the long family (runs to ``lext``) on top of
-    :func:`hazard_rows`' rows 0-7: rows 8-11 random bytes with a repeat of
-    17 and 40, of lext - 1, of lext, and of lext + 20 bytes; row 12 a
-    target at NP - 150 whose 16-byte match sits at a lower ring slot than
-    its 40-byte one (the families pick different slots); row 13 two equal
-    50-byte matches to one target (a tie that ring order settles); rows
-    14-15 periods W - 100 and W - lext + 1 (the glue inside a long run);
-    row 16 period 64, which divides W, so every candidate's run crosses the
-    head, with npos off the 256-position block; row 17 all-equal bytes with
-    npos < lext.  S >= 18, NP >= W + 300.  tests/test_torch_cuda.py holds a
-    copy."""
-    import numpy as np
-
-    W = 1 << window
-    data, npos = hazard_rows(seed, S, NP, window)
-    rng = np.random.default_rng(seed + 1)
-    for r in range(8, 14):
-        data[r] = rng.integers(32, 127, NP)
-    _plant(data[8], NP - 260, NP - 260 - 100, 17)
-    _plant(data[8], NP - 200, NP - 200 - (W - 30), 40)
-    _plant(data[9], NP - 300, NP - 300 - 150, lext - 1)
-    _plant(data[10], NP - 300, NP - 300 - (W - 1), lext)
-    _plant(data[11], NP - 250, NP - 250 - 160, lext + 20)
-    dst = NP - 150
-    # slots (ring index p mod W) of the 16- and the 40-byte source
-    lo, hi = dst - W + 1, dst - 41
-    pb = next(p for p in range(hi, lo, -1) if W // 2 <= p % W <= W - 41)
-    pa = next(p for p in range(lo, hi) if p % W < pb % W - 20
-              and (p + 17 < pb or p > pb + 41))
-    _plant(data[12], dst, pb, 40)
-    _plant(data[12], pa, dst, 16)
-    pa = next(p for p in range(lo, hi) if p % W < W - 51)
-    pb = next(p for p in range(dst - 51, lo, -1) if p % W < W - 51 and
-              p > pa + 51)
-    _plant(data[13], pa, dst, 50)
-    _plant(data[13], pb, dst, 50)
-    for r, period in ((14, W - 100), (15, W - lext + 1), (16, 64)):
-        data[r] = np.resize(rng.integers(32, 127, period), NP)
-    data[17] = 0x41
-    npos[16] = NP - 101
-    npos[17] = lext - 3
-    return data, npos
-
-
 def phase_hazards(dev, report):
     """Phase 2, the walks' hazards: B4 and X2 on seeded hazard streams (X2
     also with max_out inside a match and inside an RLE), B3 on seeded
@@ -1135,69 +740,6 @@ def phase_hazards(dev, report):
                      f"S={S}, W={W}")
 
 
-def hazard_opt_shards(seed: int, window: int, literal: int):
-    """Seeded shards (a list of bytes) aimed at the optimal DPs' hazards
-    (kernels X3 and X4): text of 1, 15, 16, 17, 1023, 1024, 1025, 1024 +
-    134 and 2048 + 133 bytes (sizes straddling the blocks and the lookback
-    K, npos < K), all-equal bytes, a long periodic stretch (matches at the
-    cap; in the extended format ring-end room caps), byte runs whose
-    forced-RLE regions split into chunks of 241 and 240, and below literal
-    8 a byte wider than the literal amid text.  A copy of the generator in
-    tests/test_torch_cuda.py."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    lmask = (1 << literal) - 1
-    words = [bytes(int(x) & lmask for x in rng.integers(97, 123, int(k)))
-             for k in rng.integers(2, 9, 48)]
-    sep = bytes([32 & lmask])
-
-    def text(n):
-        return sep.join(words[int(i)]
-                        for i in rng.integers(0, 48, n // 2 + 2))[:n]
-
-    shards = [text(n) for n in (1, 15, 16, 17, 1023, 1024, 1025, 1024 + 134,
-                                2048 + 133)]
-    shards.append(bytes([int(rng.integers(0, lmask + 1))]) * 1500)
-    period = bytes(int(x) & lmask for x in rng.integers(0, 256, 23))
-    shards.append((period * 100)[: 2000 + int(rng.integers(0, 100))])
-    # run r of value (37 r + 5) & lmask: regions of 242 (chunk 240 + 2), 483
-    # (241 + 240 + 2), 241, 12, 11 (no region) and 243 (241 + 2) bytes
-    shards.append(b"".join(bytes([(37 * r + 5) & lmask]) * c for r, c in
-                           enumerate((243, 484, 242, 13, 12, 244, 1, 2000)))
-                  + text(300))
-    if literal < 8:
-        bad = bytearray(text(900))
-        bad[450] = 0xFF
-        shards.append(bytes(bad))
-    return shards
-
-
-def v1_opt_inputs(shards, window: int, literal: int, NP: int = 0):
-    """Kernel X3's inputs for shards (numpy): (flen, data, npos), flen the
-    exact tables at cap min(16, minp + 13) of the v1 default window
-    (engine/greedy.host_v1_tables), NP a power of two >= 512 unless
-    given."""
-    import numpy as np
-
-    from tamp_tpu_torch.dictionary import dictionary_array
-    from tamp_tpu_torch.engine.greedy import host_v1_tables
-    from tamp_tpu_torch.ops.encode_fused import v1_cap
-
-    NP = NP or 1 << (max(max(len(x) for x in shards), 512) - 1).bit_length()
-    S = len(shards)
-    flen = np.zeros((S, NP), np.int32)
-    data = np.zeros((S, NP), np.uint8)
-    d8 = dictionary_array(1 << window, literal=8)
-    for i, x in enumerate(shards):
-        arr = np.frombuffer(x, np.uint8)
-        flen[i, : len(x)] = host_v1_tables(
-            arr, window=window, literal=literal, cap=v1_cap(window, literal),
-            dictionary=d8)[0]
-        data[i, : len(x)] = arr
-    return flen, data, np.asarray([len(x) for x in shards], np.int32)
-
-
 def x3_group_shards(window: int, literal: int, S: int, NP: int):
     """S seeded shards of at most NP bytes for X3's block groups: pieces of
     the corpus (masked to the literal's bits) and the hazard shards from
@@ -1211,63 +753,6 @@ def x3_group_shards(window: int, literal: int, S: int, NP: int):
     return [haz[-1 - k // 2 % len(haz)][:NP] if k % 2 else
             text[k // 2 * NP : (k // 2 + 1) * NP - 37 * (k % 5)].tobytes()
             for k in range(S)]
-
-
-def x1_hazard_rows(seed: int, S: int, T_max: int, W: int):
-    """Seeded inputs of kernel X1 (seg_c, s_c, w_c, n_tr: numpy int32) for
-    S shards of T_max tokens (T_max >= 200), aimed at the chunks of 32
-    tokens its kernel resolves: shard k is of kind k % 8: 0 every deficit
-    nonzero (w > W), segment changes inside a chunk (token 7) and at a
-    chunk's first token (32, 96, 128), n_tr = T_max; 1 n_tr = 0; 2, 3, 4
-    n_tr = 31, 32, 33, a deficit at about one token in three and a change
-    at token 31; 5 rare deficits and changes at random, n_tr random; 6
-    n_tr = T_max, a change at each chunk's first token and a deficit at its
-    last; 7 as 2-4 with n_tr = 127, 128, 129 in turns.  A copy of the
-    generator in tests/test_torch_cuda.py."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    t = np.arange(T_max)
-    seg = np.zeros((S, T_max), np.int64)
-    s_c = rng.integers(0, 1 << 20, (S, T_max))
-    w_c = rng.integers(0, 9, (S, T_max))
-    n_tr = np.zeros(S, np.int64)
-    for k in range(S):
-        kind = k % 8
-        if kind == 0:
-            n_tr[k] = T_max
-            w_c[k] = W + 1 + rng.integers(0, 40, T_max)
-            seg[k] = ((t >= 7).astype(int) + (t >= 32) + (t >= 96)
-                      + (t >= 128))
-        elif kind in (2, 3, 4, 7):
-            n_tr[k] = 29 + kind if kind < 7 else 127 + k // 8 % 3
-            w_c[k] = np.where(rng.random(T_max) < 0.35,
-                              rng.integers(W // 2, 2 * W, T_max), w_c[k])
-            seg[k] = t >= 31
-        elif kind == 5:
-            n_tr[k] = rng.integers(0, T_max + 1)
-            w_c[k] = rng.integers(0, 300, T_max)
-            seg[k] = np.cumsum(rng.random(T_max) < 0.01)
-        elif kind == 6:
-            n_tr[k] = T_max
-            seg[k] = t // 32
-            w_c[k] = np.where(t % 32 == 31, W + 3, w_c[k])
-    return tuple(x.astype(np.int32) for x in (seg, s_c, w_c, n_tr))
-
-
-def ext_opt_inputs(shards, window: int, literal: int):
-    """Kernel X4's inputs for shards (numpy), as the optimal extended
-    encode makes them: (packed, data or None, npos, sideband_pos,
-    sideband_cw)."""
-    import numpy as np
-
-    from tamp_tpu_torch.engine.pipeline_ext import (
-        optimal_batch, optimal_prep,
-    )
-
-    datas = [np.frombuffer(x, np.uint8) for x in shards]
-    prep = optimal_prep(datas, window=window, literal=literal)
-    return optimal_batch(datas, prep, literal=literal)
 
 
 def on_device(dev, arrays):

@@ -30,27 +30,16 @@
 // pipe, not by bytes.
 //
 // Design: four launches on the caller's stream.
-//   1. commit_decode_kernel_maps: per tile of ct parse words of each shard
-//      (NBP / 64, a power of two in [CT_MIN, CT]: a lane's walk is a tile
-//      long, so a small plane takes small tiles and its walks stay short),
-//      staged in shared memory, one lane for each of the tile's first SPAN
-//      bits walks the chain from there to its exit, the first position at
-//      or past the tile's end, counting the tokens and summing their steps
-//      (output bytes + ring bytes << 16) on the way.  A chain enters a tile
-//      at one of its first SPAN bits (delta <= 63), so only those maps are
-//      kept.  A map is (the exit's offset past the tile end | count << 8,
-//      or X_STOP where the chain met a word with delta 0, the walk's end
-//      mark, or NBP; the sum).
-//   2. commit_decode_kernel_entries: per shard, one lookup a tile over maps
-//      staged ENT_CHUNK tiles at a time gives each visited tile its entry
-//      bit, token offset and running sum (the prefixes), and the shard its
-//      token count T and visited tiles (a prefix of the row).
-//   3. commit_decode_kernel_pack: every visited tile walks its chain from
-//      its entry and writes each token's record, its word verbatim and the
-//      running sum before it, in order, into the shard's row of the compact
-//      plane recs (S, cap), then the stop word (delta 0) where the chain
-//      ends on one; the entries launch puts a zero at T for a chain that
-//      runs to NBP.
+//   1-3. commit_decode_kernel_maps, _entries, _pack: the lane front of
+//      exit_maps.cuh over tiles of ct parse words (NBP / 64, a power of two
+//      in [CT_MIN, LANE_TILE]: a lane's walk is a tile long, so a small
+//      plane takes small tiles).  A hop is delta bits (<= 63), and delta 0
+//      (the walk's end mark) stops the chain.  A map is (the exit code |
+//      tokens << 8, the sum of their steps: output bytes + ring bytes <<
+//      16).  The pack writes each token's record, its word and the running
+//      sum before it, in order, into the shard's row of recs (S, cap), then
+//      the stop word where the chain ends on one; the entries put a zero at
+//      T for a chain that runs to NBP.
 //   4. commit_decode_kernel (the commit): a cluster of two CTAs a shard, a
 //      warp each, on two SMs, so that neither takes the other's
 //      shared-memory pipe.  Each stages the records with the Tensor Memory
@@ -91,26 +80,19 @@
 // a literal; a match takes 2 + window bits, a FLUSH 9) bounds the chain to
 // NBP / floor + 1 tokens and its stop word.  A shard whose chain holds cap
 // tokens or more (a plane below its floor) is refused with ERR_INVALID and
-// decodes nothing; the pack writes no slot past cap.  The maps and the pack
-// take a block a (shard, tile), in one grid row (CUDA caps the others at
-// 65535 blocks).  The wrapper allocates the workspace (the records, the
-// maps, the entries, the counts).
+// decodes nothing; the pack writes no slot past cap.  The wrapper allocates
+// the workspace (the records, the maps, the entries, the counts).
 // The TPU kernel's unified output-as-ring mode and SMEM output chunks
 // answer the TPU's SMEM size and DMA rules and are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
-constexpr int CT = 4096;           // parse words a front tile, at most
-constexpr int CT_MIN = 512;        // and at least (a power of two between)
-constexpr int SPAN = 64;           // entry bits of a tile that keep a map
-constexpr int X_STOP = SPAN;       // map exit code past the offsets
-constexpr int MAP_THREADS = 128;
-constexpr int ENT_THREADS = 256;
-constexpr int ENT_CHUNK = 64;      // tiles whose maps are staged at once
-constexpr int PACK_THREADS = 128;
+constexpr int CT_MIN = 512;        // parse words a front tile, at least
 constexpr int THREADS = 32;        // the commit: a warp a CTA, two a shard
 constexpr int GS = 32;             // batch descriptors a group
 constexpr int NG = 4;              // groups in flight
@@ -139,115 +121,77 @@ __device__ __forceinline__ uint32_t sum_step(int32_t p) {
   return (uint32_t)cnt + ((uint32_t)a << 16);
 }
 
-// tile[0 .. n) = src[0 .. n), n a multiple of 4, both 16-byte aligned
-__device__ __forceinline__ void stage_words(int32_t* tile,
-                                            const int32_t* __restrict__ src,
-                                            int n, int nthr) {
-  for (int i = threadIdx.x; i < n / 4; i += nthr)
-    reinterpret_cast<int4*>(tile)[i] = reinterpret_cast<const int4*>(src)[i];
-}
-
-__global__ void __launch_bounds__(MAP_THREADS)
+__global__ void __launch_bounds__(LANE_MAP_THREADS)
 commit_decode_kernel_maps(const int32_t* __restrict__ pk,
                           int2* __restrict__ maps, int NBP, int n_tiles,
                           int ct) {
-  __shared__ __align__(16) int32_t tile[CT];
-  const int s = blockIdx.x / n_tiles, k = blockIdx.x % n_tiles;
-  const int base = k * ct;
-  const int end = min(base + ct, NBP);
-  stage_words(tile, pk + (size_t)s * NBP + base, end - base, MAP_THREADS);
-  __syncthreads();
-  if (threadIdx.x >= SPAN) return;
-  int c = base + threadIdx.x, cnt = 0;
+  int cnt = 0;  // the tokens on the way, and the sum of their steps
   uint32_t sum = 0;
-  while (c < end) {
-    const int32_t p = tile[c - base];
-    const int delta = delta_of(p);
-    if (delta == 0) break;  // the walk's end mark
-    ++cnt;
-    sum += sum_step(p);
-    c += delta;
-  }
-  // a chain leaves the tile < SPAN bits past its end (delta <= 63); the
-  // last tile's end is NBP, where the walk stops
-  const int x = c >= end && end < NBP ? c - end : X_STOP;
-  maps[((size_t)s * n_tiles + k) * SPAN + threadIdx.x] =
-      make_int2(x | cnt << 8, (int)sum);
+  lane_maps(
+      pk, maps, NBP, n_tiles, ct,
+      [&](int32_t p, int c) {
+        if (delta_of(p) == 0) return -1;  // the walk's end mark
+        ++cnt;
+        sum += sum_step(p);
+        return c + delta_of(p);
+      },
+      [&](int x) { return make_int2(x | cnt << 8, (int)sum); });
 }
 
-__global__ void __launch_bounds__(ENT_THREADS)
+__global__ void __launch_bounds__(LANE_ENT_THREADS)
 commit_decode_kernel_entries(const int2* __restrict__ maps,
                              int32_t* __restrict__ ent,
                              int32_t* __restrict__ tok,
                              int2* __restrict__ recs, int cap,
                              int n_tiles) {
-  __shared__ int2 m[ENT_CHUNK * SPAN];
-  __shared__ int stopped;
   const int s = blockIdx.x;
-  const int2* m_row = maps + (size_t)s * n_tiles * SPAN;
   // each visited tile's entry bit, token offset and running sum there
   int32_t* e_row = ent + (size_t)s * 3 * n_tiles;
-  int k = 0, e = 0, total = 0;  // meaningful in thread 0
+  int total = 0;
   uint32_t sum = 0;
-  if (threadIdx.x == 0) stopped = 0;
-  for (int k0 = 0; k0 < n_tiles; k0 += ENT_CHUNK) {
-    const int nk = min(ENT_CHUNK, n_tiles - k0);
-    for (int i = threadIdx.x; i < nk * SPAN; i += ENT_THREADS)
-      m[i] = m_row[(size_t)k0 * SPAN + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (; k < k0 + nk && !stopped; ++k) {
+  const int visited = walk_entries<LANE_ENT_THREADS, SPAN>(
+      maps + (size_t)s * n_tiles * SPAN, n_tiles, 0,
+      [&](int k, int e) {
         e_row[k] = e;
         e_row[n_tiles + k] = total;
         e_row[2 * n_tiles + k] = (int)sum;
-        const int2 v = m[(k - k0) * SPAN + e];
+      },
+      [&](int, int2 v) {
         total += v.x >> 8;
         sum += (uint32_t)v.y;
-        e = v.x & 255;
-        stopped = e == X_STOP;
-      }
-    }
-    __syncthreads();  // the verdict, and m is free to be overwritten
-    if (stopped) break;
-  }
+        return (v.x & 255) >= X_STOP ? -1 : v.x & 255;
+      });
   if (threadIdx.x == 0) {
     tok[2 * s] = total;
-    tok[2 * s + 1] = k;  // tiles visited
+    tok[2 * s + 1] = visited;
     // the end of a chain that runs to NBP; the pack overwrites it with the
     // stop word where the chain ends on one
     if (total < cap) recs[(size_t)s * cap + total] = make_int2(0, (int)sum);
   }
 }
 
-__global__ void __launch_bounds__(PACK_THREADS)
+__global__ void __launch_bounds__(LANE_PACK_THREADS)
 commit_decode_kernel_pack(const int32_t* __restrict__ pk,
                           const int32_t* __restrict__ ent,
                           const int32_t* __restrict__ tok,
                           int2* __restrict__ recs, int NBP, int cap,
                           int n_tiles, int ct) {
-  __shared__ __align__(16) int32_t tile[CT];
-  const int s = blockIdx.x / n_tiles, k = blockIdx.x % n_tiles;
-  const int base = k * ct;
-  if (k >= tok[2 * s + 1]) return;  // not visited
-  const int32_t* e_row = ent + (size_t)s * 3 * n_tiles;
-  const int e = e_row[k], from = e & ~3;
-  const int end = min(base + ct, NBP);
-  if (base + from < end)
-    stage_words(tile + from, pk + (size_t)s * NBP + base + from,
-                end - base - from, PACK_THREADS);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  int2* r_row = recs + (size_t)s * cap;
-  int o = e_row[n_tiles + k];
-  uint32_t sum = (uint32_t)e_row[2 * n_tiles + k];
-  for (int c = base + e; c < end && o < cap;) {
-    const int32_t p = tile[c - base];
-    r_row[o++] = make_int2(p, (int)sum);
-    const int delta = delta_of(p);
-    if (delta == 0) break;
-    sum += sum_step(p);
-    c += delta;
-  }
+  const ShardBlock p = shard_block(n_tiles);
+  if (p.b >= tok[2 * p.s + 1]) return;  // not visited
+  const int32_t* e_row = ent + (size_t)p.s * 3 * n_tiles;
+  int2* r_row = recs + (size_t)p.s * cap;
+  int o = e_row[n_tiles + p.b];
+  uint32_t sum = (uint32_t)e_row[2 * n_tiles + p.b];
+  const int base = p.b * ct;
+  // each token's record (word, running sum before it), the stop word too
+  pack_tile(pk + (size_t)p.s * NBP, base, min(base + ct, NBP), e_row[p.b],
+            [&](int32_t w, int c) {
+              if (o >= cap) return -1;
+              r_row[o++] = make_int2(w, (int)sum);
+              if (delta_of(w) == 0) return -1;
+              sum += sum_step(w);
+              return c + delta_of(w);
+            });
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -357,8 +301,9 @@ commit_decode_kernel(const int2* __restrict__ recs,
   uint8_t* ring = stage + OS;                            // [W + RING_PAD]
   const int W = 1 << wbits;
   const int M = W - 1;
-  const int s = blockIdx.x >> 1;
-  const int booking = (blockIdx.x & 1) == 0;  // the cluster's rank 0
+  const ShardBlock sb = shard_block(2);
+  const int s = sb.s;
+  const int booking = sb.b == 0;  // the cluster's rank 0
   const int lane = threadIdx.x;
   // the shard's tokens, all complete; a chain past its slots is refused
   const bool refused = tok[2 * s] >= cap;
@@ -640,12 +585,12 @@ commit_decode_kernel(const int2* __restrict__ recs,
 
 }  // namespace
 
-// ct: parse words a front tile, a power of two in [CT_MIN, CT]; cap: the
-// records' slots a shard, even; recs (S, cap) int2, maps (S, n_tiles, SPAN)
-// int2, ent (S, 3, n_tiles) and
-// tok (S, 2) int32 are the wrapper's workspace: the compact token records
-// (word, running sum), each tile's exit maps, each visited tile's entry
-// bit, token offset and running sum, and per shard (tokens, tiles visited)
+// ct: parse words a front tile, a power of two in [CT_MIN, LANE_TILE]; cap:
+// the records' slots a shard, even; recs (S, cap) int2, maps (S, n_tiles,
+// SPAN) int2, ent (S, 3, n_tiles) and tok (S, 2) int32 are the wrapper's
+// workspace: the compact token records (word, running sum), each tile's
+// exit maps, each visited tile's entry bit, token offset and running sum,
+// and per shard (tokens, tiles visited)
 extern "C" int tpt_commit_decode(const void* pk, const void* dict_init,
                                  const void* dict_reset, void* out,
                                  void* lens, void* errs, void* recs,
@@ -653,38 +598,30 @@ extern "C" int tpt_commit_decode(const void* pk, const void* dict_init,
                                  int NBP, int cap, int ct, int wbits,
                                  int more, int max_out, void* stream) {
   if (NBP % 4 != 0 || ((uintptr_t)pk & 15) != 0 ||
-      ((uintptr_t)recs & 15) != 0 || ct < CT_MIN || ct > CT ||
+      ((uintptr_t)recs & 15) != 0 || ct < CT_MIN || ct > LANE_TILE ||
       (ct & (ct - 1)) != 0 || cap < 2 || cap % 2 != 0)
     return (int)cudaErrorInvalidValue;
   if (S == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_tiles = (NBP + ct - 1) / ct;
-  // a block a (shard, tile) in grid row x, which holds 2^31 - 1 blocks
-  if ((long long)S * n_tiles > 0x7FFFFFFF || S > 0x3FFFFFFF)
-    return (int)cudaErrorInvalidValue;
-  if (n_tiles > 0)
-    commit_decode_kernel_maps<<<S * n_tiles, MAP_THREADS, 0, st>>>(
-        (const int32_t*)pk, (int2*)maps, NBP, n_tiles, ct);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_shards(commit_decode_kernel_maps, S, n_tiles,
+                                LANE_MAP_THREADS, 0, st, pk, maps, NBP,
+                                n_tiles, ct);
+  if (e == cudaSuccess)
+    e = launch_shards(commit_decode_kernel_entries, S, 1, LANE_ENT_THREADS, 0,
+                      st, maps, ent, tok, recs, cap, n_tiles);
+  if (e == cudaSuccess)
+    e = launch_shards(commit_decode_kernel_pack, S, n_tiles,
+                      LANE_PACK_THREADS, 0, st, pk, ent, tok, recs, NBP, cap,
+                      n_tiles, ct);
   if (e != cudaSuccess) return (int)e;
-  commit_decode_kernel_entries<<<S, ENT_THREADS, 0, st>>>(
-      (const int2*)maps, (int32_t*)ent, (int32_t*)tok, (int2*)recs, cap,
-      n_tiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (n_tiles > 0)
-    commit_decode_kernel_pack<<<S * n_tiles, PACK_THREADS, 0, st>>>(
-        (const int32_t*)pk, (const int32_t*)ent, (const int32_t*)tok,
-        (int2*)recs, NBP, cap, n_tiles, ct);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const size_t smem =
       CTRL + (size_t)NST * TW * 8 + OS + ((size_t)1 << wbits) + RING_PAD;
   e = cudaFuncSetAttribute(commit_decode_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  commit_decode_kernel<<<2 * S, THREADS, smem, st>>>(
-      (const int2*)recs, (const int32_t*)tok, (const uint8_t*)dict_init,
-      (const uint8_t*)dict_reset, (uint8_t*)out, (int32_t*)lens,
-      (int32_t*)errs, cap, wbits, more, max_out);
-  return (int)cudaGetLastError();
+  return (int)launch_shards(commit_decode_kernel, S, 2, THREADS, smem, st,
+                            recs, tok, dict_init, dict_reset, out, lens, errs,
+                            cap, wbits, more, max_out);
 }

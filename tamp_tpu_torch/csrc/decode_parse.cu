@@ -37,11 +37,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // payload bytes a block, one a table entry
 constexpr int TILE = THREADS + 16;
-constexpr int MAX_GRID_Y = 65535;
 constexpr int K_LIT = 0, K_MATCH = 1, K_RLE = 2, K_EXT = 3, K_FLUSH = 4;
 constexpr int RLE_SYMBOL = 12, EXTENDED_MATCH_SYMBOL = 13, FLUSH_SYMBOL = 14;
 constexpr int RLE_TRAILING_BITS = 4, EXTENDED_MATCH_TRAILING_BITS = 3;
@@ -105,10 +106,11 @@ __global__ void __launch_bounds__(THREADS)
 parse_kernel(const uint8_t* __restrict__ blob,
              const int32_t* __restrict__ nbytes,
              const uint8_t* __restrict__ sym_g, int32_t* __restrict__ out0,
-             int32_t* __restrict__ out1, int L, int row, int s0, Config c) {
+             int32_t* __restrict__ out1, int L, int row, Config c) {
   __shared__ __align__(16) uint8_t tile[TILE];
   __shared__ uint8_t sym[256];
-  const int s = s0 + blockIdx.y, i0 = blockIdx.x * THREADS;
+  const ShardBlock sb = shard_block((L + THREADS - 1) / THREADS);
+  const int s = sb.s, i0 = sb.b * THREADS;
   const uint8_t* src = blob + (size_t)s * row + i0;
   // row is a multiple of 16, so a 16-byte chunk lies in the row or past it
   if (threadIdx.x < TILE / 16 && i0 + 16 * (int)threadIdx.x < row)
@@ -165,20 +167,8 @@ extern "C" int tpt_parse_words(const void* blob, const void* nbytes,
   if (L <= 0 || row < L + 8 || row % 16 || (!fused && out1 == nullptr))
     return (int)cudaErrorInvalidValue;
   const Config c{window, literal, minp, extended};
-  const int nblk = (L + THREADS - 1) / THREADS;
-  cudaStream_t st = (cudaStream_t)stream;
-  for (int s0 = 0; s0 < S; s0 += MAX_GRID_Y) {
-    const dim3 grid(nblk, min(S - s0, MAX_GRID_Y));
-    if (fused)
-      parse_kernel<true><<<grid, THREADS, 0, st>>>(
-          (const uint8_t*)blob, (const int32_t*)nbytes, (const uint8_t*)sym,
-          (int32_t*)out0, nullptr, L, row, s0, c);
-    else
-      parse_kernel<false><<<grid, THREADS, 0, st>>>(
-          (const uint8_t*)blob, (const int32_t*)nbytes, (const uint8_t*)sym,
-          (int32_t*)out0, (int32_t*)out1, L, row, s0, c);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return (int)launch_shards(fused ? parse_kernel<true> : parse_kernel<false>,
+                            S, (L + THREADS - 1) / THREADS, THREADS, 0,
+                            (cudaStream_t)stream, blob, nbytes, sym, out0,
+                            fused ? nullptr : out1, L, row, c);
 }

@@ -20,30 +20,14 @@
 // read once by the maps, each visited tile's words once more by the pack,
 // the starts written once) and a few operations a hop.
 //
-// Design: three launches on the caller's stream over tiles of CT bits:
-//   1. chase_maps_kernel: per tile, the tile's words staged in shared
-//      memory, one lane for each of its first SPAN bits walks the chain
-//      from there to its exit, the first position at or past the tile's
-//      end, counting the starts on the way.  A token is at most 35 bits
-//      (ops/decode_wavefront.py: BLOCK_BITS, ENTRY_SPAN), so a chain enters
-//      a tile at one of its first SPAN bits and only those maps are kept.
-//      A map word is its exit code | count << 8: the exit's offset past the
-//      tile end (< SPAN), X_STOP (the chain stopped in the tile), or X_ERR
-//      (a hop landed SPAN or more bits past the tile end: no parse makes
-//      that, and the map cannot carry it).
-//   2. chase_entries_kernel: per shard, one lookup a tile, over maps staged
-//      in shared memory ENT_CHUNK tiles at a time, gives each visited tile
-//      its entry bit and its output offset (the prefix of the counts); the
-//      visited tiles are a prefix of the row, because an exit lands in the
-//      next tile.  It writes T, the number of visited tiles, and an error
-//      flag when the chase met X_ERR (the wrapper raises).
-//   3. chase_pack_kernel: every visited tile stages its words from its
-//      entry on and walks its chain from its entry, writing its starts from
-//      its offset, in order.
-// The wrapper (ops/token_chase.token_table_chase) allocates the workspace
-// with torch.  The TPU kernel's 512-bit SMEM tiles, per-tile output rows
-// and the scatter that compacts them answer the TPU's SMEM and are not
-// carried over.
+// Design: the lane front of exit_maps.cuh, three launches over tiles of CT
+// bits (a token is at most 35 bits: ops/decode_wavefront.py BLOCK_BITS,
+// ENTRY_SPAN).  A map is the exit code | the starts on the way << 8; X_ERR
+// sets an error flag that the wrapper raises.  The pack writes each visited
+// tile's starts from its offset, in order.  The wrapper
+// (ops/token_chase.token_table_chase) allocates the workspace with torch.
+// The TPU kernel's 512-bit SMEM tiles, per-tile output rows and the scatter
+// that compacts them answer the TPU's SMEM and are not carried over.
 //
 // X1 replaces the serial lax.while_loop `tr_body` of
 // tamp_tpu/ops/decode_wavefront.py::_wavefront_finish.  Over the truncating
@@ -72,106 +56,70 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
-constexpr int CT = 4096;         // bits of nxt a tile
-constexpr int SPAN = 64;         // entry bits of a tile that keep a map
-constexpr int X_STOP = SPAN;     // map exit codes past the offsets
-constexpr int X_ERR = SPAN + 1;
-constexpr int MAP_THREADS = 128;
-constexpr int ENT_THREADS = 256;
-constexpr int ENT_CHUNK = 64;    // tiles whose maps are staged at once
-constexpr int PACK_THREADS = 128;
+constexpr int CT = 4096;  // bits of nxt a tile
 
-__global__ void __launch_bounds__(MAP_THREADS)
+__global__ void __launch_bounds__(LANE_MAP_THREADS)
 chase_maps_kernel(const int32_t* __restrict__ nxt, int32_t* __restrict__ maps,
                   int NBP, int n_tiles) {
-  __shared__ int32_t tile[CT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * CT;
-  const int end = min(base + CT, NBP);
-  const int32_t* row = nxt + (size_t)s * NBP;
-  for (int i = threadIdx.x; i < end - base; i += MAP_THREADS)
-    tile[i] = row[base + i];
-  __syncthreads();
-  if (threadIdx.x >= SPAN) return;
-  int c = base + threadIdx.x, cnt = 0, x = X_STOP;
-  // an entry at or past NBP is never taken: the hop there stops first
-  while (c < end) {
-    const int n = tile[c - base];
-    if (n >= NBP || n <= c) break;  // stop: x stays X_STOP
-    ++cnt;
-    c = n;
-    // only a tile that ends before NBP can be left
-    if (c >= end) x = c - end < SPAN ? c - end : X_ERR;
-  }
-  maps[((size_t)s * n_tiles + k) * SPAN + threadIdx.x] = x | cnt << 8;
+  int cnt = 0;  // the starts on the way
+  lane_maps(
+      nxt, maps, NBP, n_tiles, CT,
+      [&](int32_t n, int c) {
+        if (n >= NBP || n <= c) return -1;
+        ++cnt;
+        return n;
+      },
+      [&](int x) { return x | cnt << 8; });
 }
 
-__global__ void __launch_bounds__(ENT_THREADS)
+__global__ void __launch_bounds__(LANE_ENT_THREADS)
 chase_entries_kernel(const int32_t* __restrict__ maps,
                      int32_t* __restrict__ ent, int32_t* __restrict__ T,
                      int32_t* __restrict__ info, int n_tiles, int T_max) {
-  __shared__ int32_t m[ENT_CHUNK * SPAN];
-  __shared__ int stopped;
   const int s = blockIdx.x;
-  const int32_t* m_row = maps + (size_t)s * n_tiles * SPAN;
   int32_t* e_row = ent + (size_t)s * 2 * n_tiles;  // entry bits, offsets
-  int k = 0, e = 0, total = 0, err = 0;  // meaningful in thread 0
-  if (threadIdx.x == 0) stopped = 0;
-  for (int k0 = 0; k0 < n_tiles; k0 += ENT_CHUNK) {
-    const int nk = min(ENT_CHUNK, n_tiles - k0);
-    for (int i = threadIdx.x; i < nk * SPAN; i += ENT_THREADS)
-      m[i] = m_row[(size_t)k0 * SPAN + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (; k < k0 + nk && !stopped; ++k) {
+  int total = 0, err = 0;
+  const int visited = walk_entries<LANE_ENT_THREADS, SPAN>(
+      maps + (size_t)s * n_tiles * SPAN, n_tiles, 0,
+      [&](int k, int e) {
         e_row[k] = e;
         e_row[n_tiles + k] = total;
-        const int v = m[(k - k0) * SPAN + e];
+      },
+      [&](int, int32_t v) {
         total += v >> 8;
-        e = v & 255;
-        if (e >= X_STOP) {
-          stopped = 1;
-          err = e == X_ERR;
-        }
-      }
-    }
-    __syncthreads();  // the verdict, and m is free to be overwritten
-    if (stopped) break;
-  }
+        err = (v & 255) == X_ERR;
+        return (v & 255) >= X_STOP ? -1 : v & 255;
+      });
   if (threadIdx.x == 0) {
     T[s] = min(total, T_max);
-    info[2 * s] = k;  // tiles visited
+    info[2 * s] = visited;
     info[2 * s + 1] = err;
   }
 }
 
-__global__ void __launch_bounds__(PACK_THREADS)
+__global__ void __launch_bounds__(LANE_PACK_THREADS)
 chase_pack_kernel(const int32_t* __restrict__ nxt,
                   const int32_t* __restrict__ ent,
                   const int32_t* __restrict__ info,
                   int32_t* __restrict__ starts, int NBP, int n_tiles,
                   int T_max) {
-  __shared__ int32_t tile[CT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * CT;
-  if (k >= info[2 * s]) return;  // not visited
-  const int32_t* e_row = ent + (size_t)s * 2 * n_tiles;
-  const int e = e_row[k];
-  int o = e_row[n_tiles + k];
+  const ShardBlock p = shard_block(n_tiles);
+  if (p.b >= info[2 * p.s]) return;  // not visited
+  const int32_t* e_row = ent + (size_t)p.s * 2 * n_tiles;
+  int o = e_row[n_tiles + p.b];
   if (o >= T_max) return;  // every start of this tile is dropped
-  const int end = min(base + CT, NBP);
-  const int32_t* row = nxt + (size_t)s * NBP;
-  for (int i = e + threadIdx.x; i < end - base; i += PACK_THREADS)
-    tile[i] = row[base + i];
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  int32_t* srow = starts + (size_t)s * T_max;
-  for (int c = base + e; c < end && o < T_max;) {
-    const int n = tile[c - base];
-    if (n >= NBP || n <= c) break;
-    srow[o++] = c;
-    c = n;
-  }
+  int32_t* srow = starts + (size_t)p.s * T_max;
+  const int base = p.b * CT;
+  pack_tile(nxt + (size_t)p.s * NBP, base, min(base + CT, NBP), e_row[p.b],
+            [&](int32_t n, int c) {
+              if (o >= T_max || n >= NBP || n <= c) return -1;
+              srow[o++] = c;
+              return n;
+            });
 }
 
 constexpr int TR_TILE = 1024;    // tokens of a shard staged at a time
@@ -261,20 +209,16 @@ extern "C" int tpt_token_chase(const void* nxt, void* starts, void* T,
   if (n_tiles != (NBP + CT - 1) / CT) return (int)cudaErrorInvalidValue;
   if (S == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles > 0)
-    chase_maps_kernel<<<dim3(n_tiles, S), MAP_THREADS, 0, st>>>(
-        (const int32_t*)nxt, (int32_t*)maps, NBP, n_tiles);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  chase_entries_kernel<<<S, ENT_THREADS, 0, st>>>(
-      (const int32_t*)maps, (int32_t*)ent, (int32_t*)T, (int32_t*)info,
-      n_tiles, T_max);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (n_tiles > 0)
-    chase_pack_kernel<<<dim3(n_tiles, S), PACK_THREADS, 0, st>>>(
-        (const int32_t*)nxt, (const int32_t*)ent, (const int32_t*)info,
-        (int32_t*)starts, NBP, n_tiles, T_max);
-  return (int)cudaGetLastError();
+  cudaError_t e = launch_shards(chase_maps_kernel, S, n_tiles,
+                                LANE_MAP_THREADS, 0, st, nxt, maps, NBP,
+                                n_tiles);
+  if (e == cudaSuccess)
+    e = launch_shards(chase_entries_kernel, S, 1, LANE_ENT_THREADS, 0, st,
+                      maps, ent, T, info, n_tiles, T_max);
+  if (e == cudaSuccess)
+    e = launch_shards(chase_pack_kernel, S, n_tiles, LANE_PACK_THREADS, 0, st,
+                      nxt, ent, info, starts, NBP, n_tiles, T_max);
+  return (int)e;
 }
 
 // defs_c (S, T_max) zeroed by the caller; entries at or past n_tr[s] are

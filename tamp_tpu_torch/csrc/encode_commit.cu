@@ -24,17 +24,12 @@
 // read once, each output byte written once) and a few operations a
 // position.
 //
-// Design: four launches on the caller's stream, over tiles of FT = 4096
-// positions, every tile of every shard a block.
-//   1. fields_maps_kernel: per tile, in shared memory, the exit map of every
-//      position (the first chain position at or past the tile's end, or a
-//      sink for an error field or a zero advance) with the bits pushed on
-//      the way, by pointer doubling over next[i] = i + adv[i]: log2(FT)
-//      rounds.  A tile is entered at one of its first 256 positions
-//      (adv <= 255), so only those 256 maps are kept.
-//   2. fields_entries_kernel: per shard, one lookup a tile composes the
-//      maps into each visited tile's entry and bit offset, the stop and the
-//      state row (all but S_ACC).
+// Design: four launches on the caller's stream, the first two the doubling
+// front of exit_maps.cuh over tiles of FT positions.
+//   1-2. fields_maps_kernel, fields_entries_kernel: the maps weigh the bits
+//      pushed (an error field or a zero advance is a sink); the entries give
+//      each visited tile its entry and bit offset, and the state row (all
+//      but S_ACC).
 //   3. fields_pack_kernel: each visited tile walks its own chain from its
 //      entry, in shared memory, with the accumulator started at its bit
 //      offset, and ORs each completed word into a word row (atomicOr: the
@@ -52,99 +47,110 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
 constexpr int ERR_EXCESS = 1;
 constexpr int ERR_STALL = 2;  // a zero advance: malformed fields, not data
 constexpr int NSLOTS = 16;
 
-constexpr int FT = 4096;            // positions per tile (B3 and B6)
-constexpr int FENT = 256;           // B3: entry offsets of a tile
 constexpr int MAP_THREADS = 256;
+constexpr int ENT_THREADS = 32;
 constexpr int PACK_THREADS = 128;
+constexpr int FINISH_THREADS = 256;
 constexpr int SINK_EXCESS = -1, SINK_STALL = -2;  // exit-map sinks
 
-// a map word: bits pushed << 32 | exit position (or a sink)
-__device__ __forceinline__ int map_exit(int64_t v) {
-  return (int)(uint32_t)(uint64_t)v;
+// the finish launches' blocks a shard, for a word row of nw words
+__host__ __device__ __forceinline__ int finish_blocks(int nw) {
+  return max(1, min(64, (nw + 255) / 256));
 }
+
+// A finish launch's copy of bytes [0, n) of a shard's word row to its output
+// row by its block b; true in the shard's first thread.
+__device__ __forceinline__ bool copy_out(const uint32_t* w_row,
+                                         uint8_t* o_row, int64_t n,
+                                         int max_out, int nw, int b) {
+  const int64_t step = (int64_t)finish_blocks(nw) * FINISH_THREADS;
+  const int64_t i0 = (int64_t)b * FINISH_THREADS + threadIdx.x;
+  int64_t i = i0;
+  if ((max_out & 3) == 0 && ((uintptr_t)o_row & 3) == 0) {
+    for (; i < n / 4; i += step)
+      reinterpret_cast<uint32_t*>(o_row)[i] = w_row[i];
+    i = 4 * (n / 4) + i0;
+  }
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(w_row);
+  for (; i < n; i += step) o_row[i] = src[i];
+  return i0 == 0;
+}
+
+// The bits of one tile's walk into the shard's word row (its [nw] the tail
+// slot), from bit offset p0 on: each completed word is ORed in, big-endian
+// (the words at tile seams are shared), the one of the stream's last
+// partial bits (word wf) into the tail slot as well.
+struct WordSink {
+  uint32_t* row;
+  int nw;
+  int64_t wf, widx;
+  int an;  // the bits before the tile's first: zeros here
+  uint64_t acc = 0;
+  __device__ __forceinline__ WordSink(uint32_t* row, int nw, int64_t wf,
+                                      int64_t p0)
+      : row(row), nw(nw), wf(wf), widx(p0 >> 5), an((int)(p0 & 31)) {}
+  __device__ __forceinline__ void put(uint32_t w) {
+    if (widx < nw) atomicOr(&row[widx], __byte_perm(w, 0, 0x0123));
+    if (widx == wf) atomicOr(&row[nw], w);
+    ++widx;
+  }
+  __device__ __forceinline__ void push(uint32_t v, int nb) {
+    acc = (acc << nb) | v;
+    an += nb;
+    if (an >= 32) {
+      put((uint32_t)(acc >> (an - 32)));
+      an -= 32;
+    }
+  }
+  __device__ __forceinline__ void close() {  // the seam or last word
+    if (an > 0) put((uint32_t)(acc << (32 - an)));
+  }
+};
 
 __global__ void __launch_bounds__(MAP_THREADS)
 fields_maps_kernel(const int32_t* __restrict__ B,
                    const int32_t* __restrict__ npos_arr,
                    int64_t* __restrict__ maps, int NP, int n_tiles,
                    int idx_bits) {
-  __shared__ int64_t F[FT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
-  const int limit = min(npos_arr[s] - 15, NP);  // first position not walked
-  if (base >= limit) return;                    // never entered
-  const int E = min(FT, limit - base);          // local positions walked
-  const int32_t* b_row = B + (size_t)s * NP + base;
-  for (int i = threadIdx.x; i < FT; i += MAP_THREADS) {
-    int f = i;  // a position past the walk is its own exit
-    int64_t bits = 0;
-    if (i < E) {
-      const int32_t m = b_row[i];
-      const int adv = (m >> 6) & 255;
-      bits = (m & 63) + ((idx_bits > 0 && ((m >> 15) & 1)) ? idx_bits : 0);
-      f = (m & (1 << 14)) ? SINK_EXCESS : adv == 0 ? SINK_STALL : i + adv;
-    }
-    F[i] = (int64_t)((uint64_t)bits << 32 | (uint32_t)f);
-  }
-  __syncthreads();
-  // pointer doubling; in place is safe: every value is a valid (exit, bits)
-  // pair of its position, and a later one only lies further along
-  for (int r = 1; r < FT; r <<= 1) {
-    for (int i = threadIdx.x; i < FT; i += MAP_THREADS) {
-      const int64_t v = F[i];
-      const int g = map_exit(v);
-      if (g >= 0 && g < E) {
-        const int64_t w = F[g];
-        F[i] = (int64_t)((uint64_t)((v >> 32) + (w >> 32)) << 32 |
-                         (uint32_t)map_exit(w));
-      }
-    }
-    __syncthreads();
-  }
-  int64_t* m_row = maps + ((size_t)s * n_tiles + k) * FENT;
-  for (int o = threadIdx.x; o < FENT; o += MAP_THREADS) {
-    const int64_t v = F[o];
-    const int g = map_exit(v);
-    m_row[o] = (int64_t)((uint64_t)(v >> 32) << 32 |
-                         (uint32_t)(g < 0 ? g : base + g));
-  }
+  position_maps<MAP_THREADS>(npos_arr, maps, NP, n_tiles,
+                             [&](int s, int base, int i) {
+    const int32_t m = B[(size_t)s * NP + base + i];
+    const int adv = (m >> 6) & 255;
+    const int bits =
+        (m & 63) + ((idx_bits > 0 && ((m >> 15) & 1)) ? idx_bits : 0);
+    return map_word(bits, (m & (1 << 14)) ? SINK_EXCESS
+                          : adv == 0      ? SINK_STALL
+                                          : i + adv);
+  });
 }
 
-__global__ void fields_entries_kernel(const int32_t* __restrict__ npos_arr,
-                                      const int64_t* __restrict__ maps,
-                                      int32_t* __restrict__ ent,
-                                      int64_t* __restrict__ off,
-                                      int64_t* __restrict__ total,
-                                      int32_t* __restrict__ state, int NP,
-                                      int n_tiles) {
+__global__ void __launch_bounds__(ENT_THREADS)
+fields_entries_kernel(const int32_t* __restrict__ npos_arr,
+                      const int64_t* __restrict__ maps,
+                      int32_t* __restrict__ ent, int64_t* __restrict__ off,
+                      int64_t* __restrict__ total,
+                      int32_t* __restrict__ state, int NP, int n_tiles) {
   const int s = blockIdx.x;
-  int32_t* e_row = ent + (size_t)s * n_tiles;
-  for (int i = threadIdx.x; i < n_tiles; i += 32) e_row[i] = -1;
-  __syncwarp();
-  if (threadIdx.x != 0) return;
   const int npos = npos_arr[s];
-  const int limit = min(npos - 15, NP);
-  int e = 0;
-  int64_t bits = 0;
-  while (e >= 0 && e < limit) {  // e lies in the first FENT of its tile
-    const int k = e / FT;
-    e_row[k] = e;
-    off[(size_t)s * n_tiles + k] = bits;
-    const int64_t v = maps[((size_t)s * n_tiles + k) * FENT + (e - k * FT)];
-    bits += v >> 32;
-    e = map_exit(v);
-  }
-  const int err = e == SINK_EXCESS ? ERR_EXCESS
-                  : e == SINK_STALL ? ERR_STALL
-                                    : 0;
+  int stop;
+  const int64_t bits = walk_positions<ENT_THREADS>(
+      maps + (size_t)s * n_tiles * FENT, n_tiles, min(npos - 15, NP),
+      ent + (size_t)s * n_tiles, off + (size_t)s * n_tiles, stop);
+  if (threadIdx.x != 0) return;
+  const int err = stop == SINK_EXCESS ? ERR_EXCESS
+                  : stop == SINK_STALL ? ERR_STALL
+                                       : 0;
   total[s] = bits;
   int32_t* st = state + (size_t)s * NSLOTS;
-  st[0] = err ? npos : e;
+  st[0] = err ? npos : stop;
   st[1] = (int32_t)(4 * (bits >> 5));
   st[2] = 0;  // S_ACC: fields_finish_kernel
   st[3] = (int32_t)(bits & 31);
@@ -163,79 +169,46 @@ fields_pack_kernel(const int32_t* __restrict__ A,
                    const int64_t* __restrict__ total,
                    uint32_t* __restrict__ words, int NP, int n_tiles, int nw,
                    int idx_bits) {
-  __shared__ int32_t sa[FT];
-  __shared__ int32_t sb[FT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
-  const int e = ent[(size_t)s * n_tiles + k];
+  __shared__ __align__(16) int32_t sa[FT];
+  __shared__ __align__(16) int32_t sb[FT];
+  const ShardBlock p = shard_block(n_tiles);
+  const int s = p.s, base = p.b * FT;
+  const int e = ent[(size_t)s * n_tiles + p.b];
   if (e < 0) return;
   const int end = min(base + FT, min(npos_arr[s] - 15, NP));
-  const int32_t* a_row = A + (size_t)s * NP;
-  const int32_t* b_row = B + (size_t)s * NP;
-  for (int i = e + threadIdx.x; i < end; i += PACK_THREADS) {
-    sa[i - base] = a_row[i];
-    sb[i - base] = b_row[i];
-  }
+  const size_t row = (size_t)s * NP + base;
+  stage_words<PACK_THREADS>(sa, A + row, e - base, end - base);
+  stage_words<PACK_THREADS>(sb, B + row, e - base, end - base);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  uint32_t* w_row = words + (size_t)s * (nw + 1);  // [nw] is the tail slot
-  const int64_t wf = total[s] >> 5;  // the word of the last partial bits
-  const int64_t p0 = off[(size_t)s * n_tiles + k];
-  int64_t widx = p0 >> 5;
-  int an = (int)(p0 & 31);  // the bits before the tile's first: zeros here
-  uint64_t acc = 0;
-  auto put = [&](uint32_t w) {  // the word widx, big-endian in memory
-    if (widx < nw) atomicOr(&w_row[widx], __byte_perm(w, 0, 0x0123));
-    if (widx == wf) atomicOr(&w_row[nw], w);
-    ++widx;
-  };
+  WordSink out(words + (size_t)s * (nw + 1), nw, total[s] >> 5,
+               off[(size_t)s * n_tiles + p.b]);
   for (int t = e; t < end;) {
     const int32_t m = sb[t - base];
-    const int nb = m & 63;
-    acc = (acc << nb) | (uint32_t)sa[t - base];
-    an += nb;
-    if (an >= 32) {
-      put((uint32_t)(acc >> (an - 32)));
-      an -= 32;
-    }
-    if (idx_bits > 0 && ((m >> 15) & 1)) {
-      acc = (acc << idx_bits) | (uint32_t)((m >> 16) & 0x7FFF);
-      an += idx_bits;
-      if (an >= 32) {
-        put((uint32_t)(acc >> (an - 32)));
-        an -= 32;
-      }
-    }
+    out.push((uint32_t)sa[t - base], m & 63);
+    if (idx_bits > 0 && ((m >> 15) & 1))
+      out.push((uint32_t)((m >> 16) & 0x7FFF), idx_bits);
     const int adv = (m >> 6) & 255;
     if ((m & (1 << 14)) || adv == 0) break;
     t += adv;
   }
-  if (an > 0) put((uint32_t)(acc << (32 - an)));  // the seam or last word
+  out.close();
 }
 
-__global__ void fields_finish_kernel(const uint32_t* __restrict__ words,
-                                     const int64_t* __restrict__ total,
-                                     uint8_t* __restrict__ out,
-                                     int32_t* __restrict__ state, int max_out,
-                                     int nw) {
-  const int s = blockIdx.y;
-  const uint32_t* w_row = words + (size_t)s * (nw + 1);
-  const int64_t bits = total[s];
-  const int64_t n = min(bits >> 5, (int64_t)nw);  // complete words that fit
-  uint8_t* o_row = out + (size_t)s * max_out;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((max_out & 3) == 0 && ((uintptr_t)o_row & 3) == 0) {
-    for (int64_t i = i0; i < n; i += step)
-      reinterpret_cast<uint32_t*>(o_row)[i] = w_row[i];
-  } else {
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(w_row);
-    for (int64_t i = i0; i < 4 * n; i += step) o_row[i] = src[i];
-  }
-  if (i0 == 0) {
-    const int an = (int)(bits & 31);
-    state[(size_t)s * NSLOTS + 2] =
-        an ? (int32_t)(w_row[nw] >> (32 - an)) : 0;
-  }
+__global__ void __launch_bounds__(FINISH_THREADS)
+fields_finish_kernel(const uint32_t* __restrict__ words,
+                     const int64_t* __restrict__ total,
+                     uint8_t* __restrict__ out, int32_t* __restrict__ state,
+                     int max_out, int nw) {
+  const ShardBlock p = shard_block(finish_blocks(nw));
+  const uint32_t* w_row = words + (size_t)p.s * (nw + 1);
+  const int64_t bits = total[p.s];
+  // the complete words that fit
+  if (!copy_out(w_row, out + (size_t)p.s * max_out,
+                4 * min(bits >> 5, (int64_t)nw), max_out, nw, p.b))
+    return;
+  const int an = (int)(bits & 31);
+  state[(size_t)p.s * NSLOTS + 2] = an ? (int32_t)(w_row[nw] >> (32 - an)) : 0;
 }
 
 // Kernel B6: the lazy v1 greedy walk.
@@ -268,21 +241,19 @@ __global__ void fields_finish_kernel(const uint32_t* __restrict__ words,
 //
 // Design: B3's four launches on the caller's stream, over tiles of FT
 // positions (2 x FT nodes), every tile of every shard a block:
-//   1. lazy_maps_kernel: per tile, in shared memory, the exit map of every
-//      node (the first chain node at or past the tile's end, or a sink that
-//      names the node whose literal is an excess byte) with the bits pushed
-//      on the way, by pointer doubling: log2(FT) rounds.  A match's advance
-//      can be a cached probe size up to 65535, so a tile can be entered at
-//      any node and every node's map is kept (16 B a position).
+//   1. lazy_maps_kernel: the doubling front of exit_maps.cuh over the
+//      tile's nodes, the weight the bits pushed, a sink that names the node
+//      whose literal is an excess byte.  A match's advance can be a cached
+//      probe size up to 65535, so a tile can be entered at any node and
+//      every node's map is kept (16 B a position).
 //   2. lazy_entries_kernel: per shard, one lookup a visited tile gives each
 //      visited tile's entry node and bit offset, the stop (or the erring
-//      node) and the state row (all but S_ACC, S_CIDX and S_CSZ).
+//      node) and the state row (all but S_ACC, S_CIDX and S_CSZ); its own
+//      walk, since a chain may pass over a tile.
 //   3. lazy_pack_kernel: each visited tile walks its own chain from its
 //      entry node, in shared memory, with the accumulator started at its bit
-//      offset, and ORs each completed word into a word row (atomicOr: the
-//      words at tile seams are shared); the word holding the stream's last
-//      partial bits also goes to a tail slot.  It leaves its cache at its
-//      exit and the last deferred size it saw.
+//      offset, into the word row as B3's pack does.  It leaves its cache at
+//      its exit and the last deferred size it saw.
 //   4. lazy_finish_kernel: the bytes that fit in max_out to the output row,
 //      S_ACC from the tail slot, S_CIDX and S_CSZ from the tiles.
 // The wrapper (ops/encode_commit.commit_v1_lazy) allocates the workspace
@@ -356,46 +327,24 @@ __device__ __forceinline__ LazyStep lazy_node_step(const int32_t* p_row,
 __global__ void __launch_bounds__(LAZY_MAP_THREADS)
 lazy_maps_kernel(const int32_t* __restrict__ P, const int32_t* __restrict__ Q,
                  const int32_t* __restrict__ npos_arr,
-                 int64_t* __restrict__ maps, int NP, LazyCfg c) {
+                 int64_t* __restrict__ maps, int NP, int n_tiles, LazyCfg c) {
   extern __shared__ int64_t F[];  // 2 * FT nodes
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
+  const ShardBlock sb = shard_block(n_tiles);
+  const int s = sb.s, base = sb.b * FT;
   const int limit = min(npos_arr[s] - 15, NP);  // first position not walked
   if (base >= limit) return;                    // never entered
   const int N = 2 * min(FT, limit - base);      // local nodes walked
   const int32_t* p_row = P + (size_t)s * NP;
   const int32_t* q_row = Q + (size_t)s * NP;
-  for (int n = threadIdx.x; n < N; n += LAZY_MAP_THREADS) {
+  double_maps<LAZY_MAP_THREADS>(F, N, [&](int n) {
     const int t = base + (n >> 1), d = n & 1;
-    int f = n;  // node (0, 1): unreachable, its own exit
-    int64_t bits = 0;
-    if (t > 0 || !d) {
-      const LazyStep r = lazy_node_step(p_row, q_row, t, d, c);
-      bits = r.nb;
-      f = r.err ? -1 - n : 2 * (r.next - base) + r.defer;
-    }
-    F[n] = (int64_t)((uint64_t)bits << 32 | (uint32_t)f);
-  }
-  __syncthreads();
-  // pointer doubling (B3's): a chain in a tile has at most FT hops
-  for (int r = 1; r < FT; r <<= 1) {
-    for (int n = threadIdx.x; n < N; n += LAZY_MAP_THREADS) {
-      const int64_t v = F[n];
-      const int g = map_exit(v);
-      if (g >= 0 && g < N) {
-        const int64_t w = F[g];
-        F[n] = (int64_t)((uint64_t)((v >> 32) + (w >> 32)) << 32 |
-                         (uint32_t)map_exit(w));
-      }
-    }
-    __syncthreads();
-  }
-  int64_t* m_row = maps + (size_t)s * 2 * NP + 2 * base;
-  for (int n = threadIdx.x; n < N; n += LAZY_MAP_THREADS) {
-    const int64_t v = F[n];
-    const int g = map_exit(v);  // to global nodes: a sink is -1 - node
-    m_row[n] = (int64_t)((uint64_t)(v >> 32) << 32 |
-                         (uint32_t)(g < 0 ? g - 2 * base : g + 2 * base));
-  }
+    if (t == 0 && d) return map_word(0, n);  // node (0, 1): never entered
+    const LazyStep r = lazy_node_step(p_row, q_row, t, d, c);
+    return map_word(r.nb, r.err ? -1 - n : 2 * (r.next - base) + r.defer);
+  });
+  // to global nodes: a sink is -1 - node
+  store_maps<LAZY_MAP_THREADS>(F, maps + (size_t)s * 2 * NP + 2 * base, N, N,
+                               2 * base, 2 * base);
 }
 
 // per-tile slots of the tiles workspace (int32 x TL_N)
@@ -414,7 +363,7 @@ __global__ void lazy_entries_kernel(const int32_t* __restrict__ P,
                                     int n_tiles, LazyCfg c) {
   const int s = blockIdx.x;
   int32_t* t_row = tiles + (size_t)s * n_tiles * TL_N;
-  for (int i = threadIdx.x; i < n_tiles; i += 32) {
+  for (int i = threadIdx.x; i < n_tiles; i += ENT_THREADS) {
     t_row[TL_N * i + TL_ENTRY] = -1;
     t_row[TL_N * i + TL_CIDX] = -1;
     t_row[TL_N * i + TL_CSZ] = 0;  // no deferral seen
@@ -468,33 +417,24 @@ lazy_pack_kernel(const int32_t* __restrict__ P, const int32_t* __restrict__ Q,
                  const int64_t* __restrict__ meta,
                  uint32_t* __restrict__ words, int NP, int n_tiles, int nw,
                  LazyCfg c) {
-  __shared__ int32_t sp[FT];
-  __shared__ int32_t sq[FT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
-  int32_t* tl = tiles + ((size_t)s * n_tiles + k) * TL_N;
+  __shared__ __align__(16) int32_t sp[FT];
+  __shared__ __align__(16) int32_t sq[FT];
+  const ShardBlock sb = shard_block(n_tiles);
+  const int s = sb.s, base = sb.b * FT;
+  int32_t* tl = tiles + ((size_t)s * n_tiles + sb.b) * TL_N;
   const int node = tl[TL_ENTRY];
   if (node < 0) return;
   const int e = node >> 1;
   const int end = min(base + FT, min(npos_arr[s] - 15, NP));
-  const int32_t* p_row = P + (size_t)s * NP;
   const int32_t* q_row = Q + (size_t)s * NP;
-  for (int i = e + threadIdx.x; i < end; i += LAZY_PACK_THREADS) {
-    sp[i - base] = p_row[i];
-    sq[i - base] = q_row[i];
-  }
+  stage_words<LAZY_PACK_THREADS>(sp, P + (size_t)s * NP + base, e - base,
+                                 end - base);
+  stage_words<LAZY_PACK_THREADS>(sq, q_row + base, e - base, end - base);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  uint32_t* w_row = words + (size_t)s * (nw + 1);  // [nw] is the tail slot
-  const int64_t wf = meta[(size_t)s * MT_N + MT_BITS] >> 5;
-  const int64_t p0 = off[(size_t)s * n_tiles + k];
-  int64_t widx = p0 >> 5;
-  int an = (int)(p0 & 31);  // the bits before the tile's first: zeros here
-  uint64_t acc = 0;
-  auto put = [&](uint32_t w) {  // the word widx, big-endian in memory
-    if (widx < nw) atomicOr(&w_row[widx], __byte_perm(w, 0, 0x0123));
-    if (widx == wf) atomicOr(&w_row[nw], w);
-    ++widx;
-  };
+  WordSink out(words + (size_t)s * (nw + 1), nw,
+               meta[(size_t)s * MT_N + MT_BITS] >> 5,
+               off[(size_t)s * n_tiles + sb.b]);
   int cidx = -1, csz = 0, seen = 0;
   if (node & 1) {  // entered with the probe of e - 1 deferred
     const int32_t qp = q_row[e - 1];
@@ -514,45 +454,30 @@ lazy_pack_kernel(const int32_t* __restrict__ P, const int32_t* __restrict__ Q,
     if (r.defer) seen = csz = r.psz;
     // the reference drains bytes: a value's bits above its field reach
     // back into the < 8 pending bits only
-    const uint32_t v = r.v & (uint32_t)((1ull << (r.nb + (an & 7))) - 1);
-    acc = (acc << r.nb) | v;
-    an += r.nb;
-    if (an >= 32) {
-      put((uint32_t)(acc >> (an - 32)));
-      an -= 32;
-    }
+    out.push(r.v & (uint32_t)((1ull << (r.nb + (out.an & 7))) - 1), r.nb);
     if (r.err) break;
     t = r.next;
   }
-  if (an > 0) put((uint32_t)(acc << (32 - an)));  // the seam or last word
+  out.close();
   tl[TL_CIDX] = cidx;
   tl[TL_CSZ] = seen;
 }
 
-__global__ void lazy_finish_kernel(const uint32_t* __restrict__ words,
-                                   const int32_t* __restrict__ tiles,
-                                   const int64_t* __restrict__ meta,
-                                   uint8_t* __restrict__ out,
-                                   int32_t* __restrict__ state, int max_out,
-                                   int nw, int n_tiles) {
-  const int s = blockIdx.y;
+__global__ void __launch_bounds__(FINISH_THREADS)
+lazy_finish_kernel(const uint32_t* __restrict__ words,
+                   const int32_t* __restrict__ tiles,
+                   const int64_t* __restrict__ meta, uint8_t* __restrict__ out,
+                   int32_t* __restrict__ state, int max_out, int nw,
+                   int n_tiles) {
+  const ShardBlock p = shard_block(finish_blocks(nw));
+  const int s = p.s;
   const uint32_t* w_row = words + (size_t)s * (nw + 1);
   const int64_t* mt = meta + (size_t)s * MT_N;
   const int64_t bits = mt[MT_BITS];
-  const int64_t n = min(bits >> 3, (int64_t)max_out);  // bytes that fit
-  uint8_t* o_row = out + (size_t)s * max_out;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((max_out & 3) == 0 && ((uintptr_t)o_row & 3) == 0) {
-    for (int64_t i = i0; i < n / 4; i += step)
-      reinterpret_cast<uint32_t*>(o_row)[i] = w_row[i];
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(w_row);
-    for (int64_t i = 4 * (n / 4) + i0; i < n; i += step) o_row[i] = src[i];
-  } else {
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(w_row);
-    for (int64_t i = i0; i < n; i += step) o_row[i] = src[i];
-  }
-  if (i0 != 0) return;
+  // the bytes that fit
+  if (!copy_out(w_row, out + (size_t)s * max_out,
+                min(bits >> 3, (int64_t)max_out), max_out, nw, p.b))
+    return;
   int32_t* st = state + (size_t)s * NSLOTS;
   const int an = (int)(bits & 7);
   uint32_t acc = 0;
@@ -595,26 +520,19 @@ extern "C" int tpt_commit_v1_lazy(const void* P, const void* Q,
   cudaError_t e = cudaFuncSetAttribute(
       lazy_maps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  if (n_tiles > 0)
-    lazy_maps_kernel<<<dim3(n_tiles, S), LAZY_MAP_THREADS, smem, st>>>(
-        (const int32_t*)P, (const int32_t*)Q, (const int32_t*)npos,
-        (int64_t*)maps, NP, c);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  lazy_entries_kernel<<<S, 32, 0, st>>>(
-      (const int32_t*)P, (const int32_t*)Q, (const int32_t*)npos,
-      (const int64_t*)maps, (int32_t*)tiles, (int64_t*)off, (int64_t*)meta,
-      (int32_t*)state, NP, n_tiles, c);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (n_tiles > 0)
-    lazy_pack_kernel<<<dim3(n_tiles, S), LAZY_PACK_THREADS, 0, st>>>(
-        (const int32_t*)P, (const int32_t*)Q, (const int32_t*)npos,
-        (int32_t*)tiles, (const int64_t*)off, (const int64_t*)meta,
-        (uint32_t*)words, NP, n_tiles, nw, c);
-  const int blocks = max(1, min(64, (nw + 255) / 256));
-  lazy_finish_kernel<<<dim3(blocks, S), 256, 0, st>>>(
-      (const uint32_t*)words, (const int32_t*)tiles, (const int64_t*)meta,
-      (uint8_t*)out, (int32_t*)state, max_out, nw, n_tiles);
-  return (int)cudaGetLastError();
+  e = launch_shards(lazy_maps_kernel, S, n_tiles, LAZY_MAP_THREADS, smem, st,
+                    P, Q, npos, maps, NP, n_tiles, c);
+  if (e == cudaSuccess)
+    e = launch_shards(lazy_entries_kernel, S, 1, ENT_THREADS, 0, st, P, Q,
+                      npos, maps, tiles, off, meta, state, NP, n_tiles, c);
+  if (e == cudaSuccess)
+    e = launch_shards(lazy_pack_kernel, S, n_tiles, LAZY_PACK_THREADS, 0, st,
+                      P, Q, npos, tiles, off, meta, words, NP, n_tiles, nw, c);
+  if (e == cudaSuccess)
+    e = launch_shards(lazy_finish_kernel, S, finish_blocks(nw),
+                      FINISH_THREADS, 0, st, words, tiles, meta, out, state,
+                      max_out, nw, n_tiles);
+  return (int)e;
 }
 
 extern "C" int tpt_commit_fields(const void* A, const void* B,
@@ -649,23 +567,20 @@ extern "C" int tpt_commit_fields(const void* A, const void* B,
   int32_t* ent = reinterpret_cast<int32_t*>(total + S);
   uint32_t* words = reinterpret_cast<uint32_t*>(ent + n_off);
   e = cudaMemsetAsync(words, 0, 4 * n_words, st);
-  if (e == cudaSuccess) {
-    if (n_tiles > 0)
-      fields_maps_kernel<<<dim3(n_tiles, S), MAP_THREADS, 0, st>>>(
-          (const int32_t*)B, (const int32_t*)npos, maps, NP, n_tiles,
-          idx_bits);
-    fields_entries_kernel<<<S, 32, 0, st>>>((const int32_t*)npos, maps, ent,
-                                            off, total, (int32_t*)state, NP,
-                                            n_tiles);
-    if (n_tiles > 0)
-      fields_pack_kernel<<<dim3(n_tiles, S), PACK_THREADS, 0, st>>>(
-          (const int32_t*)A, (const int32_t*)B, (const int32_t*)npos, ent,
-          off, total, words, NP, n_tiles, nw, idx_bits);
-    const int blocks = max(1, min(64, (nw + 255) / 256));
-    fields_finish_kernel<<<dim3(blocks, S), 256, 0, st>>>(
-        words, total, (uint8_t*)out, (int32_t*)state, max_out, nw);
-    e = cudaGetLastError();
-  }
+  if (e == cudaSuccess)
+    e = launch_shards(fields_maps_kernel, S, n_tiles, MAP_THREADS, 0, st, B,
+                      npos, maps, NP, n_tiles, idx_bits);
+  if (e == cudaSuccess)
+    e = launch_shards(fields_entries_kernel, S, 1, ENT_THREADS, 0, st, npos,
+                      maps, ent, off, total, state, NP, n_tiles);
+  if (e == cudaSuccess)
+    e = launch_shards(fields_pack_kernel, S, n_tiles, PACK_THREADS, 0, st, A,
+                      B, npos, ent, off, total, words, NP, n_tiles, nw,
+                      idx_bits);
+  if (e == cudaSuccess)
+    e = launch_shards(fields_finish_kernel, S, finish_blocks(nw),
+                      FINISH_THREADS, 0, st, words, total, out, state,
+                      max_out, nw);
   const cudaError_t f = cudaFreeAsync(ws, st);
   return (int)(e != cudaSuccess ? e : f);
 }

@@ -26,15 +26,12 @@
 // is bytes (each visited word read once, the bitmap and the entries written
 // once) and a few operations a step.
 //
-// Design: B3's launches on the caller's stream, over tiles of FT = 4096
-// positions, every tile of every shard a block:
-//   1. predict_maps_kernel: per tile, in shared memory, the exit map of
-//      every position (the first chain position at or past the tile's end)
-//      with the entries emitted on the way, by pointer doubling: log2(FT)
-//      rounds.  An advance is at most 241, so a tile is entered at one of
-//      its first 256 positions and only those maps are kept.
-//   2. predict_entries_kernel: per shard, one lookup a tile gives each
-//      visited tile's entry position and entry offset, and the state row.
+// Design: B3's launches on the caller's stream, the first two the doubling
+// front of exit_maps.cuh over tiles of FT positions (an advance is at most
+// 241).
+//   1-2. predict_maps_kernel, predict_entries_kernel: the maps weigh the
+//      entry words appended; the entries give each visited tile its entry
+//      position and entry offset, and the state row.
 //   3. predict_pack_kernel: every tile writes its 128 bitmap words (it owns
 //      them: no atomics); a visited tile first walks its own chain from its
 //      entry, in shared memory, setting its bits and writing its entries
@@ -47,11 +44,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
-constexpr int FT = 4096;   // positions per tile
-constexpr int FENT = 256;  // entry offsets of a tile (an advance is <= 241)
 constexpr int MAP_THREADS = 256;
+constexpr int ENT_THREADS = 32;
 constexpr int PACK_THREADS = 128;
 constexpr int NSLOTS = 8;
 constexpr int ECHUNK_W = 128;
@@ -80,83 +78,36 @@ __device__ __forceinline__ int predict_step(int t, int32_t p, int32_t q,
   return rle_go ? min(run, 241) : ((matchy && !go_lazy) ? ln : 1);
 }
 
-// a map word: entries emitted << 32 | exit position
-__device__ __forceinline__ int map_exit(int64_t v) {
-  return (int)(uint32_t)(uint64_t)v;
-}
-
 __global__ void __launch_bounds__(MAP_THREADS)
 predict_maps_kernel(const int32_t* __restrict__ pk,
                     const int32_t* __restrict__ pp,
                     const int32_t* __restrict__ npos_arr,
                     int64_t* __restrict__ maps, int NP, int n_tiles,
                     PredictCfg c) {
-  __shared__ int64_t F[FT];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
-  const int limit = min(npos_arr[s] - 15, NP);  // first position not walked
-  if (base >= limit) return;                    // never entered
-  const int E = min(FT, limit - base);          // local positions walked
-  const int32_t* k_row = pk + (size_t)s * NP + base;
-  const int32_t* q_row = pp + (size_t)s * NP + base;
   const int per = c.lazy ? 2 : 1;  // words an entry appends
-  for (int i = threadIdx.x; i < FT; i += MAP_THREADS) {
-    int f = i;  // a position past the walk is its own exit
-    int64_t cnt = 0;
-    if (i < E) {
-      int emits;
-      f = i + predict_step(base + i, k_row[i], c.lazy ? q_row[i] : 0, c,
-                           &emits);
-      cnt = emits * per;
-    }
-    F[i] = (int64_t)((uint64_t)cnt << 32 | (uint32_t)f);
-  }
-  __syncthreads();
-  // pointer doubling; in place is safe (B3's argument): every value is a
-  // valid (exit, count) pair of its position, a later one further along
-  for (int r = 1; r < FT; r <<= 1) {
-    for (int i = threadIdx.x; i < E; i += MAP_THREADS) {
-      const int64_t v = F[i];
-      const int g = map_exit(v);
-      if (g < E) {
-        const int64_t w = F[g];
-        F[i] = (int64_t)((uint64_t)((v >> 32) + (w >> 32)) << 32 |
-                         (uint32_t)map_exit(w));
-      }
-    }
-    __syncthreads();
-  }
-  int64_t* m_row = maps + ((size_t)s * n_tiles + k) * FENT;
-  for (int o = threadIdx.x; o < FENT; o += MAP_THREADS) {
-    const int64_t v = F[o];
-    m_row[o] = (int64_t)((uint64_t)(v >> 32) << 32 |
-                         (uint32_t)(base + map_exit(v)));
-  }
+  position_maps<MAP_THREADS>(npos_arr, maps, NP, n_tiles,
+                             [&](int s, int base, int i) {
+    const size_t t = (size_t)s * NP + base + i;
+    int emits;
+    const int adv =
+        predict_step(base + i, pk[t], c.lazy ? pp[t] : 0, c, &emits);
+    return map_word(emits * per, i + adv);
+  });
 }
 
-__global__ void predict_entries_kernel(const int32_t* __restrict__ npos_arr,
-                                       const int64_t* __restrict__ maps,
-                                       int32_t* __restrict__ ent_at,
-                                       int32_t* __restrict__ ent_off,
-                                       int32_t* __restrict__ state, int NP,
-                                       int n_tiles) {
+__global__ void __launch_bounds__(ENT_THREADS)
+predict_entries_kernel(const int32_t* __restrict__ npos_arr,
+                       const int64_t* __restrict__ maps,
+                       int32_t* __restrict__ ent_at,
+                       int32_t* __restrict__ ent_off,
+                       int32_t* __restrict__ state, int NP, int n_tiles) {
   const int s = blockIdx.x;
-  int32_t* a_row = ent_at + (size_t)s * n_tiles;
-  for (int i = threadIdx.x; i < n_tiles; i += 32) a_row[i] = -1;
-  __syncwarp();
+  int t;  // where the walk stops
+  const int64_t ne = walk_positions<ENT_THREADS>(
+      maps + (size_t)s * n_tiles * FENT, n_tiles,
+      min(npos_arr[s] - 15, NP), ent_at + (size_t)s * n_tiles,
+      ent_off + (size_t)s * n_tiles, t);
   if (threadIdx.x != 0) return;
-  const int limit = min(npos_arr[s] - 15, NP);
-  int t = 0;
-  int64_t ne = 0;
-  // t lies in the first FENT of its tile, and a tile's exit in a later
-  // tile: at most n_tiles lookups
-  for (int hop = 0; hop < n_tiles && t < limit; ++hop) {
-    const int k = t / FT;
-    a_row[k] = t;
-    ent_off[(size_t)s * n_tiles + k] = (int32_t)ne;
-    const int64_t v = maps[((size_t)s * n_tiles + k) * FENT + (t - k * FT)];
-    ne += v >> 32;
-    t = map_exit(v);
-  }
   int32_t* st = state + (size_t)s * NSLOTS;
   st[0] = (int32_t)ne;
   st[1] = t;
@@ -172,20 +123,18 @@ predict_pack_kernel(const int32_t* __restrict__ pk,
                     const int32_t* __restrict__ ent_off,
                     int32_t* __restrict__ bm, int32_t* __restrict__ ent,
                     int NP, int n_tiles, int epad, PredictCfg c) {
-  __shared__ int32_t sk[FT];
-  __shared__ int32_t sq[FT];
+  __shared__ __align__(16) int32_t sk[FT];
+  __shared__ __align__(16) int32_t sq[FT];
   __shared__ uint32_t bits[FT / 32];
-  const int s = blockIdx.y, k = blockIdx.x, base = k * FT;
+  const ShardBlock sb = shard_block(n_tiles);
+  const int s = sb.s, k = sb.b, base = k * FT;
   const int e = ent_at[(size_t)s * n_tiles + k];
   const int end = min(base + FT, min(npos_arr[s] - 15, NP));
   for (int i = threadIdx.x; i < FT / 32; i += PACK_THREADS) bits[i] = 0;
   if (e >= 0) {
-    const int32_t* k_row = pk + (size_t)s * NP;
-    const int32_t* q_row = pp + (size_t)s * NP;
-    for (int i = e + threadIdx.x; i < end; i += PACK_THREADS) {
-      sk[i - base] = k_row[i];
-      if (c.lazy) sq[i - base] = q_row[i];
-    }
+    const size_t row = (size_t)s * NP + base;
+    stage_words<PACK_THREADS>(sk, pk + row, e - base, end - base);
+    if (c.lazy) stage_words<PACK_THREADS>(sq, pp + row, e - base, end - base);
   }
   __syncthreads();
   if (e >= 0 && threadIdx.x == 0) {
@@ -223,21 +172,13 @@ extern "C" int tpt_greedy_predict(const void* pk, const void* pp,
   if (S == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const PredictCfg c{(1 << window) - 1, minp, lazy};
-  if (n_tiles > 0)
-    predict_maps_kernel<<<dim3(n_tiles, S), MAP_THREADS, 0, st>>>(
-        (const int32_t*)pk, (const int32_t*)pp, (const int32_t*)npos,
-        (int64_t*)maps, NP, n_tiles, c);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  predict_entries_kernel<<<S, 32, 0, st>>>((const int32_t*)npos,
-                                           (const int64_t*)maps,
-                                           (int32_t*)ent_at, (int32_t*)ent_off,
-                                           (int32_t*)state, NP, n_tiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (n_tiles > 0)
-    predict_pack_kernel<<<dim3(n_tiles, S), PACK_THREADS, 0, st>>>(
-        (const int32_t*)pk, (const int32_t*)pp, (const int32_t*)npos,
-        (const int32_t*)ent_at, (const int32_t*)ent_off, (int32_t*)bm,
-        (int32_t*)ent, NP, n_tiles, epad, c);
-  return (int)cudaGetLastError();
+  cudaError_t e = launch_shards(predict_maps_kernel, S, n_tiles, MAP_THREADS,
+                                0, st, pk, pp, npos, maps, NP, n_tiles, c);
+  if (e == cudaSuccess)
+    e = launch_shards(predict_entries_kernel, S, 1, ENT_THREADS, 0, st, npos,
+                      maps, ent_at, ent_off, state, NP, n_tiles);
+  if (e == cudaSuccess)
+    e = launch_shards(predict_pack_kernel, S, n_tiles, PACK_THREADS, 0, st, pk,
+                      pp, npos, ent_at, ent_off, bm, ent, NP, n_tiles, epad, c);
+  return (int)e;
 }

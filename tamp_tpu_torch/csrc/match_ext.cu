@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exit_maps.cuh"
+
 namespace {
 
 constexpr int TB = 256;     // positions (threads) per block
@@ -302,8 +304,9 @@ tables_kernel(const uint8_t* __restrict__ row0,
   const int slab_len = TB + W + slab_pad(kLong, lrun);  // a multiple of 32
   uint8_t* slab = smem;
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem + slab_len);
-  const int s = blockIdx.y;
-  const int t0 = blockIdx.x * TB;
+  const ShardBlock sb = shard_block((MP + TB - 1) / TB);
+  const int s = sb.s;
+  const int t0 = sb.b * TB;
   const uint8_t* row = row0 + (size_t)s * MP;
   const int lane = threadIdx.x & 31;
   // stage the slab; each warp's 32 bytes also give one word of each plane
@@ -414,13 +417,11 @@ int launch(const void* row, const void* npos, const void* dict, void* len_m,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (S == 0 || MP == 0) return 0;
-  dim3 grid((MP + TB - 1) / TB, S);
-  tables_kernel<kProbe, kLong><<<grid, TB, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)row, (const int32_t*)npos, (const uint8_t*)dict,
-      (int32_t*)len_m, (int32_t*)idx_m, (int32_t*)len_l, (int32_t*)idx_l,
-      (int32_t*)len_p, (int32_t*)idx_p, MP, wbits, cap, lrun);
-  return (int)cudaGetLastError();
+  return (int)launch_shards(tables_kernel<kProbe, kLong>, S,
+                            (MP + TB - 1) / TB, TB, smem,
+                            (cudaStream_t)stream, row, npos, dict, len_m,
+                            idx_m, len_l, idx_l, len_p, idx_p, MP, wbits, cap,
+                            lrun);
 }
 
 }  // namespace

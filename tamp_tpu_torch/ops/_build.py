@@ -42,7 +42,10 @@ SOURCES = ("match_ext", "encode_commit", "decode_commit", "decode_wavefront",
            "decode_parse", "decode_serial", "greedy_predict", "opt_parse",
            "greedy_commit", "stream")
 # the csrc files a source includes, hashed with it
-DEPS = {"stream": ("greedy_commit.cpp",)}
+DEPS = {"stream": ("greedy_commit.cpp",),
+        **{name: ("exit_maps.cuh",)
+           for name in ("match_ext", "encode_commit", "decode_commit",
+                        "decode_wavefront", "decode_parse", "greedy_predict")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]

@@ -26,8 +26,10 @@ from tamp_tpu_torch.engine import tail as tail_mod
 from tamp_tpu_torch.engine.greedy import (
     SPARSE_NONE, greedy_compress, host_v1_tables,
 )
+from tamp_tpu_torch.engine.pipeline import encode_v1_device_commit
 from tamp_tpu_torch.engine.pipeline_ext import (
-    encode_ext_device_greedy, optimal_batch, optimal_prep,
+    encode_ext_device_commit, encode_ext_device_greedy, optimal_batch,
+    optimal_prep,
 )
 from tamp_tpu_torch.ops.greedy_predict import (
     greedy_predict_batch, greedy_predict_plain, pack_predict_plane,
@@ -485,7 +487,7 @@ def hazard_rows_ext(seed: int, S: int, NP: int, window: int,
     14-15 periods W - 100 and W - lext + 1 (the glue inside a long run);
     row 16 period 64, which divides W, so every candidate's run crosses the
     head, with npos off the 256-position block; row 17 all-equal bytes with
-    npos < lext.  S >= 18, NP >= W + 300.  chip_smoke.py holds a copy."""
+    npos < lext.  S >= 18, NP >= W + 300."""
     W = 1 << window
     data, npos = hazard_rows(seed, S, NP, window)
     rng = np.random.default_rng(seed + 1)
@@ -872,24 +874,52 @@ def test_b4_launches_are_named_and_counted(cuda):
     assert sum("commit_decode_kernel(" in n for n in b4) == 3
 
 
-def test_b4_kernel_on_more_shards_than_a_grid_column(cuda):
-    """One commit group of more shards than CUDA's 65535 blocks a grid
-    column (tiny shards of a container cut small): every shard decodes as
-    the plain version decodes it."""
-    streams = [hazard_stream(90 + i, 10, n_tokens=12 + 5 * i)
-               for i in range(8)]
-    shards = [streams[i % 8][0] for i in range(65536 + 77)]
-    max_out = 2048
-    groups = list(dw.payload_groups([x[1:] for x in shards]))
-    assert len(groups) == 1
-    before = dc.commit_decode.launches
-    got = dw.decode_shards_wavefront(shards, max_out=max_out, device=cuda,
-                                     mode="commit")
-    assert dc.commit_decode.launches == before + 1
-    want = dw.decode_shards_wavefront([x for x, _n in streams],
-                                      max_out=max_out, device="cpu",
-                                      mode="commit")
-    assert [len(w) for w in want] == [n for _x, n in streams]
+GRID_SHARDS = 65536 + 77  # more than the 65535 blocks of a grid column
+# the routes whose kernels take blocks a shard: the kernels (wrappers) each
+# launches once a batch
+GRID_ROUTES = {
+    "commit decode": (dw.parse_words, dc.commit_decode),
+    "chase decode": (dw.parse_words, token_table_chase, dw.trunc_deficits),
+    "v1 device-commit": (v1_tables, commit_fields),
+    "v1 device-commit lazy": (v1_tables, commit_v1_lazy),
+    "device-greedy": (v1_tables, greedy_predict_batch),
+    "device-commit": (ext_tables, commit_fields),
+}
+
+
+@pytest.mark.parametrize("route", GRID_ROUTES)
+def test_kernels_on_more_shards_than_a_grid_column(cuda, route):
+    """One batch of more shards than CUDA's 65535 blocks a grid column
+    (tiny shards of a container cut small), 8 inputs in turns, through
+    each route whose kernels take blocks a shard: one launch of each
+    kernel, and every shard's output what the plain versions make of its
+    input."""
+    if route.endswith("decode"):
+        streams = [hazard_stream(90 + i, 10, n_tokens=12 + 5 * i)
+                   for i in range(8)]
+        inputs = [x for x, _n in streams]
+        assert len(dw.payload_groups([x[1:] for x in inputs])) == 1
+
+        def run(shards, device):
+            return dw.decode_shards_wavefront(
+                shards, max_out=2048, device=device, mode=route.split()[0])
+    else:
+        inputs = [_text(40 + 37 * i, 70 + i) + b"z" * (3 * i)
+                  for i in range(8)]
+        encode = (encode_v1_device_commit if route.startswith("v1") else
+                  encode_ext_device_greedy if route == "device-greedy" else
+                  encode_ext_device_commit)
+
+        def run(shards, device):
+            return encode(shards, window=10, literal=8, device=device,
+                          lazy_matching=route.endswith("lazy"))
+    kernels = GRID_ROUTES[route]
+    before = [k.launches for k in kernels]
+    got = run([inputs[i % 8] for i in range(GRID_SHARDS)], cuda)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * len(
+        kernels)
+    want = run(inputs, "cpu")
+    assert len(got) == GRID_SHARDS
     for i, g in enumerate(got):
         assert g == want[i % 8], i
 
@@ -1191,8 +1221,7 @@ def x1_hazard_rows(seed: int, S: int, T_max: int, W: int):
     n_tr = 31, 32, 33, a deficit at about one token in three and a change
     at token 31; 5 rare deficits and changes at random, n_tr random; 6
     n_tr = T_max, a change at each chunk's first token and a deficit at its
-    last; 7 as 2-4 with n_tr = 127, 128, 129 in turns.  A copy of the
-    generator in chip_smoke.py."""
+    last; 7 as 2-4 with n_tr = 127, 128, 129 in turns."""
     rng = np.random.default_rng(seed)
     t = np.arange(T_max)
     seg = np.zeros((S, T_max), np.int64)
@@ -1290,7 +1319,7 @@ def x2_hazard_streams(window: int, kind: str, n: int = 3):
     more than 8 bytes, of the first stream's second half (the token that
     crosses max_out writes all its ring bytes but only its output bytes
     below max_out); at a multiple of 16 the kernel stores its rows in
-    16-byte units.  chip_smoke.py holds a copy."""
+    16-byte units."""
     more = kind.startswith("more")
     spans = []
     streams, lens = zip(*(hazard_stream(

@@ -3,6 +3,8 @@ JAX package, both directions, plus the port's isolation from JAX."""
 
 import ast
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -13,6 +15,7 @@ import torch
 
 from tamp_tpu import _native
 from tamp_tpu.parallel import shard as jshard
+from tamp_tpu_torch.ops import _build
 from tamp_tpu_torch.parallel import shard as tshard
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -182,3 +185,39 @@ def test_port_imports_no_jax_and_nothing_of_tamp_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _included(name: str) -> set[str]:
+    """The csrc files that source ``name`` includes (``#include "..."``),
+    directly or through another."""
+    seen, todo = set(), [_build._source(name).name]
+    while todo:
+        text = (_build.CSRC / todo.pop()).read_text()
+        for inc in re.findall(r'^#include "([^"]+)"', text, re.M):
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return seen
+
+
+def test_build_deps_list_every_included_csrc_file():
+    """An edited header must rebuild every library that includes it, so
+    ``DEPS`` lists exactly the files each source includes."""
+    for name in _build.SOURCES:
+        assert set(_build.DEPS.get(name, ())) == _included(name), name
+    assert "exit_maps.cuh" in _included("decode_commit")
+    assert _included("stream") == {"greedy_commit.cpp"}
+
+
+@pytest.mark.parametrize("name, dep", sorted(
+    (name, dep) for name, deps in _build.DEPS.items() for dep in deps))
+def test_build_target_changes_with_an_included_file(tmp_path, monkeypatch,
+                                                    name, dep):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._target(name)
+    with open(csrc / dep, "a") as f:
+        f.write("\n")
+    assert _build._target(name) != before
+    assert _build._target(name).parent == before.parent

@@ -237,8 +237,9 @@ def variant_lib(name: str, edit, source: str = "decode_commit",
     cu = _build.BUILD_DIR / f"probe_{name}.cu"
     so = cu.with_suffix(".so")
     cu.write_text(text)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(cu)], check=True, capture_output=True)
+    # the copy includes its csrc headers (exit_maps.cuh) from csrc
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(so), str(cu)], check=True, capture_output=True)
     fn = getattr(ctypes.CDLL(str(so)), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
